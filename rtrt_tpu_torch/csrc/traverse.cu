@@ -1,0 +1,68 @@
+// K1 launcher: standalone ray-scene intersection (one thread per ray).
+//
+// Replaces: rtrt_tpu/bvh/packet.py::packet_intersect -> _kernel ->
+// traverse_tile.  The traversal itself and its cost notes live in
+// traverse.cuh (shared with the megakernel, K2).
+//
+// What bounds it: dependent node/triangle loads per traversal step (see
+// traverse.cuh); the launcher adds one coalesced read of the ray and one
+// write of the 14 output floats per ray.
+//
+// Simple design: 128-thread blocks over a flat ray index; the attribute
+// resolve (shading normal, geometric normal, material) is a direct gather
+// at the winning slot — no distinct-winner loop.
+#include <cuda_runtime.h>
+
+#include "traverse.cuh"
+
+namespace {
+
+__global__ void traverse_kernel(
+    const float* __restrict__ nodes, const float* __restrict__ tris,
+    const float* __restrict__ nrm, const float* __restrict__ ng,
+    const int* __restrict__ mat, const float* __restrict__ org,
+    const float* __restrict__ dir, const float* __restrict__ tmax, int n,
+    int any_hit, float* __restrict__ t_out, int* __restrict__ tri_out,
+    float* __restrict__ u_out, float* __restrict__ v_out,
+    int* __restrict__ mat_out, float* __restrict__ ns_out,
+    float* __restrict__ ng_out, int* overflow) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float3 o = make_float3(org[3 * i], org[3 * i + 1], org[3 * i + 2]);
+  float3 d = make_float3(dir[3 * i], dir[3 * i + 1], dir[3 * i + 2]);
+  rtrt::TraceHit h =
+      rtrt::traverse(nodes, tris, o, d, tmax[i], any_hit != 0, overflow);
+  int m;
+  float3 ns, g;
+  rtrt::hit_attrs(nrm, ng, mat, h, m, ns, g);
+  t_out[i] = h.t;
+  tri_out[i] = h.tri;
+  u_out[i] = h.u;
+  v_out[i] = h.v;
+  mat_out[i] = m;
+  ns_out[3 * i] = ns.x;
+  ns_out[3 * i + 1] = ns.y;
+  ns_out[3 * i + 2] = ns.z;
+  ng_out[3 * i] = g.x;
+  ng_out[3 * i + 1] = g.y;
+  ng_out[3 * i + 2] = g.z;
+}
+
+}  // namespace
+
+extern "C" int rtrt_traverse(const float* nodes, const float* tris,
+                             const float* nrm, const float* ng,
+                             const int* mat, const float* org,
+                             const float* dir, const float* tmax, int n,
+                             int any_hit, float* t, int* tri, float* u,
+                             float* v, int* mat_out, float* ns,
+                             float* ng_out, int* overflow, void* stream) {
+  if (n > 0) {
+    const int block = 128;
+    traverse_kernel<<<(n + block - 1) / block, block, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+        nodes, tris, nrm, ng, mat, org, dir, tmax, n, any_hit, t, tri, u, v,
+        mat_out, ns, ng_out, overflow);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
