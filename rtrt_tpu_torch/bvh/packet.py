@@ -159,11 +159,13 @@ def _cswap(a, b):
 
 
 def traverse_plain(tables: TraceTables, org, dir, t_cap, first_hit,
-                   overflow):
+                   overflow, visits=None):
     """Masked per-ray stack traversal vectorised over rays.
 
     org/dir (N,3), t_cap (N,) f32, first_hit (N,) bool; overflow (1,) i32
-    counter (incremented in place).  Returns (t, tri, u, v)."""
+    counter (incremented in place); visits: optional [node visits, leaf
+    visits] list of ints, incremented in place (the work the rays need,
+    for a kernel's bound).  Returns (t, tri, u, v)."""
     n = org.shape[0]
     dev = org.device
     inv = torch.stack([_safe_inv(dir[:, k]) for k in range(3)], dim=1)
@@ -215,6 +217,9 @@ def traverse_plain(tables: TraceTables, org, dir, t_cap, first_hit,
         node = torch.nonzero(visit & ~is_leaf).squeeze(1)
         ent = cur
         cur = torch.where(alive, -1, cur)
+        if visits is not None:
+            visits[0] += node.numel()
+            visits[1] += leaf.numel()
         if leaf.numel():
             _leaf_visit(tables, leaf, ent[leaf], org, dir, best, tri, hu, hv,
                         sp, first_hit, slots)
@@ -308,15 +313,18 @@ def _resolve(tables, t, tri, u, v) -> PacketHit:
 
 
 def packet_intersect_plain(tables: TraceTables, org, dir, t_max=None, *,
-                           any_hit=False, overflow=None) -> PacketHit:
-    """Plain PyTorch version of the K1 launcher (same arguments)."""
+                           any_hit=False, overflow=None,
+                           visits=None) -> PacketHit:
+    """Plain PyTorch version of the K1 launcher (same arguments; visits as
+    in traverse_plain)."""
     n = org.shape[0]
     if t_max is None:
         t_max = torch.full((n,), math.inf, device=org.device)
     if overflow is None:
         overflow = overflow_counter(org.device)
     first = torch.full((n,), bool(any_hit), device=org.device)
-    t, tri, u, v = traverse_plain(tables, org, dir, t_max, first, overflow)
+    t, tri, u, v = traverse_plain(tables, org, dir, t_max, first, overflow,
+                                  visits)
     return _resolve(tables, t, tri, u, v)
 
 

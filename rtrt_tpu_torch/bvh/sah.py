@@ -2,7 +2,8 @@
 rtrt_tpu/bvh/sah.py).
 
 Builds the flat binary SAH tree with the native C++ builder
-(`rtrt_tpu.content.native.build_sah`, numpy + ctypes, no JAX) where the
+(`content/native.py::build_sah`, numpy + ctypes, built from the port's
+own copy of rtrt_native.cpp) where the
 library loads and with the numpy twin otherwise, collapses subtrees of
 <= 8 triangles into row-aligned 8-slot leaves, and collapses the binary
 tree into 4-wide (q, 32) records for the traversal (`bvh4_nodes`, native
@@ -17,7 +18,7 @@ import ctypes
 import numpy as np
 import torch
 
-from rtrt_tpu.content import native
+from ..content import native
 
 from .types import _LEAF_BIT, BATCH_SIZE, SceneBvh
 

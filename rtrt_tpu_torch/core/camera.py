@@ -27,7 +27,7 @@ class Camera:
 
 
 def make_camera(pos=(0.0, 2.0, -5.0), yaw=0.0, pitch=0.0, fov_y=1.0,
-                aperture=0.0, focal_dist=5.0, device="cpu") -> Camera:
+                aperture=0.0, focal_dist=5.0, device="cuda") -> Camera:
     f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
     return Camera(f(pos), f(yaw), f(pitch), f(fov_y), f(aperture),
                   f(focal_dist))
@@ -48,7 +48,8 @@ def camera_basis(cam: Camera) -> CameraBasis:
     cp, sp = torch.cos(cam.pitch), torch.sin(cam.pitch)
     cy, sy = torch.cos(cam.yaw), torch.sin(cam.yaw)
     forward = vec3(cp * sy, sp, cp * cy).to(cam.pos.device)
-    world_up = torch.tensor([0.0, 1.0, 0.0], device=cam.pos.device)
+    world_up = torch.tensor([0.0, 1.0, 0.0]).to(cam.pos.device,
+                                                 non_blocking=True)
     right = normalize(cross(forward, world_up))
     up = cross(right, forward)
     return CameraBasis(cam.pos, forward, right, up,

@@ -7,8 +7,9 @@ engine/frame.py::render_frame.  The device is explicit: with
 ``device="cuda"`` and no card it raises; it never falls back to the CPU.
 One fixed resolution bucket: the frame renders at the settings' own size.
 
-Settings whose pass is not ported raise NotImplementedError naming the
-setting (ROADMAP.md lists the queue): denoise, bloom, lens_flare,
+With the default FeatureFlags() a frame is denoised (K5, K4), bloomed,
+lens-flared and tone-mapped (K3).  Settings whose pass is not ported raise
+NotImplementedError naming the setting (ROADMAP.md lists the queue):
 interlace, dynamic_resolution.enabled, animation != "none", ocean, stars,
 fourier_textures, sky_model="preetham", load_camera_at_init.
 """
@@ -23,6 +24,7 @@ import torch
 from ..bvh.packet import overflow_counter, pack_tables
 from ..bvh.sah import build_scene_tables_sah, bvh4_nodes
 from ..core.camera import make_camera
+from ..denoise.pipeline import init_history
 from ..post.exposure import init_exposure_state
 from ..render.integrator import SceneData
 from ..render.sky import (bake_sky_maps, finalize_sky_maps, make_sky_params,
@@ -80,7 +82,7 @@ class Engine:
         elif s.scene == "demo":
             self.scene = build_demo_scene()
         elif s.scene.startswith("mesh:"):
-            from rtrt_tpu.content.meshio import load_mesh
+            from ..content.meshio import load_mesh
             self.scene = build_mesh_scene(*load_mesh(s.scene[5:]))
         else:
             raise ValueError(f"unknown scene '{s.scene}'")
@@ -109,7 +111,13 @@ class Engine:
         self.camera = make_camera(pos=(0.0, 8.0, -18.0), yaw=0.0,
                                   pitch=-0.25, fov_y=1.1, device=self.device)
         self.prev_camera = self.camera
-        self.state = FrameState(exposure=init_exposure_state(self.device))
+        history = None
+        if self.flags.denoise:
+            history = init_history(s.render_height, s.render_width,
+                                   half=self.flags.half_history,
+                                   device=self.device)
+        self.state = FrameState(exposure=init_exposure_state(self.device),
+                                history=history)
         self.static = FrameStatic(render_w=s.render_width,
                                   render_h=s.render_height,
                                   screen_w=s.render_width,

@@ -1,6 +1,7 @@
 """Scene assembly: content generation -> padded triangle arrays + materials
-(port of rtrt_tpu/engine/scene.py).  Triangles come from `rtrt_tpu.content`
-(numpy + the optional native library, no JAX)."""
+(port of rtrt_tpu/engine/scene.py).  Triangles come from the port's own
+content pipeline, `rtrt_tpu_torch.content` (numpy, and the native C++ twin
+built from the port's copy of rtrt_native.cpp where a compiler is found)."""
 
 from __future__ import annotations
 
@@ -9,11 +10,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from rtrt_tpu.content.marching import (march_tetrahedra, smooth_normals,
-                                       weld_vertices)
-from rtrt_tpu.content.terrain import generate_world, world_origin
-
 from ..bvh.types import BATCH_SIZE
+from ..content import native
+from ..content.marching import (march_tetrahedra, roundcube_field,
+                                smooth_normals, weld_vertices)
+from ..content.terrain import generate_world, world_origin
 from ..render.bsdf import (MAT_GGX, MAT_GLASS, MAT_LAMBERT, MAT_MIRROR,
                            Materials, make_materials)
 from ..render.light import SphereLights
@@ -57,15 +58,12 @@ def _pad_batch_count(t: int) -> int:
 def build_terrain_scene(settings: GlobalSettings) -> HostScene:
     """Perlin voxel terrain -> marching tetrahedra -> weld -> smooth normals
     (native C++ pipeline when the library loads, numpy twins otherwise)."""
-    from rtrt_tpu.content import native
-
     world = generate_world(chunks_x=settings.terrain_chunks,
                            chunks_y=max(2, settings.terrain_chunks // 2),
                            chunks_z=settings.terrain_chunks,
                            seed=settings.terrain_seed)
     origin = world_origin(world)
     if settings.terrain_style == "roundcube":
-        from rtrt_tpu.content.marching import roundcube_field
         density = roundcube_field(world.solid, rounding=0)
         v0, v1, v2 = march_tetrahedra(density, origin=origin)
         vertices = np.concatenate([v0, v1, v2], axis=0).astype(np.float32)

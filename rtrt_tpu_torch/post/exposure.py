@@ -20,7 +20,11 @@ def log_luminance_histogram(img_small):
     ll = torch.clamp((torch.log2(torch.clamp(lum, min=1e-8)) - LOG_LUM_MIN)
                      / (LOG_LUM_MAX - LOG_LUM_MIN), 0.0, 1.0)
     b0 = torch.floor(ll * (NUM_BINS - 1)).to(torch.int64)
-    hist = torch.bincount(b0, minlength=NUM_BINS).to(torch.float32)
+    # index_add_ of ones: exact counts, and no host sync (bincount on the
+    # card reads the largest bin back to size its output)
+    hist = torch.zeros(NUM_BINS, dtype=torch.float32,
+                       device=lum.device).index_add_(
+        0, b0, torch.ones_like(lum))
     return hist / torch.clamp(hist.sum(), min=1.0)
 
 
@@ -43,7 +47,7 @@ def exposure_compensation(avg_lum):
     return 1.03 - 2.0 / (torch.log2(avg_lum * 1000.0 + 1.0) + 2.0)
 
 
-def init_exposure_state(device="cpu"):
+def init_exposure_state(device="cuda"):
     return torch.tensor([1.0, 0.5, 2.0, 0.0], dtype=torch.float32,
                         device=device)
 
@@ -54,7 +58,8 @@ def auto_exposure(img_small, state, dt, gain):
     hist = log_luminance_histogram(img_small)
     lum, bright = _percentile_mean_lum(hist)
     initialized = state[3] > 0.5
-    dt = torch.as_tensor(dt, dtype=torch.float32, device=state.device)
+    if not torch.is_tensor(dt):  # a fill, not a synchronising copy
+        dt = torch.full((), dt, dtype=torch.float32, device=state.device)
     a = 1.0 - torch.exp(-dt / 1.0)
     adapted = torch.where(initialized, state[1] + (lum - state[1]) * a, lum)
     adapted_b = torch.where(initialized, state[2] + (bright - state[2]) * a,

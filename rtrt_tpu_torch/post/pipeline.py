@@ -1,10 +1,9 @@
-"""Post-processing chain: pyramid -> exposure -> tail (port of
-rtrt_tpu/post/pipeline.py::postprocess).
+"""Post-processing chain: pyramid -> exposure -> bloom -> lens flare ->
+tail (port of rtrt_tpu/post/pipeline.py::postprocess).
 
-Bloom, lens flare and the render-to-screen upscale are not ported yet
-(ROADMAP.md): they raise NotImplementedError rather than being skipped.
-The sun's screen position and visibility, which only the lens flare reads,
-are therefore not taken.
+The tail (tone map, sharpen, dither, u8) is the fused kernel K3.  The
+render-to-screen upscale is not ported yet (ROADMAP.md): it raises
+NotImplementedError rather than being skipped.
 """
 
 from __future__ import annotations
@@ -14,7 +13,9 @@ import torch
 from ..ops.resize import downsample4
 from ..render.sampling import _to_unit_float, blue_noise_mask, hash_pcg, u32
 from ..utils.config import FeatureFlags, PostParams
+from .bloom import bloom
 from .exposure import auto_exposure
+from .lensflare import lens_flare
 from .tail import post_tail, tail_params
 
 
@@ -23,10 +24,11 @@ def dither_mask(device) -> torch.Tensor:
     return torch.from_numpy(blue_noise_mask()[:, :, 0].copy()).to(device)
 
 
-def postprocess(color, exposure_state, dt, p: PostParams,
-                flags: FeatureFlags, out_h: int, out_w: int, frame_idx: int,
-                mask=None):
-    """color: (H,W,3) linear radiance at render size.
+def postprocess(color, exposure_state, dt, sun_uv, sun_visible,
+                p: PostParams, flags: FeatureFlags, out_h: int, out_w: int,
+                frame_idx: int, mask=None):
+    """color: (H,W,3) linear radiance at render size; sun_uv (2,) the sun's
+    screen position and sun_visible a 0-d 0/1 tensor (lens flare only).
     Returns (u8 image (out_h, out_w, 3), new exposure state)."""
     h, w = color.shape[0], color.shape[1]
     small = color
@@ -37,17 +39,18 @@ def postprocess(color, exposure_state, dt, p: PostParams,
         exposure_state = auto_exposure(small, exposure_state, dt,
                                        p.exposure_gain)
         ev = exposure_state[0]
+        bright = exposure_state[2]
     else:
-        ev = p.manual_exposure
+        ev = torch.tensor(p.manual_exposure, dtype=torch.float32,
+                          device=color.device)
+        bright = 2.0 / torch.clamp(ev, min=1e-6)
 
     if flags.bloom:
-        raise NotImplementedError(
-            "FeatureFlags.bloom is not ported yet (see ROADMAP.md); "
-            "use FeatureFlags(bloom=False)")
+        color = bloom(color, bright, p.bloom_strength)
     if flags.lens_flare:
-        raise NotImplementedError(
-            "FeatureFlags.lens_flare is not ported yet (see ROADMAP.md); "
-            "use FeatureFlags(lens_flare=False)")
+        color = color + lens_flare(h, w, sun_uv, sun_visible,
+                                   p.flare_strength) \
+            / torch.clamp(ev, min=1e-6)
     if (out_h, out_w) != (h, w):
         raise NotImplementedError(
             f"output upscale {w}x{h} -> {out_w}x{out_h} is not ported yet "

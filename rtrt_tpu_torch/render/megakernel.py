@@ -291,9 +291,11 @@ def _flat(x, k=None):
 
 def megakernel_trace_plain(tables, mat_rows, light_rows, sun_vec, frame_idx,
                            org, dir, cone, pixel_ids, *, n_lights,
-                           use_proctex=True, bn=None,
-                           overflow=None) -> MegaOut:
-    """Torch twin of the JAX simulate_megakernel on the port's traversal."""
+                           use_proctex=True, bn=None, overflow=None,
+                           visits=None) -> MegaOut:
+    """Torch twin of the JAX simulate_megakernel on the port's traversal
+    (visits: optional [node visits, leaf visits] counts over all segments,
+    as in bvh.packet.traverse_plain)."""
     lead = org.shape[:-1]
     if overflow is None:
         overflow = overflow_counter(org.device)
@@ -316,7 +318,8 @@ def megakernel_trace_plain(tables, mat_rows, light_rows, sun_vec, frame_idx,
         fh = st.is_shadow & ~st.done
         ro = torch.stack(list(st.org), dim=1)
         rd = torch.stack(list(st.dir), dim=1)
-        t, tri, u, v = traverse_plain(tables, ro, rd, t_cap, fh, overflow)
+        t, tri, u, v = traverse_plain(tables, ro, rd, t_cap, fh, overflow,
+                                      visits)
         h = _resolve(tables, t, tri, u, v)
         hit = (h.t, h.tri, h.mat, V3(*h.ns.unbind(1)), V3(*h.ng.unbind(1)))
         st = shade_segment(st, hit, ctx, seg, is_last=(seg == SEGMENTS - 1))

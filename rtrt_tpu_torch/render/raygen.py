@@ -28,8 +28,8 @@ def generate_rays_padded(basis: CameraBasis, width: int, height: int,
     px = (pixel_ids % width).to(torch.float32) + 0.5
     py = torch.div(pixel_ids, width, rounding_mode="floor").to(
         torch.float32) + 0.5
-    size = torch.tensor([width, height], dtype=torch.float32,
-                        device=jitter2.device)
+    size = torch.tensor([width, height], dtype=torch.float32).to(
+        jitter2.device, non_blocking=True)
     uv = (torch.stack([px, py], dim=-1) + jitter2 - 0.5) / size
     d = pixel_to_dir(basis, uv, aspect)
     disk = concentric_disk(lens2) * basis.aperture

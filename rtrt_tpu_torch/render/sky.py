@@ -68,7 +68,7 @@ class SkyParams:
 def make_sky_params(sun_elevation=0.7, sun_azimuth=0.2, sun_intensity=20.0,
                     rayleigh_scale=1.0, mie_scale=1.0, mie_g=0.76,
                     altitude=200.0, ground_albedo=(0.3, 0.25, 0.2),
-                    device="cpu") -> SkyParams:
+                    device="cuda") -> SkyParams:
     f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
     ce, se = torch.cos(f(sun_elevation)), torch.sin(f(sun_elevation))
     ca, sa = torch.cos(f(sun_azimuth)), torch.sin(f(sun_azimuth))

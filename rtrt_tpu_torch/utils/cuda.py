@@ -1,9 +1,10 @@
 """Build, bind and launch the hand-written CUDA kernels of csrc/.
 
-All ``csrc/*.cu`` files are compiled by nvcc into ONE shared library with a
-plain C interface (no PyTorch headers: a build takes seconds, not minutes),
-keyed by a hash of the sources and flags, under ``build/rtrt_tpu_torch/``
-at the repository root, at first use.  The library is loaded with ctypes;
+All ``csrc/*.cu`` files are compiled by nvcc, one process per source, all
+started together, and linked into ONE shared library with a plain C
+interface (no PyTorch headers: a build takes seconds, not minutes), keyed
+by a hash of the sources and flags, under ``build/rtrt_tpu_torch/`` at the
+repository root, at first use.  The library is loaded with ctypes;
 every pointer and the stream go over as ``c_void_p``.  Each C entry point
 launches on the given stream and returns ``cudaGetLastError()``; `launch`
 raises if it is not 0.
@@ -29,10 +30,10 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rtrt_tpu_torch"
 # no --use_fast_math: powf/expf/sqrtf and divisions stay IEEE-accurate
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launch_counts = {"packet_intersect": 0, "megakernel_trace": 0,
-                 "post_tail": 0}
+                 "post_tail": 0, "denoise_wide": 0, "reproject": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +45,9 @@ _SIGNATURES = {
     "rtrt_megakernel": [_P] * 6 + [_I, _P, _I, _P] + [_F] * 4 + [_U]
     + [_P] * 5 + [_I, _I, _I] + [_P, _P] + [_P],
     "rtrt_post_tail": [_P, _I, _I, _P, _P, _I, _I, _P] + [_P],
+    "rtrt_denoise_wide": [_P] * 4 + [_I, _I, _P] + [_I] * 4 + [_F] * 3
+    + [_P] + [_P],
+    "rtrt_reproject": [_P] * 6 + [_I, _I, _I] + [_P] * 6 + [_P],
 }
 
 _lib = None
@@ -78,18 +82,32 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           *map(str, sources)], capture_output=True,
-                          text=True)
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(src.name, p.returncode, text)
+              for src, p, text in zip(sources, procs, logs) if p.returncode]
+    if not failed:
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o",
+                               str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode:
+            failed.append(("link", link.returncode,
+                           link.stdout + link.stderr))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{name} ({rc}):\n{text}" for name, rc, text in failed))
     os.replace(tmp, out)
-    log.write_text(proc.stdout + proc.stderr)
-    build_info.update(path=str(out), seconds=seconds, cached=False,
-                      log=proc.stdout + proc.stderr)
+    text = "".join(logs)
+    log.write_text(text)
+    build_info.update(path=str(out), seconds=seconds, cached=False, log=text)
     return out
 
 

@@ -27,6 +27,13 @@ Tolerances:
     version the same way: 4.3% of hits beyond atol 5e-3, by 0.25-0.5%.
   * K3 post tail: u8 within 1 LSB everywhere and equal on >= 99.9% (a value
     within an ulp of a quantisation step may round either way).
+  * K4 a-trous pass: rtol 1e-4 + atol 1e-5 on >= 99.9% of pixels and
+    rtol 1e-3 + atol 1e-4 on all (the kernel rounds each product and sum as
+    the plain version does; powf / expf are the same library functions,
+    but the compiler may still evaluate them in another way).
+  * K5 reprojection: colour rtol 1e-5 + atol 1e-6 on >= 99.99% of pixels
+    (the same float32 operations in the same order); depth, count,
+    material and ok exactly equal on every pixel.
 """
 
 import numpy as np
@@ -35,6 +42,9 @@ import torch
 
 from rtrt_tpu_torch.bvh import packet as P
 from rtrt_tpu_torch.core.camera import camera_basis
+from rtrt_tpu_torch.denoise.reproject import reproject, reproject_plain
+from rtrt_tpu_torch.denoise.spatial import (edge_aware_pass,
+                                            edge_aware_pass_plain)
 from rtrt_tpu_torch.engine.engine import Engine
 from rtrt_tpu_torch.post.pipeline import dither_mask
 from rtrt_tpu_torch.post.tail import post_tail, post_tail_plain, tail_params
@@ -44,7 +54,7 @@ from rtrt_tpu_torch.render.raygen import generate_rays_padded
 from rtrt_tpu_torch.render.sampling import rand2_bn
 from rtrt_tpu_torch.utils import cuda
 from rtrt_tpu_torch.utils.config import (DynamicResolution, FeatureFlags,
-                                         GlobalSettings)
+                                         GlobalSettings, default_params)
 
 torch.set_num_threads(1)
 W, H = 128, 72
@@ -161,3 +171,82 @@ def test_engine_frames_launch_the_kernels(engine):
     assert int(engine.overflow) == 0
     for f in ("color", "albedo", "normal", "motion"):
         assert torch.isfinite(getattr(engine.last_gbuffer, f)).all(), f
+
+
+def _gbuffer(engine, cuda_device):
+    """A finished G-buffer of the demo scene from the port's own frame."""
+    engine.render_frame_device(1 / 60)
+    torch.cuda.synchronize()
+    return engine.last_gbuffer
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radius,stride,half,parity", [
+    (3, 1, True, 0), (3, 1, True, 1), (2, 3, False, 0), (2, 6, False, 0),
+    (2, 12, False, 0)])
+def test_denoise_wide_kernel_matches_plain(engine, cuda_device, radius,
+                                           stride, half, parity):
+    gb = _gbuffer(engine, cuda_device)
+    args = (gb.color.contiguous(), gb.normal.contiguous(),
+            gb.depth.contiguous(), gb.mat_id.contiguous(),
+            default_params().denoise)
+    kw = dict(radius=radius, stride=stride, half_taps=half, parity=parity)
+    got = edge_aware_pass(*args, **kw)
+    ref = edge_aware_pass_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = (got - ref).abs() - 1e-4 * ref.abs()
+    assert (err.amax(-1) <= 1e-5).float().mean() >= 0.999
+    assert bool((err <= 1e-4 + 9e-4 * ref.abs()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("half", [True, False])
+def test_reproject_kernel_matches_plain(cuda_device, half):
+    rng = np.random.default_rng(5)
+    h, w = 72, 130
+    dt = torch.bfloat16 if half else torch.float32
+    f = lambda *s: torch.from_numpy(rng.uniform(0, 3, s).astype(
+        np.float32)).to(cuda_device, dt)
+    color, color2, count = f(h, w, 3), f(h, w, 3), f(h, w)
+    depth = f(h, w)
+    depth[:10] = float("inf")
+    mat = torch.from_numpy(rng.integers(-1, 4, (h, w)).astype(
+        np.int32)).to(cuda_device)
+    px = np.concatenate([rng.uniform(-1, 1, (h // 4, w, 2)),
+                         rng.uniform(-30, 30, (h // 4, w, 2)),
+                         rng.integers(-4, 4, (h // 4, w, 2)) + 0.5,
+                         rng.uniform(-0.6, 0.6, (h - 3 * (h // 4), w, 2))
+                         * [w, h]])
+    motion = torch.from_numpy((px / [w, h]).astype(np.float32)).to(
+        cuda_device)
+    got = reproject(color, color2, depth, mat, count, motion)
+    wide = lambda x: x.to(torch.float32)
+    ref = reproject_plain(wide(color), wide(color2), wide(depth), mat,
+                          wide(count), motion)
+    torch.cuda.synchronize()
+    for fld in ("color", "color2"):
+        a, b = getattr(got, fld), getattr(ref, fld)
+        close = ((a - b).abs() <= 1e-6 + 1e-5 * b.abs()).all(-1)
+        assert close.float().mean() >= 0.9999, fld
+    for fld in ("depth", "count", "mat_id", "ok"):
+        assert torch.equal(getattr(got, fld), getattr(ref, fld)), fld
+
+
+@pytest.mark.gpu
+def test_engine_default_flags_launch_every_kernel(cuda_device):
+    eng = Engine(GlobalSettings(scene="demo", render_width=W, render_height=H,
+                                dynamic_resolution=DynamicResolution(
+                                    enabled=False)),
+                 flags=FeatureFlags(), device=cuda_device)
+    cuda.reset_launch_counts()
+    for _ in range(3):
+        img = eng.render_frame_device(1 / 60)
+    torch.cuda.synchronize()
+    assert img.shape == (H, W, 3) and img.dtype == torch.uint8
+    counts = cuda.launch_counts
+    assert counts["megakernel_trace"] == 3 and counts["post_tail"] == 3
+    assert counts["denoise_wide"] == 12 and counts["reproject"] == 3
+    assert int(eng.overflow) == 0
+    for fld in ("color", "color2", "depth", "count"):
+        x = getattr(eng.state.history, fld).float()
+        assert not torch.isnan(x).any(), fld

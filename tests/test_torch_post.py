@@ -48,7 +48,7 @@ def test_pyramid_and_exposure():
         js, ts = jdown(js), tdown(ts)
     np.testing.assert_allclose(np.asarray(js), ts.numpy(), rtol=1e-6)
     jst = JE.init_exposure_state()
-    tst = TE.init_exposure_state()
+    tst = TE.init_exposure_state("cpu")
     np.testing.assert_array_equal(np.asarray(jst), tst.numpy())
     for _ in range(3):  # first step initialises, later ones adapt
         jst = JE.auto_exposure(js, jst, jnp.float32(1 / 30), jnp.float32(1.3))
@@ -68,28 +68,24 @@ def test_postprocess_matches(tone, sharpen, dither):
                 sharpen=sharpen, dither=dither)
     tf = TFlags(denoise=False, bloom=False, lens_flare=False,
                 sharpen=sharpen, dither=dither)
-    jst, tst = JE.init_exposure_state(), TE.init_exposure_state()
+    jst, tst = JE.init_exposure_state(), TE.init_exposure_state("cpu")
     for frame in (0, 5):
         ju8, jst = jpost(jnp.asarray(c), jst, jnp.float32(1 / 60),
                          jnp.zeros(2), jnp.float32(0.0), jp, jf, H, W,
                          jnp.uint32(frame), use_pallas=False)
-        tu8, tst = tpost(torch.from_numpy(c), tst, 1 / 60, tp, tf, H, W,
-                         frame)
+        tu8, tst = tpost(torch.from_numpy(c), tst, 1 / 60, torch.zeros(2),
+                         torch.tensor(0.0), tp, tf, H, W, frame)
         assert tu8.dtype == torch.uint8 and tu8.shape == (H, W, 3)
         _u8_close(np.asarray(ju8), tu8.numpy())
         np.testing.assert_allclose(np.asarray(jst), tst.numpy(), rtol=1e-5)
 
 
 def test_unported_passes_raise():
+    """The render-to-screen upscale is the one pass of the chain not
+    ported; bloom and lens flare run (test_torch_bloom_flare.py)."""
     c = torch.from_numpy(_frame(3))
-    st = TE.init_exposure_state()
-    for kw in (dict(bloom=True), dict(lens_flare=True)):
+    st = TE.init_exposure_state("cpu")
+    for oh, ow in ((2 * H, 2 * W), (H, 2 * W)):
         with pytest.raises(NotImplementedError):
-            tpost(c, st, 1 / 60, tparams().post,
-                  TFlags(denoise=False, **{"bloom": False,
-                                           "lens_flare": False, **kw}),
-                  H, W, 0)
-    with pytest.raises(NotImplementedError):
-        tpost(c, st, 1 / 60, tparams().post,
-              TFlags(denoise=False, bloom=False, lens_flare=False),
-              2 * H, 2 * W, 0)
+            tpost(c, st, 1 / 60, torch.zeros(2), torch.tensor(0.0),
+                  tparams().post, TFlags(), oh, ow, 0)

@@ -2,8 +2,11 @@
 package's, BITWISE (same content generator, same native/numpy builders,
 same leaf collapse and 4-wide collapse), on the demo scene and a
 terrain_chunks=1 terrain.  The numpy fallbacks are pinned separately, since
-the native library would otherwise hide them.  The GPU tables (TraceTables)
-built by the port and converted from the JAX build are equal too."""
+the native library would otherwise hide them, and every table test runs
+twice: with each package's native library (the port builds its own from
+its copy of rtrt_native.cpp) and with both libraries disabled, so that
+both sides take their numpy twins.  The GPU tables (TraceTables) built by
+the port and converted from the JAX build are equal too."""
 
 import dataclasses
 
@@ -13,10 +16,12 @@ import torch
 
 from rtrt_tpu.bvh import sah as JS
 from rtrt_tpu.bvh.packet import pack_for_packets
+from rtrt_tpu.content import native as jnative
 from rtrt_tpu.engine import scene as JSC
 from rtrt_tpu.utils.config import GlobalSettings as JGlobalSettings
 from rtrt_tpu_torch.bvh import sah as TS
 from rtrt_tpu_torch.bvh.packet import pack_tables
+from rtrt_tpu_torch.content import native as tnative
 from rtrt_tpu_torch.engine import scene as TSC
 from rtrt_tpu_torch.utils import interop
 from rtrt_tpu_torch.utils.config import GlobalSettings as TGlobalSettings
@@ -31,17 +36,36 @@ def _build(which):
             TSC.build_terrain_scene(TGlobalSettings(terrain_chunks=1)))
 
 
-@pytest.fixture(scope="module", params=["demo", "terrain1"])
+def test_port_builds_its_own_native_library():
+    assert tnative.available()
+    assert str(tnative.BUILD_DIR) in tnative._LIB._name
+
+
+@pytest.fixture(scope="module", params=[
+    ("demo", "native"), ("terrain1", "native"), ("demo", "numpy"),
+    ("terrain1", "numpy")], ids="-".join)
 def scenes(request):
-    jh, th = _build(request.param)
-    jp, tp = JSC.padded_arrays(jh), TSC.padded_arrays(th)
-    jt = JS.build_scene_tables_sah(jh.num_batches, jp["indices"],
-                                   jp["tri_mat"], jp["valid"], jh.vertices,
-                                   jh.normals, leaf_max=8)
-    tt = TS.build_scene_tables_sah(th.num_batches, tp["indices"],
-                                   tp["tri_mat"], tp["valid"], th.vertices,
-                                   th.normals, leaf_max=8)
-    return dict(jh=jh, th=th, jp=jp, tp=tp, jt=jt, tt=tt)
+    which, path = request.param
+    saved = [(m, m._LIB, m._TRIED) for m in (jnative, tnative)]
+    if path == "numpy":
+        for m in (jnative, tnative):
+            m._LIB, m._TRIED = None, True
+    else:
+        assert jnative.available() and tnative.available()
+    try:
+        jh, th = _build(which)
+        jp, tp = JSC.padded_arrays(jh), TSC.padded_arrays(th)
+        jt = JS.build_scene_tables_sah(jh.num_batches, jp["indices"],
+                                       jp["tri_mat"], jp["valid"],
+                                       jh.vertices, jh.normals, leaf_max=8)
+        tt = TS.build_scene_tables_sah(th.num_batches, tp["indices"],
+                                       tp["tri_mat"], tp["valid"],
+                                       th.vertices, th.normals, leaf_max=8)
+        j4, t4 = JS.bvh4_nodes(jt[0]), TS.bvh4_nodes(tt[0])
+    finally:
+        for m, lib, tried in saved:
+            m._LIB, m._TRIED = lib, tried
+    return dict(jh=jh, th=th, jp=jp, tp=tp, jt=jt, tt=tt, j4=j4, t4=t4)
 
 
 def test_host_scene_and_padding_equal(scenes):
@@ -77,8 +101,7 @@ def test_sah_tables_bitwise(scenes):
 
 
 def test_bvh4_nodes_bitwise(scenes):
-    np.testing.assert_array_equal(JS.bvh4_nodes(scenes["jt"][0]),
-                                  TS.bvh4_nodes(scenes["tt"][0]))
+    np.testing.assert_array_equal(scenes["j4"], scenes["t4"])
 
 
 def test_trace_tables_port_build_equals_jax_build(scenes):
@@ -87,8 +110,8 @@ def test_trace_tables_port_build_equals_jax_build(scenes):
     kernel's packed [v0|e1|e2] rows and attribute records."""
     jb, jn, jm = scenes["jt"]
     tb, tn, tm = scenes["tt"]
-    mine = pack_tables(tb, tn, tm, TS.bvh4_nodes(tb))
-    carried = interop.trace_tables_from_jax(jb, jn, jm, JS.bvh4_nodes(jb))
+    mine = pack_tables(tb, tn, tm, scenes["t4"])
+    carried = interop.trace_tables_from_jax(jb, jn, jm, scenes["j4"])
     for f in dataclasses.fields(mine):
         assert torch.equal(getattr(mine, f.name), getattr(carried, f.name)), \
             f.name

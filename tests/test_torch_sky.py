@@ -36,7 +36,8 @@ def skies():
     jp = JS.make_sky_params(sun_elevation=0.5, sun_azimuth=-0.4)
     jmaps = JS.finalize_sky_maps(jax.jit(lambda p: JS.bake_sky_maps(
         p, sky_res=(16, 32), sun_res=(4, 4)))(jp))
-    tp = TS.make_sky_params(sun_elevation=0.5, sun_azimuth=-0.4)
+    tp = TS.make_sky_params(sun_elevation=0.5, sun_azimuth=-0.4,
+                            device="cpu")
     tmaps = TS.finalize_sky_maps(TS.bake_sky_maps(tp, sky_res=(16, 32),
                                                   sun_res=(4, 4)))
     return jp, jmaps, tp, tmaps
