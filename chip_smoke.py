@@ -7,7 +7,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   1. device: the card's name and power limit, whether the port's native
      content library (built from rtrt_tpu_torch/content/native) loaded or
      its numpy twins ran;
-  2. build: nvcc builds the five kernels of csrc/ from this checkout, one
+  2. build: nvcc builds the kernels of csrc/ from this checkout, one
      process per source, and prints ptxas' registers / spills per kernel;
   3. each kernel vs its plain PyTorch version on the card, on the 1080p
      terrain scene's tables and the full 1920x1080 frame's rays: K1
@@ -29,10 +29,21 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      13, K3 13, K4 52, K5 13 after (K1's traversal runs inside K2, so its
      own launcher reads 0); output, G-buffer, history, image and denoise
      checks;
+  7. the traversal-step probes (rtrt_tpu_torch/tools): K6 ubench_step,
+     K7 probe_leaf, K8 probe_cores and K9 its 8-tile grid, each against
+     its plain version on the card in every mode, at the tools' default
+     rows and a cut step count, on the tools' own inputs and (K7-K9) on
+     rays that hit every record; K1 under step caps 2, 4, 8, 16 against
+     the plain traversal under the same cap on every 16th 1080p primary;
+     then, with the launch counters reset, the tools' entry points at
+     their full default steps and reps (ubench_step, probe_leaf,
+     probe_cores, probe_traverse; every mode timed, ns/step beside its
+     floor and the card), and every probe kernel and K1's launcher must
+     read launches;
   --profile adds 6: torch.profiler over 5 main-path frames (device busy
      time, launches per frame, top device ops).
-Prints the card's name and power limit, the per-kernel JSON line, then as
-its last line
+Prints the card's name and power limit, the per-kernel JSON line (K1-K9),
+then as its last line
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX nor of the JAX package.  Exits 1 when CUDA is not
 available.
@@ -41,7 +52,6 @@ available.
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -50,10 +60,6 @@ W, H = 1920, 1080
 WARMUP, TIMED = 3, 10
 SLICE_WARMUP, SLICE_TIMED = 2, 5
 
-# the card's peaks (H100 SXM data sheet, at its 700 W limit): device memory
-# bytes per second, float32 operations per second outside the tensor cores
-HBM_BPS = 3.35e12
-F32_OPS = 67e12
 # float operations counted from the kernels' code (csrc/): a BVH4 node
 # visit is 4 slab tests of 20 (6 sub, 6 mul, 4 min/max, 1 mul, 3 compares)
 # plus the 5-comparator sort and the prune test; a leaf visit is 8
@@ -65,29 +71,11 @@ F32_OPS = 67e12
 # one operation each, so each count is a lower bound.
 NODE_OPS, LEAF_OPS, TAIL_OPS_PX = 86, 8 * 59, 160
 K4_TAP_OPS, K4_PX_OPS, K5_PX_OPS = 21, 10, 280
-
-
-def _ms(fn, iters):
-    """(mean milliseconds per call of fn over `iters` calls after one
-    warm-up call, CUDA events; the last call's result)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(iters):
-        out = fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters, out
-
-
-def _bound(nbytes, ops):
-    """(bound ms, "bytes" or "operations"): the larger of the bytes over
-    the memory rate and the operations over the float32 rate."""
-    t_b, t_o = nbytes / HBM_BPS * 1e3, ops / F32_OPS * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+# (the probes K6-K9 count theirs in their tool modules: LANE_OPS, LEAF_OPS,
+# INT_OPS; every bound is rtrt_tpu_torch/utils/timing.py::bound_ms, whose
+# rates are the H100 SXM data sheet's at 700 W)
+CAPS = (2, 4, 8, 16)  # K1 step caps of phase 7 (probe_traverse's)
+PROBE_CUT = 40  # steps of phase 7's kernel-vs-plain checks
 
 
 def _table_bytes(tables):
@@ -118,6 +106,41 @@ def _t_rounding_bound(tables, tri, o, d):
     return 16 * 2.0 ** -24 * (s_t + t * s_d) / det
 
 
+def _check_k1(name, tables, o, d, a, b):
+    """Assert K1's hits `a` against the plain version's `b` on rays (o, d);
+    return the max abs error of t where the slots agree.
+
+    t tolerance, where the slots agree: rtol 1e-5 plus 4e-6 absolute (the
+    float32 spacing of the terrain's ~64-unit coordinates) on >= 99.99% of
+    the rays, and on every ray the larger of that and twice the a-priori
+    bound on float32 rounding in t.  Kernel and plain version each round
+    within that bound, in different ways (nvcc contracts products into
+    FMA); it exceeds 1e-5 t where Moller-Trumbore is ill-conditioned:
+    grazing rays (at 1080p a few horizon rays with |cos| ~ 0.005-0.02
+    differ by ~2.5e-5 t) and short shadow rays from an origin far from the
+    triangle's v0."""
+    import torch
+    same = a.tri == b.tri
+    frac = same.float().mean().item()
+    fin = same & torch.isfinite(b.t)
+    dt = (a.t - b.t).abs()[fin].double()
+    flat = 1e-5 * b.t.abs()[fin].double() + 4e-6
+    cond = 2 * _t_rounding_bound(tables, b.tri[fin], o[fin], d[fin])
+    worst = (dt / torch.maximum(flat, cond)).max().item() \
+        if fin.any() else 0.0
+    n_flat = int((dt > flat).sum())
+    err = dt.max().item() if fin.any() else 0.0
+    print(f"K1 {name}: {a.tri.numel()} rays, {(b.tri >= 0).sum().item()}"
+          f" hits, tri id equal on {frac:.6f}, t max abs err {err:.3e}; "
+          f"{n_flat} rays beyond 1e-5 t + 4e-6; worst error / rounding "
+          f"bound {worst:.3f}")
+    assert frac >= 0.999, f"K1 {name}: tri ids equal on only {frac}"
+    assert n_flat <= 1e-4 * int(fin.sum()), \
+        f"K1 {name}: t beyond rtol 1e-5 on {n_flat} rays"
+    assert worst <= 1.0, f"K1 {name}: t error beyond bound ({worst})"
+    return err
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -145,6 +168,8 @@ def main() -> int:
     from rtrt_tpu_torch.utils import cuda
     from rtrt_tpu_torch.utils.config import DynamicResolution, \
         FeatureFlags, GlobalSettings, default_params
+    from rtrt_tpu_torch.utils.timing import bound_ms, card as card_line, \
+        time_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -152,10 +177,7 @@ def main() -> int:
 
     # ---- 1. device ----
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    smi = card_line()
     card = f"[{smi}]"
     print(f"device: {kind}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}")
@@ -212,43 +234,15 @@ def main() -> int:
                             overflow=ovf)
     rs = P.packet_intersect_plain(tables, sh_org, sh_dir, any_hit=True)
     torch.cuda.synchronize()
-    # t tolerance, where the slots agree: rtol 1e-5 plus 4e-6 absolute
-    # (the float32 spacing of the terrain's ~64-unit coordinates) on
-    # >= 99.99% of the rays, and on every ray the larger of that and twice
-    # the a-priori bound on float32 rounding in t.  Kernel and plain
-    # version each round within that bound, in different ways (nvcc
-    # contracts products into FMA); it exceeds 1e-5 t where Moller-Trumbore
-    # is ill-conditioned: grazing rays (at 1080p a few horizon rays with
-    # |cos| ~ 0.005-0.02 differ by ~2.5e-5 t) and short shadow rays from an
-    # origin far from the triangle's v0
-    k1_err = 0.0
-    for name, o, d, a, b in (("primary", org, dirs, g, r),
-                             ("shadow", sh_org, sh_dir, gs, rs)):
-        same = a.tri == b.tri
-        frac = same.float().mean().item()
-        fin = same & torch.isfinite(b.t)
-        dt = (a.t - b.t).abs()[fin].double()
-        flat = 1e-5 * b.t.abs()[fin].double() + 4e-6
-        cond = 2 * _t_rounding_bound(tables, b.tri[fin], o[fin], d[fin])
-        worst = (dt / torch.maximum(flat, cond)).max().item() \
-            if fin.any() else 0.0
-        n_flat = int((dt > flat).sum())
-        k1_err = max(k1_err, dt.max().item() if fin.any() else 0.0)
-        print(f"K1 {name}: {a.tri.numel()} rays, {(b.tri >= 0).sum().item()}"
-              f" hits, tri id equal on {frac:.6f}, t max abs err "
-              f"{(dt.max().item() if fin.any() else 0.0):.3e}; {n_flat} "
-              f"rays beyond 1e-5 t + 4e-6; worst error / rounding bound "
-              f"{worst:.3f}")
-        assert frac >= 0.999, f"K1 {name}: tri ids equal on only {frac}"
-        assert n_flat <= 1e-4 * int(fin.sum()), \
-            f"K1 {name}: t beyond rtol 1e-5 on {n_flat} rays"
-        assert worst <= 1.0, f"K1 {name}: t error beyond bound ({worst})"
+    k1_err = max(_check_k1(name, tables, o, d, a, b)
+                 for name, o, d, a, b in (("primary", org, dirs, g, r),
+                                          ("shadow", sh_org, sh_dir, gs, rs)))
     assert int(ovf) == 0, f"K1 stack overflow count {int(ovf)}"
-    k1_ms, _ = _ms(lambda: P.packet_intersect(tables, org, dirs), 10)
-    k1_plain, _ = _ms(lambda: P.packet_intersect_plain(tables, org, dirs), 1)
+    k1_ms = time_ms(lambda: P.packet_intersect(tables, org, dirs), 10)
+    k1_plain = time_ms(lambda: P.packet_intersect_plain(tables, org, dirs), 1)
     n_rays = org.shape[0]
-    k1_bound = _bound(n_rays * (28 + 44) + _table_bytes(tables),
-                      k1_visits[0] * NODE_OPS + k1_visits[1] * LEAF_OPS)
+    k1_bound = bound_ms(n_rays * (28 + 44) + _table_bytes(tables),
+                        k1_visits[0] * NODE_OPS + k1_visits[1] * LEAF_OPS)
     print(f"K1 time, {W}x{H} primary rays: kernel {k1_ms:.3f} ms, plain "
           f"{k1_plain:.1f} ms; {k1_visits[0] / n_rays:.2f} node and "
           f"{k1_visits[1] / n_rays:.2f} leaf visits per ray; bound "
@@ -263,17 +257,17 @@ def main() -> int:
     ovf.zero_()
     a = M.megakernel_trace(*args, n_lights=n_lights, bn=consts.bn,
                            overflow=ovf)
-    k2_ms, _ = _ms(lambda: M.megakernel_trace(*args, n_lights=n_lights,
+    k2_ms = time_ms(lambda: M.megakernel_trace(*args, n_lights=n_lights,
                                               bn=consts.bn), 5)
     k2_visits = [0, 0]
     b = M.megakernel_trace_plain(*args, n_lights=n_lights, bn=consts.bn,
                                  visits=k2_visits)
-    k2_plain, _ = _ms(lambda: M.megakernel_trace_plain(
+    k2_plain = time_ms(lambda: M.megakernel_trace_plain(
         *args, n_lights=n_lights, bn=consts.bn), 1)
     # bytes: rays, cone, pixel id, blue-noise pair in; 18 planes out.
     # Operations: the traversal of all 5 segments only (shading excluded)
-    k2_bound = _bound(W * H * (40 + 72) + _table_bytes(tables),
-                      k2_visits[0] * NODE_OPS + k2_visits[1] * LEAF_OPS)
+    k2_bound = bound_ms(W * H * (40 + 72) + _table_bytes(tables),
+                        k2_visits[0] * NODE_OPS + k2_visits[1] * LEAF_OPS)
     print(f"K2 time, {W}x{H}: kernel {k2_ms:.3f} ms, plain {k2_plain:.1f} "
           f"ms; {k2_visits[0] / (W * H):.2f} node and "
           f"{k2_visits[1] / (W * H):.2f} leaf visits per pixel over the "
@@ -336,11 +330,11 @@ def main() -> int:
     eq = (du.amax(-1) == 0).float().mean().item()
     print(f"K3 {W}x{H}: max |du8| {int(du.max())}, equal on {eq:.6f}")
     assert int(du.max()) <= 1 and eq >= 0.999, "K3 disagrees with plain"
-    k3_ms, _ = _ms(lambda: post_tail(final, par, mask, do_sharpen=True,
+    k3_ms = time_ms(lambda: post_tail(final, par, mask, do_sharpen=True,
                                      do_dither=True), 50)
-    k3_plain, _ = _ms(lambda: post_tail_plain(
+    k3_plain = time_ms(lambda: post_tail_plain(
         final, par, mask, do_sharpen=True, do_dither=True), 5)
-    k3_bound = _bound(W * H * (12 + 3), W * H * TAIL_OPS_PX)
+    k3_bound = bound_ms(W * H * (12 + 3), W * H * TAIL_OPS_PX)
     print(f"K3 time, {W}x{H}: kernel {k3_ms:.3f} ms, plain {k3_plain:.3f} ms"
           f"; bound {k3_bound[0]:.4f} ms ({k3_bound[1]}) {card}")
 
@@ -361,8 +355,8 @@ def main() -> int:
         err = (got - ref).abs()
         within = ((err - 1e-4 * ref.abs()).amax(-1) <= 1e-5).float().mean()
         k4_err = max(k4_err, err.max().item())
-        t_k, _ = _ms(lambda: edge_aware_pass(*gb_in, **kw), 20)
-        t_p, _ = _ms(lambda: edge_aware_pass_plain(*gb_in, **kw), 3)
+        t_k = time_ms(lambda: edge_aware_pass(*gb_in, **kw), 20)
+        t_p = time_ms(lambda: edge_aware_pass_plain(*gb_in, **kw), 3)
         if label != "7x7 parity 1":  # the four passes of a frame
             k4_ms.append(t_k)
             k4_plain.append(t_p)
@@ -374,7 +368,7 @@ def main() -> int:
     k4_ms, k4_plain = sum(k4_ms) / 4, sum(k4_plain) / 4
     # per pass: 25 taps (the 7x7 half kernel keeps 25 of 49); colour,
     # normal, depth, material in (32 B) and colour out (12 B) per pixel
-    k4_bound = _bound(W * H * 44, W * H * (25 * K4_TAP_OPS + K4_PX_OPS))
+    k4_bound = bound_ms(W * H * 44, W * H * (25 * K4_TAP_OPS + K4_PX_OPS))
     print(f"K4 mean of a frame's four passes: kernel {k4_ms:.4f} ms, plain "
           f"{k4_plain:.3f} ms; bound {k4_bound[0]:.4f} ms ({k4_bound[1]}) "
           f"{card}")
@@ -422,12 +416,12 @@ def main() -> int:
               f" of pixels")
         assert min(fr.values()) >= 0.9999, f"K5 {label} colour {fr}"
         assert all(exact.values()), f"K5 {label} nearest planes {exact}"
-    k5_ms, _ = _ms(lambda: reproject(*hist, mv_cam), 20)
-    k5_plain, _ = _ms(lambda: reproject_plain(
+    k5_ms = time_ms(lambda: reproject(*hist, mv_cam), 20)
+    k5_plain = time_ms(lambda: reproject_plain(
         wide(hist[0]), wide(hist[1]), wide(hist[2]), hist[3], wide(hist[4]),
         mv_cam), 3)
     # 8 bf16 planes + mat i32 + motion 2 x f32 in; 9 f32 planes + ok out
-    k5_bound = _bound(W * H * (28 + 37), W * H * K5_PX_OPS)
+    k5_bound = bound_ms(W * H * (28 + 37), W * H * K5_PX_OPS)
     print(f"K5 time, {W}x{H}: kernel {k5_ms:.4f} ms, plain {k5_plain:.3f} ms"
           f"; bound {k5_bound[0]:.4f} ms ({k5_bound[1]}) {card}")
 
@@ -514,18 +508,23 @@ def main() -> int:
           f"{v_raw:.4e}, denoised {v_den:.4e}")
     assert v_den < v_raw, "the denoised frame is not smoother than the raw"
 
+    # ---- 7. the traversal-step probes and K1's step cap ----
+    probes, probe_counts, k1_cap_err = _probes(card, tables, org, dirs)
+
     if "--profile" in sys.argv[1:]:
         _profile(main, pan, card)
 
     route = "cuda"
     kernels = [
-        dict(name="K1 traverse (BVH4 per-thread stack; on the main path its "
-             "traversal runs inside K2, so its own launcher reads 0)",
+        dict(name="K1 traverse (BVH4 per-thread stack; in the frame its "
+             "traversal runs inside K2 and its launcher reads 0 there: "
+             "launches are probe_traverse's, phase 7)",
              route=route, source="rtrt_tpu_torch/csrc/traverse.cu",
              replaces="rtrt_tpu/bvh/packet.py:1104",
-             launches=counts["packet_intersect"], max_abs_err=k1_err,
-             ms=k1_ms, plain_ms=k1_plain, bound_ms=k1_bound[0],
-             bound_by=k1_bound[1], library_ms=None),
+             launches=probe_counts["packet_intersect"],
+             max_abs_err=max(k1_err, k1_cap_err), ms=k1_ms,
+             plain_ms=k1_plain, bound_ms=k1_bound[0], bound_by=k1_bound[1],
+             library_ms=None),
         dict(name="K2 megakernel (5-segment path trace, K1's traversal "
              "inside)", route=route,
              source="rtrt_tpu_torch/csrc/megakernel.cu",
@@ -553,12 +552,161 @@ def main() -> int:
              launches=counts["reproject"], max_abs_err=k5_err,
              ms=k5_ms, plain_ms=k5_plain, bound_ms=k5_bound[0],
              bound_by=k5_bound[1], library_ms=None),
-    ]
+    ] + probes
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _probes(card, tables, org, dirs):
+    """Phase 7: the traversal-step probes K6-K9 and K1's step cap.  Returns
+    (the kernels-line entries of K6-K9, the launch counts of the tools'
+    run, K1's max abs t error under caps)."""
+    import torch
+    from rtrt_tpu_torch.bvh import packet as P
+    from rtrt_tpu_torch.tools import probe_cores as PC
+    from rtrt_tpu_torch.tools import probe_leaf as PL
+    from rtrt_tpu_torch.tools import probe_traverse as PT
+    from rtrt_tpu_torch.tools import ubench_step as U
+    from rtrt_tpu_torch.utils import cuda
+    from rtrt_tpu_torch.utils.timing import time_ms
+
+    dev = "cuda"
+    t0 = time.perf_counter()
+    err = dict.fromkeys(("K6", "K7", "K8", "K9"), 0.0)
+
+    def same(key, label, got, ref, rtol=0.0):
+        # the tests' tolerances (tests/test_torch_probes.py): K6 rtol 2^-20
+        # beyond loop and fetch, K7-K9 bit-equal, visit counts equal
+        torch.cuda.synchronize()
+        e = (got - ref).abs()
+        bad = int((e > rtol * ref.abs()).sum())
+        err[key] = max(err[key], e.max().item())
+        assert bad == 0, f"{key} {label}: {bad} values beyond rtol {rtol}"
+
+    # 7a. every mode of each probe kernel against its plain version, at
+    # the tools' default rows and a cut step count
+    tab, ox = U.tool_inputs(64, dev)
+    for m in U.MODES:
+        same("K6", m, U.step_probe(m, tab, ox, PROBE_CUT),
+             U.step_probe_plain(m, tab, ox, PROBE_CUT),
+             0.0 if m in ("loop", "fetch") else 2.0 ** -20)
+    for recipe in ("tool", "hit"):
+        make = PL.tool_inputs if recipe == "tool" else PL.hit_inputs
+        tab, planes = make(32, dev)
+        for m in PL.MODES:
+            same("K7", f"{recipe} {m}",
+                 PL.leaf_probe(m, tab, planes, PROBE_CUT),
+                 PL.leaf_probe_plain(m, tab, planes, PROBE_CUT))
+        make = PC.tool_inputs if recipe == "tool" else PC.hit_inputs
+        ntab, ttab, planes = make(32, device=dev)
+        p1 = planes[:, 0].contiguous()
+        for m in PC.MODES:
+            (g, gv), (r, rv) = (f(m, ntab, ttab, p1, PROBE_CUT) for f in (
+                PC.cores_probe, PC.cores_probe_plain))
+            same("K8", f"{recipe} {m}", g, r)
+            assert torch.equal(gv, rv), f"K8 {recipe} {m}: visits {gv} {rv}"
+        ntab, ttab, planes = make(32, 8, True, device=dev)
+        (g, gv), (r, rv) = (f("both", ntab, ttab, planes, PROBE_CUT // 2)
+                            for f in (PC.cores_probe_grid,
+                                      PC.cores_probe_grid_plain))
+        same("K9", recipe, g, r)
+        assert torch.equal(gv, rv), f"K9 {recipe}: visits differ"
+    print(f"K6-K9 vs plain on the card, every mode, the tools' rows, "
+          f"{PROBE_CUT} steps (K9 8 tiles, {PROBE_CUT // 2}), the tools' "
+          f"inputs and (K7-K9) rays that hit every record: max abs err "
+          f"{err}")
+
+    # 7b. K1 under step caps against the plain traversal under the same cap
+    o, d = org[::16].contiguous(), dirs[::16].contiguous()
+    cap_err = 0.0
+    for cap in CAPS:
+        a = P.packet_intersect(tables, o, d, max_steps=cap, count_steps=True)
+        b = P.packet_intersect_plain(tables, o, d, max_steps=cap,
+                                     count_steps=True)
+        torch.cuda.synchronize()
+        cap_err = max(cap_err, _check_k1(f"cap {cap}", tables, o, d, a, b))
+        eq = (a.steps == b.steps).float().mean().item()
+        print(f"K1 cap {cap}: steps equal on {eq:.6f} of rays, "
+              f"{int(a.steps.sum())} visits in all")
+        assert int(a.steps.max()) <= cap and eq >= 0.999, f"K1 cap {cap}"
+
+    # 7c. the tools' entry points at their default steps and reps, launch
+    # counters reset just before and read just after
+    cuda.reset_launch_counts()
+    res6 = {r["mode"]: r for r in U.main([])}
+    res7 = {r["mode"]: r for r in PL.main([])}
+    for m in PL.MODES:
+        if m not in res7:
+            ns, floor = PL.run(m, 32)
+            res7[m] = dict(mode=m, ns=ns, floor_ns=floor)
+            print(f"{m:>7}: {ns:8.1f} ns/visit  floor {floor:8.1f} ns/visit "
+                  f"{card}")
+    res8 = PC.main([])
+    for m in PC.MODES[1:]:
+        ns, floor = PC.run(m, 32)
+        print(f"  1-tile, small tables, {m}: {ns:8.1f} ns/step  floor "
+              f"{floor:8.1f} ns/step {card}")
+    PT.main([])
+    counts = dict(cuda.launch_counts)
+    print(f"launch counts of the probe tools' run: {counts}")
+    for k in ("probe_step", "probe_leaf", "probe_cores", "probe_cores_grid",
+              "packet_intersect"):
+        assert counts[k] > 0, f"{k} launched no time in the tools' run"
+
+    # 7d. the plain versions at the defaults, and each kernel's bound
+    tab, ox = U.tool_inputs(64, dev)
+    k6_plain = time_ms(lambda: U.step_probe_plain("cond12", tab, ox, 4000),
+                       1, 0)
+    tab, planes = PL.tool_inputs(32, dev)
+    k7_plain = time_ms(lambda: PL.leaf_probe_plain("full", tab, planes, 400),
+                       1, 0)
+    ntab, ttab, planes = PC.tool_inputs(32, device=dev)
+    p1 = planes[:, 0].contiguous()
+    k8_plain = time_ms(lambda: PC.cores_probe_plain("both", ntab, ttab, p1,
+                                                    400), 1, 0)
+    k8_bound = PC.bound(ntab, ttab, p1,
+                        PC.cores_probe("both", ntab, ttab, p1, 400)[1])
+    big = PC.tool_inputs(32, 8, True, device=dev)
+    k9_plain = time_ms(lambda: PC.cores_probe_grid_plain("both", *big, 200),
+                       1, 0)
+    k9_bound = PC.bound(*big, PC.cores_probe_grid("both", *big, 200)[1])
+    print(f"plain versions at the defaults: K6 cond12 {k6_plain:.1f} ms, K7 "
+          f"full {k7_plain:.1f} ms, K8 both {k8_plain:.1f} ms, K9 both "
+          f"{k9_plain:.1f} ms; phase 7 took {time.perf_counter() - t0:.1f} s "
+          f"{card}")
+
+    def entry(name, source, replaces, key, count, ms, plain, bound):
+        return dict(name=name, route="cuda",
+                    source="rtrt_tpu_torch/csrc/" + source,
+                    replaces=replaces, launches=counts[count],
+                    max_abs_err=err[key], ms=ms, plain_ms=plain,
+                    bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+
+    entries = [
+        entry("K6 ubench_step (traversal-step microbenchmark, one block per "
+              "64x128 tile; ms per launch in mode cond12, 4000 steps)",
+              "probe_step.cu", "tools/ubench_step.py:152", "K6", "probe_step",
+              res6["cond12"]["ns"] * 4000 / 1e6, k6_plain,
+              U.bound("cond12", 64, 4000)),
+        entry("K7 probe_leaf (leaf-visit replica, one block per 32x128 tile; "
+              "ms per launch in mode full, 400 steps)", "probe_leaf.cu",
+              "tools/probe_leaf.py:179", "K7", "probe_leaf",
+              res7["full"]["ns"] * 400 / 1e6, k7_plain,
+              PL.bound("full", 32, 400)),
+        entry("K8 probe_cores (full traversal step, one 32x128 tile; ms per "
+              "launch in mode both, 400 steps)", "probe_cores.cu",
+              "tools/probe_cores.py:218", "K8", "probe_cores",
+              res8[0]["ns"] * 400 / 1e6, k8_plain, k8_bound),
+        entry("K9 probe_cores grid (8 tiles on 8 SMs, (4608,128) tables in "
+              "global memory; ms per launch, mode both, 200 steps)",
+              "probe_cores.cu", "tools/probe_cores.py:248", "K9",
+              "probe_cores_grid", res8[1]["ns"] * 200 * 8 / 1e6, k9_plain,
+              k9_bound),
+    ]
+    return entries, counts, cap_err
 
 
 def _profile(eng, pan, card, frames=5):

@@ -97,6 +97,7 @@ class PacketHit:
     mat: torch.Tensor  # (N,) i32 material id (0 on miss)
     ns: torch.Tensor   # (N,3) interpolated shading normal (not normalised)
     ng: torch.Tensor   # (N,3) unit geometric normal (unoriented)
+    steps: torch.Tensor | None = None  # (N,) i32 visits (count_steps)
 
 
 def overflow_counter(device) -> torch.Tensor:
@@ -159,13 +160,16 @@ def _cswap(a, b):
 
 
 def traverse_plain(tables: TraceTables, org, dir, t_cap, first_hit,
-                   overflow, visits=None):
+                   overflow, visits=None, max_steps=None, steps=None):
     """Masked per-ray stack traversal vectorised over rays.
 
     org/dir (N,3), t_cap (N,) f32, first_hit (N,) bool; overflow (1,) i32
     counter (incremented in place); visits: optional [node visits, leaf
     visits] list of ints, incremented in place (the work the rays need,
-    for a kernel's bound).  Returns (t, tri, u, v)."""
+    for a kernel's bound); max_steps: optional cap on each ray's node +
+    leaf visits (pops pruned by their entry distance do not count): a ray
+    stops there with the best hit found so far; steps: optional (N,) int
+    tensor that receives each ray's visits.  Returns (t, tri, u, v)."""
     n = org.shape[0]
     dev = org.device
     inv = torch.stack([_safe_inv(dir[:, k]) for k in range(3)], dim=1)
@@ -198,10 +202,14 @@ def traverse_plain(tables: TraceTables, org, dir, t_cap, first_hit,
     drops = torch.zeros((), dtype=torch.int64, device=dev)
     lanes = torch.arange(n, device=dev)
     slots = torch.arange(LEAF_WIDTH, device=dev)
-
+    counting = max_steps is not None or steps is not None
+    cap = math.inf if max_steps is None else max_steps
+    nsteps = torch.zeros(n, dtype=torch.int64, device=dev)
 
     while True:
         alive = (cur >= 0) | (sp > 0)
+        if counting:
+            alive &= nsteps < cap
         if not bool(alive.any()):
             break
         need = alive & (cur < 0)
@@ -220,6 +228,8 @@ def traverse_plain(tables: TraceTables, org, dir, t_cap, first_hit,
         if visits is not None:
             visits[0] += node.numel()
             visits[1] += leaf.numel()
+        if counting:
+            nsteps += visit.to(nsteps.dtype)
         if leaf.numel():
             _leaf_visit(tables, leaf, ent[leaf], org, dir, best, tri, hu, hv,
                         sp, first_hit, slots)
@@ -227,6 +237,8 @@ def traverse_plain(tables: TraceTables, org, dir, t_cap, first_hit,
             drops = drops + _node_visit(tables, node, ent[node], org, inv,
                                         best, st_e, st_t, sp, cur, curt)
     overflow += drops.to(overflow.dtype)
+    if steps is not None:
+        steps.copy_(nsteps)
     return torch.where(tri >= 0, best, inf), tri, hu, hv
 
 
@@ -313,8 +325,8 @@ def _resolve(tables, t, tri, u, v) -> PacketHit:
 
 
 def packet_intersect_plain(tables: TraceTables, org, dir, t_max=None, *,
-                           any_hit=False, overflow=None,
-                           visits=None) -> PacketHit:
+                           any_hit=False, overflow=None, visits=None,
+                           max_steps=None, count_steps=False) -> PacketHit:
     """Plain PyTorch version of the K1 launcher (same arguments; visits as
     in traverse_plain)."""
     n = org.shape[0]
@@ -323,9 +335,13 @@ def packet_intersect_plain(tables: TraceTables, org, dir, t_max=None, *,
     if overflow is None:
         overflow = overflow_counter(org.device)
     first = torch.full((n,), bool(any_hit), device=org.device)
+    steps = torch.zeros(n, dtype=torch.int32, device=org.device) \
+        if count_steps else None
     t, tri, u, v = traverse_plain(tables, org, dir, t_max, first, overflow,
-                                  visits)
-    return _resolve(tables, t, tri, u, v)
+                                  visits, max_steps, steps)
+    hit = _resolve(tables, t, tri, u, v)
+    hit.steps = steps
+    return hit
 
 
 # ---------------------------------------------------------------------------
@@ -334,13 +350,22 @@ def packet_intersect_plain(tables: TraceTables, org, dir, t_max=None, *,
 
 
 def packet_intersect(tables: TraceTables, org, dir, t_max=None, *,
-                     any_hit=False, overflow=None) -> PacketHit:
+                     any_hit=False, overflow=None, max_steps=None,
+                     count_steps=False) -> PacketHit:
     """Trace (N,3) rays: closest hit under t_max, or (any_hit=True) each
     ray's first accepted hit.  CPU tensors run the plain version; CUDA
-    tensors launch K1 (csrc/traverse.cu)."""
+    tensors launch K1 (csrc/traverse.cu).
+
+    max_steps caps each ray's own node + leaf visits (the TPU kernel's
+    max_steps caps the steps of a whole tile's shared loop, so equal values
+    are not comparable); count_steps returns each ray's visits in
+    PacketHit.steps (the JAX kernel writes its tile's count into the mat
+    plane instead).  Either runs the counting variant of the kernel."""
     if org.device.type == "cpu":
         return packet_intersect_plain(tables, org, dir, t_max,
-                                      any_hit=any_hit, overflow=overflow)
+                                      any_hit=any_hit, overflow=overflow,
+                                      max_steps=max_steps,
+                                      count_steps=count_steps)
     n = org.shape[0]
     dev = org.device
     if t_max is None:
@@ -354,6 +379,9 @@ def packet_intersect(tables: TraceTables, org, dir, t_max=None, *,
     _check_tables(tables, dev)
     f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
     i32 = lambda *s: torch.empty(s, dtype=torch.int32, device=dev)
+    counting = max_steps is not None or count_steps
+    steps = i32(n) if counting else None
+    cap = 2 ** 31 - 1 if max_steps is None else int(max_steps)
     out = PacketHit(t=f32(n), tri=i32(n), u=f32(n), v=f32(n), mat=i32(n),
                     ns=f32(n, 3), ng=f32(n, 3))
     lib = cuda.library()
@@ -361,7 +389,9 @@ def packet_intersect(tables: TraceTables, org, dir, t_max=None, *,
                 tables.nodes, tables.tris, tables.nrm, tables.ng, tables.mat,
                 org, dir, t_max, ctypes.c_int(n), ctypes.c_int(int(any_hit)),
                 out.t, out.tri, out.u, out.v, out.mat, out.ns, out.ng,
-                overflow)
+                ctypes.c_int(cap), steps, overflow)
+    if count_steps:
+        out.steps = steps
     return out
 
 

@@ -1,0 +1,130 @@
+// Shared pieces of the traversal-step probes K6-K9 (probe_step.cu,
+// probe_leaf.cu, probe_cores.cu).
+//
+// Each probe runs ONE thread block per (rows, 128) ray tile, as the TPU
+// kernel runs one tile: the probes' outputs depend on tile-wide state (a
+// tile-wide max or min every step, one scalar stack steering every lane),
+// so a per-thread form would compute another function.  A thread carries
+// L lanes (a compile-time count); lane j of thread t is element
+// t + j * blockDim.x of the tile.  Tile-wide reductions are warp shuffles
+// plus one shared-memory exchange; every thread then holds the same
+// value, so each scalar the tile shares (bound, stack pointer, popped
+// entry) is the same in every thread and every branch on it is uniform.
+//
+// Arithmetic: products go through __fmul_rn so that nvcc never contracts
+// a product and a sum into one FMA; each operation then rounds as the
+// plain PyTorch version's does, and kernel and plain version agree bit for
+// bit.  No fast math.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace probe {
+
+constexpr float RAY_TMIN = 1e-4f;
+
+__device__ __forceinline__ float mul(float a, float b) {
+  return __fmul_rn(a, b);
+}
+
+template <int N, bool kMax>
+__device__ __forceinline__ void warp_reduce(float (&v)[N]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float o = __shfl_xor_sync(0xffffffffu, v[n], off);
+      v[n] = kMax ? fmaxf(v[n], o) : fminf(v[n], o);
+    }
+  }
+}
+
+// Tile-wide min (kMax false) or max of N values per thread; every thread
+// returns with the tile's results in v.  Each warp reduces its lanes with
+// shuffles, warp 0 reduces the warps' partials the same way, and the
+// result goes back through shared memory: two barriers.  red: RED_FLOATS
+// floats of shared memory; the results sit after the partials of the
+// widest call, so calls of different N may follow each other.  Inputs are
+// never NaN here (fminf / fmaxf drop NaN where jnp.min would propagate it).
+constexpr int RED_MAX_N = 4;
+constexpr int RED_FLOATS = 32 * RED_MAX_N + RED_MAX_N;
+
+template <int N, bool kMax>
+__device__ __forceinline__ void block_reduce(float (&v)[N], float* red) {
+  static_assert(N <= RED_MAX_N, "block_reduce: at most RED_MAX_N values");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  warp_reduce<N, kMax>(v);
+  if (lane == 0) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) red[warp * N + n] = v[n];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const float id = kMax ? -CUDART_INF_F : CUDART_INF_F;
+    float p[N];
+#pragma unroll
+    for (int n = 0; n < N; ++n) p[n] = lane < nw ? red[lane * N + n] : id;
+    warp_reduce<N, kMax>(p);
+    if (lane == 0) {
+#pragma unroll
+      for (int n = 0; n < N; ++n) red[32 * RED_MAX_N + n] = p[n];
+    }
+  }
+  __syncthreads();
+  // the next call writes its result only after its first barrier, which
+  // every thread reaches after this read
+#pragma unroll
+  for (int n = 0; n < N; ++n) v[n] = red[32 * RED_MAX_N + n];
+}
+
+// Slab test of one ray (origin o, inverse direction i) against the box
+// [lo xyz | hi xyz] at b, as the probes' slab(): entry distance in tn.
+__device__ __forceinline__ bool slab(const float* b, float ox, float oy,
+                                     float oz, float ix, float iy, float iz,
+                                     float best, float& tn) {
+  const float n0 = ((ix < 0.0f ? b[3] : b[0]) - ox) * ix;
+  const float n1 = ((iy < 0.0f ? b[4] : b[1]) - oy) * iy;
+  const float n2 = ((iz < 0.0f ? b[5] : b[2]) - oz) * iz;
+  const float f0 = ((ix < 0.0f ? b[0] : b[3]) - ox) * ix;
+  const float f1 = ((iy < 0.0f ? b[1] : b[4]) - oy) * iy;
+  const float f2 = ((iz < 0.0f ? b[2] : b[5]) - oz) * iz;
+  tn = fmaxf(fmaxf(n0, n1), n2);
+  const float tf = fminf(fminf(f0, f1), f2);
+  return (tn <= tf) && (tf > RAY_TMIN) && (tn < best);
+}
+
+// One triangle record [v0 | e1 | e2] against one ray: Moller-Trumbore with
+// the division-free accept of tools/probe_leaf.py::tri_hit (and
+// probe_cores.py::tri_hit, the same code); t in t.
+__device__ __forceinline__ bool tri_hit(const float (&v)[9], float ox,
+                                        float oy, float oz, float dx,
+                                        float dy, float dz, float best,
+                                        float& t) {
+  const float v0x = v[0], v0y = v[1], v0z = v[2];
+  const float e1x = v[3], e1y = v[4], e1z = v[5];
+  const float e2x = v[6], e2y = v[7], e2z = v[8];
+  const float px = ox - v0x, py = oy - v0y, pz = oz - v0z;
+  const float hx = mul(dy, e2z) - mul(dz, e2y);
+  const float hy = mul(dz, e2x) - mul(dx, e2z);
+  const float hz = mul(dx, e2y) - mul(dy, e2x);
+  const float det = mul(e1x, hx) + mul(e1y, hy) + mul(e1z, hz);
+  const float uq = mul(px, hx) + mul(py, hy) + mul(pz, hz);
+  const float qx = mul(py, e1z) - mul(pz, e1y);
+  const float qy = mul(pz, e1x) - mul(px, e1z);
+  const float qz = mul(px, e1y) - mul(py, e1x);
+  const float vq = mul(dx, qx) + mul(dy, qy) + mul(dz, qz);
+  const float tq = mul(e2x, qx) + mul(e2y, qy) + mul(e2z, qz);
+  const float adet = fabsf(det);
+  const float sg = det > 0.0f ? 1.0f : (det < 0.0f ? -1.0f : 0.0f);
+  const float u_s = mul(uq, sg), v_s = mul(vq, sg), t_s = mul(tq, sg);
+  const bool ok = (det != 0.0f) && (u_s >= 0.0f) && (v_s >= 0.0f) &&
+                  (u_s + v_s <= adet) && (t_s > mul(RAY_TMIN, adet)) &&
+                  (t_s < mul(best, adet));
+  const float inv = det != 0.0f ? 1.0f / det : 0.0f;
+  t = mul(tq, inv);
+  return ok;
+}
+
+}  // namespace probe

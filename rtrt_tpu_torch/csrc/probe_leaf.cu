@@ -1,0 +1,195 @@
+// K7: a replica of the traversal kernel's leaf visit, one thread block per
+// ray tile.
+//
+// Replaces: tools/probe_leaf.py::make_kernel (pallas_call at
+// probe_leaf.py:179).  Every step pops a record row index from a
+// 128-entry scalar stack (filled with (i * 7) % 120), tests the tile's rays
+// against the 8 triangle records of that row of `tab` (Moller-Trumbore,
+// running best per lane) and takes the tile-wide max of the new best as
+// the prune bound.  Modes (a template parameter each):
+//   full    the whole visit, under the two data-dependent branches
+//   nored   no tile-wide max (bound stays 1e9)
+//   noextr  record values replaced by literals (same math)
+//   nomath  records read, Moller-Trumbore replaced by a 7-product sum
+//   nocond  full without the branches
+//   rec2    2 records instead of 8
+//   dep     the popped index depends on the previous step's bound
+//   fat     the leaf visit beside an internal-visit-sized branch (4 slab
+//           tests + 4 tile-wide mins; never taken: the stack holds < 120)
+//   carry4  fat plus 3 planes computed from best, threaded through the
+//           branches and dropped (dead, so the same code as fat here)
+// out = best + bound.
+//
+// What bounds it on the H100: float issue of 8 x ~60 operations per lane
+// per visit on the one SM that runs the tile, plus the barriers of one
+// tile-wide max; the record row is a uniform load that hits L1.
+//
+// Design: 4 lanes per thread, rows * 32 threads (1024 at the default 32
+// rows); the stack lives in shared memory; bound is the same in every
+// thread after the reduction, so every branch on it is uniform.
+#include "probe_common.cuh"
+
+namespace {
+
+constexpr int L = 4;  // lanes per thread
+
+enum Mode { FULL, NORED, NOEXTR, NOMATH, NOCOND, REC2, DEP, FAT, CARRY4,
+            NMODES };
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz;
+};
+
+// the 8-record visit of row `base`: best per lane, bound (tile max)
+template <int kMode>
+__device__ __forceinline__ void leaf_visit(const float* __restrict__ tab,
+                                           int base, const Ray (&r)[L],
+                                           float (&best)[L], float& bound,
+                                           float* red) {
+  constexpr int NREC = kMode == REC2 ? 2 : 8;
+  const float* row = tab + base * 128;
+  float gt[L];
+#pragma unroll
+  for (int j = 0; j < L; ++j) gt[j] = CUDART_INF_F;
+#pragma unroll
+  for (int rec = 0; rec < NREC; ++rec) {
+    float v[9];
+    if constexpr (kMode == NOEXTR) {
+      const float lit[9] = {0.1f, 0.2f, 0.3f, 1.0f, 0.0f, 0.1f,
+                            0.0f, 1.0f, 0.1f};
+#pragma unroll
+      for (int c = 0; c < 9; ++c) v[c] = lit[c];
+    } else {
+#pragma unroll
+      for (int c = 0; c < 9; ++c) v[c] = __ldg(row + 16 * rec + c);
+    }
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      float tt;
+      bool ok;
+      if constexpr (kMode == NOMATH) {
+        using probe::mul;
+        tt = mul(r[j].ox, v[0]) + mul(r[j].oy, v[1]) + mul(r[j].oz, v[2]) +
+             mul(r[j].dx, v[3]) + mul(r[j].dy, v[4]) + mul(r[j].dz, v[5]) +
+             v[6];
+        ok = tt > 0.5f;
+      } else {
+        ok = probe::tri_hit(v, r[j].ox, r[j].oy, r[j].oz, r[j].dx, r[j].dy,
+                            r[j].dz, best[j], tt);
+      }
+      if (ok && tt < gt[j]) gt[j] = tt;
+    }
+  }
+  float m[1] = {-CUDART_INF_F};
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    best[j] = gt[j] < best[j] ? gt[j] : best[j];
+    m[0] = fmaxf(m[0], best[j]);
+  }
+  if constexpr (kMode != NORED) {
+    probe::block_reduce<1, true>(m, red);
+    bound = m[0];
+  }
+}
+
+// the internal-visit-sized branch of fat / carry4 (tools/probe_leaf.py::
+// slab_like): 4 slab tests against row 0, bound = min(bound, sum of the
+// 4 tile-wide minima)
+__device__ __forceinline__ void slab_like(const float* __restrict__ tab,
+                                          const Ray (&r)[L],
+                                          const float (&best)[L],
+                                          float& bound, float* red) {
+  float m[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float lo0 = __ldg(tab + 6 * c), lo1 = __ldg(tab + 6 * c + 1);
+    const float lo2 = __ldg(tab + 6 * c + 2), hi0 = __ldg(tab + 6 * c + 3);
+    const float hi1 = __ldg(tab + 6 * c + 4), hi2 = __ldg(tab + 6 * c + 5);
+    m[c] = CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      const float tn = fmaxf(fmaxf((lo0 - r[j].ox) * r[j].dx,
+                                   (lo1 - r[j].oy) * r[j].dy),
+                             (lo2 - r[j].oz) * r[j].dz);
+      const float tf = fminf(fminf((hi0 - r[j].ox) * r[j].dx,
+                                   (hi1 - r[j].oy) * r[j].dy),
+                             (hi2 - r[j].oz) * r[j].dz);
+      if (tn <= tf && tn < best[j]) m[c] = fminf(m[c], tn);
+    }
+  }
+  probe::block_reduce<4, false>(m, red);
+  bound = fminf(bound, m[0] + m[1] + m[2] + m[3]);
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(1024)
+    leaf_kernel(const float* __restrict__ tab,
+                const float* __restrict__ planes, float* __restrict__ out,
+                int steps) {
+  __shared__ int stack[128];
+  __shared__ float red[probe::RED_FLOATS];
+  const int n = blockDim.x, lanes = n * L;
+  for (int i = threadIdx.x; i < 128; i += n) stack[i] = (i * 7) % 120;
+  __syncthreads();
+  Ray r[L];
+  float best[L];
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const float* p = planes + threadIdx.x + j * n;
+    r[j] = Ray{p[0], p[lanes], p[2 * lanes], p[3 * lanes], p[4 * lanes],
+               p[5 * lanes]};
+    best[j] = 1e9f;
+  }
+  float bound = 1e9f;
+  for (int k = 0; k < steps; ++k) {
+    // dep: the index depends on the previous visit's tile-wide max (a
+    // truncating cast of |bound|, as jnp.int32)
+    const int base =
+        kMode == DEP ? stack[(k + static_cast<int>(fabsf(bound)) % 7) % 128]
+                     : stack[k % 128];
+    if constexpr (kMode == NOCOND) {
+      leaf_visit<kMode>(tab, base, r, best, bound, red);
+    } else if constexpr (kMode == FAT || kMode == CARRY4) {
+      // carry4's three planes (best x 1.01, 1.02, 1.03) pass through the
+      // branches and are dropped after them: they are dead in the function,
+      // and a register carried across a uniform branch costs nothing here,
+      // so carry4 compiles to fat
+      if (bound > -1e30f) {
+        if (base >= 120)
+          slab_like(tab, r, best, bound, red);
+        else
+          leaf_visit<kMode>(tab, base, r, best, bound, red);
+      }
+    } else {
+      if (bound > -1e30f && base >= 0)
+        leaf_visit<kMode>(tab, base, r, best, bound, red);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < L; ++j) out[threadIdx.x + j * n] = best[j] + bound;
+}
+
+template <int kMode>
+cudaError_t launch(const float* tab, const float* planes, float* out,
+                   int rows, int steps, cudaStream_t s) {
+  leaf_kernel<kMode><<<1, rows * 128 / L, 0, s>>>(tab, planes, out, steps);
+  return cudaGetLastError();
+}
+
+using Launcher = cudaError_t (*)(const float*, const float*, float*, int,
+                                 int, cudaStream_t);
+constexpr Launcher kLaunch[NMODES] = {
+    launch<FULL>, launch<NORED>, launch<NOEXTR>, launch<NOMATH>,
+    launch<NOCOND>, launch<REC2>, launch<DEP>, launch<FAT>, launch<CARRY4>};
+
+}  // namespace
+
+// mode: index into rtrt_tpu_torch/tools/probe_leaf.py::MODES; planes:
+// (6, rows, 128) ox oy oz dx dy dz; rows: a multiple of 8 up to 32
+extern "C" int rtrt_probe_leaf(int mode, const float* tab,
+                               const float* planes, float* out, int rows,
+                               int steps, void* stream) {
+  if (mode < 0 || mode >= NMODES) return cudaErrorInvalidValue;
+  return static_cast<int>(kLaunch[mode](tab, planes, out, rows, steps,
+                                        static_cast<cudaStream_t>(stream)));
+}

@@ -17,6 +17,8 @@
 
 namespace {
 
+// kCount: cap each ray at max_steps visits and write its visits to steps
+template <bool kCount>
 __global__ void traverse_kernel(
     const float* __restrict__ nodes, const float* __restrict__ tris,
     const float* __restrict__ nrm, const float* __restrict__ ng,
@@ -25,13 +27,16 @@ __global__ void traverse_kernel(
     int any_hit, float* __restrict__ t_out, int* __restrict__ tri_out,
     float* __restrict__ u_out, float* __restrict__ v_out,
     int* __restrict__ mat_out, float* __restrict__ ns_out,
-    float* __restrict__ ng_out, int* overflow) {
+    float* __restrict__ ng_out, int max_steps, int* __restrict__ steps,
+    int* overflow) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float3 o = make_float3(org[3 * i], org[3 * i + 1], org[3 * i + 2]);
   float3 d = make_float3(dir[3 * i], dir[3 * i + 1], dir[3 * i + 2]);
-  rtrt::TraceHit h =
-      rtrt::traverse(nodes, tris, o, d, tmax[i], any_hit != 0, overflow);
+  int visits;
+  rtrt::TraceHit h = rtrt::traverse<kCount>(
+      nodes, tris, o, d, tmax[i], any_hit != 0, overflow, max_steps, &visits);
+  if (kCount) steps[i] = visits;
   int m;
   float3 ns, g;
   rtrt::hit_attrs(nrm, ng, mat, h, m, ns, g);
@@ -50,19 +55,28 @@ __global__ void traverse_kernel(
 
 }  // namespace
 
+// steps: nullptr for the plain traversal; else (n,) visits per ray, each
+// ray capped at max_steps
 extern "C" int rtrt_traverse(const float* nodes, const float* tris,
                              const float* nrm, const float* ng,
                              const int* mat, const float* org,
                              const float* dir, const float* tmax, int n,
                              int any_hit, float* t, int* tri, float* u,
                              float* v, int* mat_out, float* ns,
-                             float* ng_out, int* overflow, void* stream) {
+                             float* ng_out, int max_steps, int* steps,
+                             int* overflow, void* stream) {
   if (n > 0) {
     const int block = 128;
-    traverse_kernel<<<(n + block - 1) / block, block, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-        nodes, tris, nrm, ng, mat, org, dir, tmax, n, any_hit, t, tri, u, v,
-        mat_out, ns, ng_out, overflow);
+    const int grid = (n + block - 1) / block;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (steps == nullptr)
+      traverse_kernel<false><<<grid, block, 0, s>>>(
+          nodes, tris, nrm, ng, mat, org, dir, tmax, n, any_hit, t, tri, u,
+          v, mat_out, ns, ng_out, max_steps, steps, overflow);
+    else
+      traverse_kernel<true><<<grid, block, 0, s>>>(
+          nodes, tris, nrm, ng, mat, org, dir, tmax, n, any_hit, t, tri, u,
+          v, mat_out, ns, ng_out, max_steps, steps, overflow);
   }
   return static_cast<int>(cudaGetLastError());
 }

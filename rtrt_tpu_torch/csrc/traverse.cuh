@@ -108,11 +108,20 @@ __device__ __forceinline__ void cswap(Cand& a, Cand& b) {
 
 // Closest hit under t_cap (t_cap <= 0: no hit), or with first_hit the first
 // accepted leaf hit.  overflow: device counter of dropped pushes.
+// kCount (the standalone launcher's variant that
+// rtrt_tpu_torch/tools/probe_traverse.py times): the ray stops after
+// max_steps node or leaf visits (pops pruned by their entry distance do not
+// count) and writes its visits to *steps.  K2 uses the default kCount =
+// false, which compiles to the loop without counter.
+template <bool kCount = false>
 static __device__ TraceHit traverse(const float* __restrict__ nodes,
                              const float* __restrict__ tris, float3 o,
                              float3 d, float t_cap, bool first_hit,
-                             int* overflow) {
+                             int* overflow, int max_steps = 0,
+                             int* steps = nullptr) {
   TraceHit hit{CUDART_INF_F, -1, 0.0f, 0.0f};
+  int visits = 0;
+  if (kCount) *steps = 0;
   if (!(t_cap > 0.0f)) return hit;
   float3 inv = make_float3(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
 
@@ -152,6 +161,7 @@ static __device__ TraceHit traverse(const float* __restrict__ nodes,
   int cur = 0;
   float curt = -CUDART_INF_F;
   while (true) {
+    if (kCount && visits >= max_steps) break;
     if (cur < 0) {
       if (sp == 0) break;
       --sp;
@@ -161,6 +171,7 @@ static __device__ TraceHit traverse(const float* __restrict__ nodes,
     const int e = cur;
     cur = -1;
     if (!(curt < best)) continue;  // pruned: entry beyond the best hit
+    if (kCount) ++visits;
     if (e & LEAF_BIT) {
       const int base = ((e >> 11) & 0x7FF) * 1024 + (e & 0x7FF);
       float gt = CUDART_INF_F, gu = 0.0f, gv = 0.0f;
@@ -223,6 +234,7 @@ static __device__ TraceHit traverse(const float* __restrict__ nodes,
     }
   }
   if (hit.tri >= 0) hit.t = best;
+  if (kCount) *steps = visits;
   return hit;
 }
 

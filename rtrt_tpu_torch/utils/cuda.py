@@ -33,7 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launch_counts = {"packet_intersect": 0, "megakernel_trace": 0,
-                 "post_tail": 0, "denoise_wide": 0, "reproject": 0}
+                 "post_tail": 0, "denoise_wide": 0, "reproject": 0,
+                 "probe_step": 0, "probe_leaf": 0, "probe_cores": 0,
+                 "probe_cores_grid": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,13 +43,17 @@ _F = ctypes.c_float
 _U = ctypes.c_uint
 # C signatures (the last argument of each is the cudaStream_t)
 _SIGNATURES = {
-    "rtrt_traverse": [_P] * 8 + [_I, _I] + [_P] * 8 + [_P],
+    "rtrt_traverse": [_P] * 8 + [_I, _I] + [_P] * 7 + [_I, _P, _P] + [_P],
     "rtrt_megakernel": [_P] * 6 + [_I, _P, _I, _P] + [_F] * 4 + [_U]
     + [_P] * 5 + [_I, _I, _I] + [_P, _P] + [_P],
     "rtrt_post_tail": [_P, _I, _I, _P, _P, _I, _I, _P] + [_P],
     "rtrt_denoise_wide": [_P] * 4 + [_I, _I, _P] + [_I] * 4 + [_F] * 3
     + [_P] + [_P],
     "rtrt_reproject": [_P] * 6 + [_I, _I, _I] + [_P] * 6 + [_P],
+    "rtrt_probe_step": [_I, _P, _P, _P, _P, _I, _I] + [_P],
+    "rtrt_probe_leaf": [_I, _P, _P, _P, _I, _I] + [_P],
+    "rtrt_probe_cores": [_I] + [_P] * 5 + [_I, _I] + [_P],
+    "rtrt_probe_cores_grid": [_I] + [_P] * 5 + [_I, _I, _I] + [_P],
 }
 
 _lib = None

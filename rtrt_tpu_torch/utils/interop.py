@@ -5,7 +5,8 @@ Every function takes the JAX package's structures (any object whose fields
 convert with `numpy.asarray`, e.g. jax arrays) and returns the port's
 dataclasses of torch tensors.  This module imports neither jax nor any JAX
 module: the conversion goes through numpy, so tests can feed both packages
-identical inputs.
+identical inputs.  Like every entry point of the port, the converters put
+the tables on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -21,20 +22,20 @@ from ..render.light import SphereLights
 from ..render.sky import SkyMaps, SkyParams
 
 
-def _t(x, device="cpu", dtype=None):
+def _t(x, device="cuda", dtype=None):
     a = np.array(np.asarray(x), copy=True)
     t = torch.from_numpy(a).to(device)
     return t if dtype is None else t.to(dtype)
 
 
-def bvh_from_jax(bvh, device="cpu") -> SceneBvh:
+def bvh_from_jax(bvh, device="cuda") -> SceneBvh:
     return SceneBvh(*(_t(getattr(bvh, f), device) for f in (
         "boxes_t", "children_t", "tris_t", "sorted_tri_index", "root_lo",
         "root_hi")))
 
 
 def trace_tables_from_jax(bvh, tri_nrm_t, sorted_mat, nodes4,
-                          device="cpu") -> TraceTables:
+                          device="cuda") -> TraceTables:
     """SAH SceneBvh + sorted normals/materials + raw (q, 32) BVH4 records
     (rtrt_tpu.bvh.sah.bvh4_nodes, before pack_nodes4) -> TraceTables."""
     return pack_tables(bvh_from_jax(bvh, device), _t(tri_nrm_t, device),
@@ -42,7 +43,7 @@ def trace_tables_from_jax(bvh, tri_nrm_t, sorted_mat, nodes4,
                        _t(nodes4, device, torch.float32))
 
 
-def sky_from_jax(sky, device="cpu") -> SkyMaps:
+def sky_from_jax(sky, device="cuda") -> SkyMaps:
     p = sky.params
     params = SkyParams(*(_t(getattr(p, f), device, torch.float32) for f in (
         "sun_dir", "sun_intensity", "rayleigh_scale", "mie_scale", "mie_g",
@@ -56,7 +57,7 @@ def sky_from_jax(sky, device="cpu") -> SkyMaps:
                    sun_trans=_t(sky.sun_trans, device), env_fit=env_fit)
 
 
-def materials_from_jax(m, device="cpu") -> Materials:
+def materials_from_jax(m, device="cuda") -> Materials:
     return Materials(
         mtype=_t(m.mtype, device, torch.int32),
         albedo=_t(m.albedo, device, torch.float32),
@@ -67,7 +68,7 @@ def materials_from_jax(m, device="cpu") -> Materials:
         textured=_t(m.textured, device, torch.int32))
 
 
-def lights_from_jax(lights, device="cpu"):
+def lights_from_jax(lights, device="cuda"):
     if lights is None:
         return None
     return SphereLights(center=_t(lights.center, device, torch.float32),
@@ -75,10 +76,10 @@ def lights_from_jax(lights, device="cpu"):
                         emission=_t(lights.emission, device, torch.float32))
 
 
-def camera_from_jax(c, device="cpu") -> Camera:
+def camera_from_jax(c, device="cuda") -> Camera:
     return Camera(*(_t(getattr(c, f), device, torch.float32) for f in (
         "pos", "yaw", "pitch", "fov_y", "aperture", "focal_dist")))
 
 
-def exposure_from_jax(e, device="cpu") -> torch.Tensor:
+def exposure_from_jax(e, device="cuda") -> torch.Tensor:
     return _t(e, device, torch.float32)

@@ -87,15 +87,15 @@ def _render_both(jflags, tflags, cams):
         th.num_batches, tpad["indices"], tpad["tri_mat"], tpad["valid"],
         th.vertices, th.normals, leaf_max=8)
     scene = SceneData(tables=pack_tables(bvh, nrm, mat, bvh4_nodes(bvh)),
-                      materials=th.materials, sky=interop.sky_from_jax(sky),
-                      lights=th.lights)
+                      materials=th.materials,
+                      sky=interop.sky_from_jax(sky, "cpu"), lights=th.lights)
     tstatic = TF.FrameStatic(render_w=W, render_h=H, screen_w=W, screen_h=H,
                              flags=tflags)
     history = (tinit_history(H, W, half=tflags.half_history, device="cpu")
                if tflags.denoise else None)
     tstate = TF.FrameState(exposure=interop.exposure_from_jax(
-        init_exposure_state()), history=history)
-    tcams = [interop.camera_from_jax(c) for c in cams]
+        init_exposure_state(), "cpu"), history=history)
+    tcams = [interop.camera_from_jax(c, "cpu") for c in cams]
     ovf = overflow_counter("cpu")
     got = []
     for prev, cam in zip(tcams, tcams[1:]):

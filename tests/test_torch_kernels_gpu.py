@@ -34,6 +34,13 @@ Tolerances:
   * K5 reprojection: colour rtol 1e-5 + atol 1e-6 on >= 99.99% of pixels
     (the same float32 operations in the same order); depth, count,
     material and ok exactly equal on every pixel.
+  * K1 under a step cap (max_steps / count_steps): as K1, and each ray's
+    visit count equal on >= 99.9% of rays and never above the cap.
+  * K6-K9, the traversal-step probes (rtrt_tpu_torch/tools): the tolerances
+    of tests/test_torch_probes.py — K6 exact in loop and fetch and rtol
+    2^-20 in the other modes, K7-K9 bit-equal with equal visit counts (the
+    kernels round every product on its own, as torch does), on the tools'
+    own inputs and on rays that hit every record.
 """
 
 import numpy as np
@@ -52,6 +59,7 @@ from rtrt_tpu_torch.render import megakernel as M
 from rtrt_tpu_torch.render.kshade import pack_materials_rows
 from rtrt_tpu_torch.render.raygen import generate_rays_padded
 from rtrt_tpu_torch.render.sampling import rand2_bn
+from rtrt_tpu_torch.tools import probe_cores, probe_leaf, ubench_step
 from rtrt_tpu_torch.utils import cuda
 from rtrt_tpu_torch.utils.config import (DynamicResolution, FeatureFlags,
                                          GlobalSettings, default_params)
@@ -250,3 +258,101 @@ def test_engine_default_flags_launch_every_kernel(cuda_device):
     for fld in ("color", "color2", "depth", "count"):
         x = getattr(eng.state.history, fld).float()
         assert not torch.isnan(x).any(), fld
+
+
+def _random_rays(cuda_device, n=8192, seed=21):
+    rng = np.random.default_rng(seed)
+    org = rng.uniform(-6, 6, (n, 3)) + [0, 3, -9]
+    d = rng.uniform(-4, 4, (n, 3)) + [0, 1, 0] - org
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return [torch.from_numpy(x.astype(np.float32)).to(cuda_device)
+            for x in (org, d)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [2, 1 << 20])
+def test_traverse_cap_matches_plain(engine, cuda_device, cap):
+    org, d = _random_rays(cuda_device)
+    tables = engine.scene_data.tables
+    got = P.packet_intersect(tables, org, d, max_steps=cap, count_steps=True)
+    ref = P.packet_intersect_plain(tables, org, d, max_steps=cap,
+                                   count_steps=True)
+    free = P.packet_intersect(tables, org, d)
+    torch.cuda.synchronize()
+    assert got.steps.dtype == torch.int32 and free.steps is None
+    assert int(got.steps.max()) <= cap
+    assert (got.steps == ref.steps).float().mean() >= 0.999
+    same = got.tri == ref.tri
+    assert same.float().mean() >= 0.999
+    torch.testing.assert_close(got.t[same], ref.t[same], rtol=1e-5, atol=0)
+    binding = bool((ref.steps == cap).any())
+    assert binding == (cap == 2)
+    if not binding:  # a cap that never binds changes no hit
+        assert (got.tri == free.tri).float().mean() >= 0.999
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [8, 64])
+@pytest.mark.parametrize("mode", ubench_step.MODES)
+def test_probe_step_kernel_matches_plain(cuda_device, mode, rows):
+    tab, ox = ubench_step.tool_inputs(rows, cuda_device)
+    got = ubench_step.step_probe(mode, tab, ox, 50)
+    ref = ubench_step.step_probe_plain(mode, tab, ox, 50)
+    torch.cuda.synchronize()
+    rtol = 0.0 if mode in ("loop", "fetch") else 2.0 ** -20
+    torch.testing.assert_close(got, ref, rtol=rtol, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [8, 32])
+@pytest.mark.parametrize("mode", probe_leaf.MODES)
+def test_probe_leaf_kernel_matches_plain(cuda_device, mode, rows):
+    for make in (probe_leaf.tool_inputs, probe_leaf.hit_inputs):
+        tab, planes = make(rows, cuda_device)
+        got = probe_leaf.leaf_probe(mode, tab, planes, 50)
+        ref = probe_leaf.leaf_probe_plain(mode, tab, planes, 50)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [8, 32])
+@pytest.mark.parametrize("mode", probe_cores.MODES)
+def test_probe_cores_kernel_matches_plain(cuda_device, mode, rows):
+    for make in (probe_cores.tool_inputs, probe_cores.hit_inputs):
+        ntab, ttab, planes = make(rows, device=cuda_device)
+        planes = planes[:, 0].contiguous()
+        got, gv = probe_cores.cores_probe(mode, ntab, ttab, planes, 50)
+        ref, rv = probe_cores.cores_probe_plain(mode, ntab, ttab, planes, 50)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref) and torch.equal(gv, rv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,tiles,big", [(8, 2, False), (32, 8, True)])
+def test_probe_cores_grid_kernel_matches_plain(cuda_device, rows, tiles,
+                                               big):
+    for make in (probe_cores.tool_inputs, probe_cores.hit_inputs):
+        ntab, ttab, planes = make(rows, tiles, big, device=cuda_device)
+        got, gv = probe_cores.cores_probe_grid("both", ntab, ttab, planes, 50)
+        ref, rv = probe_cores.cores_probe_grid_plain("both", ntab, ttab,
+                                                     planes, 50)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref) and torch.equal(gv, rv)
+
+
+@pytest.mark.gpu
+def test_probe_wrappers_check_their_inputs(cuda_device):
+    tab, ox = ubench_step.tool_inputs(8, cuda_device)
+    with pytest.raises(ValueError, match="rows"):
+        ubench_step.step_probe("loop", tab, torch.zeros(
+            (12, 128), device=cuda_device), 4)
+    with pytest.raises(ValueError, match="mode"):
+        ubench_step.step_probe("fast", tab, ox, 4)
+    ntab, ttab, planes = probe_cores.tool_inputs(8, device=cuda_device)
+    with pytest.raises(ValueError, match="need >= 512"):
+        probe_cores.cores_probe("both", ntab[:256].contiguous(), ttab,
+                                planes[:, 0].contiguous(), 4)
+    with pytest.raises(ValueError, match="planes"):
+        probe_cores.cores_probe_grid("both", ntab, ttab,
+                                     planes[:, 0].contiguous(), 4)

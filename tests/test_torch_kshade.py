@@ -162,7 +162,7 @@ def sky():
 def test_sun_nee(data, sky):
     u = data["u"]
     jsun = _unpack_sun(lambda i: jpack_sun(sky)[i])
-    tsun = TK.SunParamsC(tpack_sun(sky_from_jax(sky)))
+    tsun = TK.SunParamsC(tpack_sun(sky_from_jax(sky, "cpu")))
     jw, jr, jp = JK.sample_sun_c(jsun, jnp.asarray(u[:, 0]),
                                  jnp.asarray(u[:, 1]))
     tw, tr, tp = TK.sample_sun_c(tsun, torch.from_numpy(u[:, 0]),
@@ -215,7 +215,7 @@ def test_sphere_lights(data, lights):
     p = rng.uniform(-8, 8, (N, 3)).astype(np.float32)
     li = rng.integers(0, 2, N).astype(np.int32)
     jrows = jpack_lights(lights)
-    trows = tpack_lights(lights_from_jax(lights), "cpu")
+    trows = tpack_lights(lights_from_jax(lights, "cpu"), "cpu")
     np.testing.assert_array_equal(np.asarray(jrows), trows.numpy())
     jres = JK.sample_sphere_light_c(lambda i: jrows[i], 2, jnp.asarray(li),
                                     jv(p), jnp.asarray(u[:, 0]),
@@ -245,7 +245,7 @@ def test_material_select():
     from rtrt_tpu.engine.scene import default_materials
     from rtrt_tpu_torch.utils.interop import materials_from_jax
     jm = default_materials()
-    tm: Materials = materials_from_jax(jm)
+    tm: Materials = materials_from_jax(jm, "cpu")
     jrows = JK.pack_materials_rows(jm)
     trows = TK.pack_materials_rows(tm)
     np.testing.assert_array_equal(np.asarray(jrows), trows.numpy())

@@ -98,9 +98,9 @@ def setup():
         host.num_batches, pad["indices"], pad["tri_mat"], pad["valid"],
         host.vertices, host.normals, leaf_max=8)
     tscene = dict(tables=pack_tables(bvh, nrm, mat, bvh4_nodes(bvh)),
-                  materials=interop.materials_from_jax(host.materials),
-                  lights=interop.lights_from_jax(host.lights),
-                  sky=interop.sky_from_jax(sky))
+                  materials=interop.materials_from_jax(host.materials, "cpu"),
+                  lights=interop.lights_from_jax(host.lights, "cpu"),
+                  sky=interop.sky_from_jax(sky, "cpu"))
     cam = make_camera(pos=(0.0, 3.0, -9.0), pitch=-0.15)
     return jscene, tscene, cam
 
@@ -123,7 +123,7 @@ def _run(setup, use_bn, frame=3):
     trays = Rays(*(torch.from_numpy(np.array(x)) for x in rays))
     return ref, trays, (None if bn is None
                         else torch.from_numpy(np.array(bn))), \
-        tbasis(interop.camera_from_jax(cam))
+        tbasis(interop.camera_from_jax(cam, "cpu"))
 
 
 def _plain(ts, trays, bn, frame, device="cpu"):

@@ -70,7 +70,7 @@ def test_generate_rays_padded(aperture):
     ref = JR.generate_rays_padded(jbasis(cam), w, h, jnp.asarray(pix),
                                   jit_j, lens_j)
     got = TR.generate_rays_padded(
-        tbasis(camera_from_jax(cam)), w, h, torch.from_numpy(pix),
+        tbasis(camera_from_jax(cam, "cpu")), w, h, torch.from_numpy(pix),
         torch.from_numpy(np.array(jit_j)),
         torch.from_numpy(np.array(lens_j)))
     for f in ("org", "dir", "uv", "cone_width"):

@@ -111,7 +111,8 @@ def test_trace_tables_port_build_equals_jax_build(scenes):
     jb, jn, jm = scenes["jt"]
     tb, tn, tm = scenes["tt"]
     mine = pack_tables(tb, tn, tm, scenes["t4"])
-    carried = interop.trace_tables_from_jax(jb, jn, jm, scenes["j4"])
+    carried = interop.trace_tables_from_jax(jb, jn, jm, scenes["j4"],
+                                             "cpu")
     for f in dataclasses.fields(mine):
         assert torch.equal(getattr(mine, f.name), getattr(carried, f.name)), \
             f.name

@@ -93,7 +93,7 @@ def test_env_fit_and_eval_match(skies):
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     d[:8] = np.asarray(jm.sun_dir)  # sun-disk lanes
     # evaluation of one fit (carried over) on both sides
-    carried = sky_from_jax(jm)
+    carried = sky_from_jax(jm, "cpu")
     ref = np.asarray(JS.env_radiance_fit(jm, jnp.asarray(d)))
     got = TS.env_radiance_fit(carried, torch.from_numpy(d)).numpy()
     np.testing.assert_allclose(ref, got, rtol=RTOL, atol=1e-6)
