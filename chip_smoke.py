@@ -40,9 +40,20 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      probe_cores, probe_traverse; every mode timed, ns/step beside its
      floor and the card), and every probe kernel and K1's launcher must
      read launches;
+  8. the hardware probes (rtrt_tpu_torch/tools): K10 probe_cond, K11 /
+     K12 probe_smem, K13 probe_pressure, K14 probe_broadcast, K15
+     probe_xpose, K16 probe_bf16, every mode against its plain version on
+     the card at the tools' rows and a cut step count, on every input
+     recipe of tests/test_torch_hw_probes.py (bit-equal; K10's three modes
+     and K15's two agree); K11 at the card's shared-memory edge (accepted
+     at 48 KB and at the opt-in maximum, refused one float beyond and at
+     every size of the JAX tool); then, with the launch counters reset,
+     the six tools' entry points at their default steps and reps (every
+     new kernel must read launches), and the plain versions timed once at
+     the defaults;
   --profile adds 6: torch.profiler over 5 main-path frames (device busy
      time, launches per frame, top device ops).
-Prints the card's name and power limit, the per-kernel JSON line (K1-K9),
+Prints the card's name and power limit, the per-kernel JSON line (K1-K16),
 then as its last line
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX nor of the JAX package.  Exits 1 when CUDA is not
@@ -511,6 +522,9 @@ def main() -> int:
     # ---- 7. the traversal-step probes and K1's step cap ----
     probes, probe_counts, k1_cap_err = _probes(card, tables, org, dirs)
 
+    # ---- 8. the hardware probes ----
+    hw_probes = _hw_probes(card)
+
     if "--profile" in sys.argv[1:]:
         _profile(main, pan, card)
 
@@ -552,7 +566,7 @@ def main() -> int:
              launches=counts["reproject"], max_abs_err=k5_err,
              ms=k5_ms, plain_ms=k5_plain, bound_ms=k5_bound[0],
              bound_by=k5_bound[1], library_ms=None),
-    ] + probes
+    ] + probes + hw_probes
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -707,6 +721,166 @@ def _probes(card, tables, org, dirs):
               k9_bound),
     ]
     return entries, counts, cap_err
+
+
+def _hw_probes(card):
+    """Phase 8: the hardware probes K10-K16.  Returns their kernels-line
+    entries."""
+    import torch
+    from rtrt_tpu_torch.tools import probe_bf16 as PB
+    from rtrt_tpu_torch.tools import probe_broadcast as PR
+    from rtrt_tpu_torch.tools import probe_cond as PC
+    from rtrt_tpu_torch.tools import probe_pressure as PP
+    from rtrt_tpu_torch.tools import probe_smem as PS
+    from rtrt_tpu_torch.tools import probe_xpose as PX
+    from rtrt_tpu_torch.utils import cuda
+    from rtrt_tpu_torch.utils.timing import time_ms
+
+    dev = "cuda"
+    t0 = time.perf_counter()
+    err = {f"K{i}": 0.0 for i in range(10, 17)}
+
+    def same(key, label, got, ref):
+        # bit-equal, the tolerance of tests/test_torch_kernels_gpu.py
+        torch.cuda.synchronize()
+        bad = int((got != ref).sum())
+        e = torch.where(got == ref, 0.0, (got - ref).abs())
+        err[key] = max(err[key], e.max().item())
+        assert bad == 0, f"{key} {label}: {bad} values differ"
+
+    # 8a. every mode against its plain version, the tools' rows, a cut step
+    # count, every input recipe of the tests
+    for recipe, make in PC.RECIPES.items():
+        tab, x = make(64, dev)
+        ref = PC.cond_probe_plain("flat", tab, x, PROBE_CUT)
+        for m in PC.MODES:  # all three against flat's plain version
+            same("K10", f"{recipe} {m}", PC.cond_probe(m, tab, x, PROBE_CUT),
+                 ref)
+        for m in PS.MODES:
+            same("K12", f"{recipe} {m}",
+                 PS.smem_consume(m, tab, x, PROBE_CUT),
+                 PS.smem_consume_plain(m, tab, x, PROBE_CUT))
+        for rows in PP.ROWS:
+            tab, x = make(rows, dev)
+            for n in PP.N_INV:
+                same("K13", f"{recipe} rows {rows} n_inv {n}",
+                     PP.pressure_probe(n, tab, x, PROBE_CUT),
+                     PP.pressure_probe_plain(n, tab, x, PROBE_CUT))
+    for make in (PR.tool_inputs, PR.scaled_inputs):
+        args = make(dev)
+        for m in PR.MODES:
+            same("K14", f"{make.__name__} {m}",
+                 PR.broadcast_probe(m, *args, PROBE_CUT),
+                 PR.broadcast_probe_plain(m, *args, PROBE_CUT))
+    for make in (PX.tool_inputs, PX.hit_inputs):
+        tab, planes = make(32, dev)
+        ref = PX.xpose_probe_plain("extract", tab, planes, PROBE_CUT)
+        for m in PX.MODES:  # both against one plain version
+            same("K15", f"{make.__name__} {m}",
+                 PX.xpose_probe(m, tab, planes, PROBE_CUT), ref)
+    for make in (PB.tool_inputs, PB.uniform_inputs):
+        x = make(64, dev)
+        for d in PB.DTYPES:
+            for steps in (8, PROBE_CUT):
+                same("K16", f"{make.__name__} {d} {steps}",
+                     PB.bf16_probe(d, x, steps),
+                     PB.bf16_probe_plain(d, x, steps))
+    print(f"K10 and K12-K16 vs plain on the card, every mode, the tools' "
+          f"rows, {PROBE_CUT} steps (K16 also 8), every input recipe of "
+          f"the tests: max abs err {err}")
+
+    # 8b. K11 at the card's shared-memory edge and the JAX tool's sizes
+    x = PC.uniform_inputs(64, dev)[1]
+    accepted = {}
+    for label, n in PS.edge_sizes(dev):
+        out = PS.smem_alloc(x, n)
+        accepted[label] = out is not None
+        if out is not None:
+            same("K11", label, out, PS.smem_alloc_plain(x, n))
+    print(f"K11 dynamic shared memory accepted: {accepted} {card}")
+    want = [False] * len(PS.SIZES_MIB) + [True, True, False]
+    assert list(accepted.values()) == want, f"K11 edge {accepted}"
+
+    # 8c. the six tools' entry points at their default steps and reps,
+    # launch counters reset just before and read just after
+    cuda.reset_launch_counts()
+    r10 = {r["mode"]: r for r in PC.main([])}
+    r12 = {r["mode"]: r for r in PS.main([])[1]}
+    r13 = {(r["rows"], r["n_inv"]): r for r in PP.main([])}
+    r14 = {r["mode"]: r for r in PR.main([])}
+    r15 = {r["mode"]: r for r in PX.main([])}
+    r16 = {r["dtype"]: r for r in PB.main([])}
+    k11_ms = PS.run_alloc(PS.SMEM_DEFAULT // 4)
+    counts = dict(cuda.launch_counts)
+    print(f"launch counts of the hardware probe tools' run: {counts}")
+    for k in ("probe_cond", "probe_smem_alloc", "probe_smem_consume",
+              "probe_pressure", "probe_broadcast", "probe_xpose",
+              "probe_bf16"):
+        assert counts[k] > 0, f"{k} launched no time in the tools' run"
+
+    # 8d. the plain versions once at the defaults, and each kernel's bound
+    tab, x = PC.tool_inputs(64, dev)
+    plain = {
+        "K10": time_ms(lambda: PC.cond_probe_plain("flat", tab, x, 400),
+                       1, 0),
+        "K11": time_ms(lambda: PS.smem_alloc_plain(x, PS.SMEM_DEFAULT // 4),
+                       20),
+        "K12": time_ms(lambda: PS.smem_consume_plain("smem", tab, x, 400),
+                       1, 0),
+        "K13": time_ms(lambda: PP.pressure_probe_plain(20, tab, x, 400),
+                       1, 0)}
+    args = PR.tool_inputs(dev)
+    plain["K14"] = time_ms(
+        lambda: PR.broadcast_probe_plain("extract", *args, 400), 1, 0)
+    tab, planes = PX.tool_inputs(32, dev)
+    plain["K15"] = time_ms(
+        lambda: PX.xpose_probe_plain("extract", tab, planes, 300), 1, 0)
+    x = PB.tool_inputs(64, dev)
+    plain["K16"] = time_ms(lambda: PB.bf16_probe_plain("bf16", x, 4000),
+                           1, 0)
+    print(f"plain versions at the defaults (ms): {plain}; phase 8 took "
+          f"{time.perf_counter() - t0:.1f} s {card}")
+
+    def entry(key, name, source, replaces, count, ms, bound):
+        return dict(name=f"{key} {name}", route="cuda",
+                    source="rtrt_tpu_torch/csrc/" + source,
+                    replaces=replaces, launches=counts[count],
+                    max_abs_err=err[key], ms=ms, plain_ms=plain[key],
+                    bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+
+    return [
+        entry("K10", "probe_cond (72-value consume, one block per 64x128 "
+              "tile; ms per launch in mode flat, 400 steps)",
+              "probe_consume.cu", "tools/probe_cond.py:76", "probe_cond",
+              r10["flat"]["ns"] * 400 / 1e6, PC.bound(64, 400)),
+        entry("K11", "probe_smem try_alloc (dynamic shared memory of one "
+              "block; ms per launch at 48 KB)", "probe_consume.cu",
+              "tools/probe_smem.py:34", "probe_smem_alloc", k11_ms,
+              PS.alloc_bound()),
+        entry("K12", "probe_smem time_consume (the consume from a table "
+              "staged in shared memory; ms per launch in mode smem, 400 "
+              "steps)", "probe_consume.cu", "tools/probe_smem.py:85",
+              "probe_smem_consume", r12["smem"]["ns"] * 400 / 1e6,
+              PC.bound(64, 400)),
+        entry("K13", "probe_pressure (the consume with live planes; ms per "
+              "launch at 64 rows, 20 planes, 400 steps)", "probe_consume.cu",
+              "tools/probe_pressure.py:60", "probe_pressure",
+              r13[(64, 20)]["ns"] * 400 / 1e6,
+              PP.bound(64, 400, PP.lane_ops(20))),
+        entry("K14", "probe_broadcast (record layout, tile-wide int32 min a "
+              "step; ms per launch in mode extract, 400 steps)",
+              "probe_record.cu", "tools/probe_broadcast.py:88",
+              "probe_broadcast", r14["extract"]["ns"] * 400 / 1e6,
+              PR.bound(64, 400)),
+        entry("K15", "probe_xpose (a record row by per-thread loads or warp "
+              "shuffles; ms per launch in mode extract, 32 rows, 300 steps)",
+              "probe_record.cu", "tools/probe_xpose.py:107", "probe_xpose",
+              r15["extract"]["ns"] * 300 / 1e6, PX.bound(32, 300)),
+        entry("K16", "probe_bf16 (8 chains a lane in bf16x2; ms per launch "
+              "in mode bf16, 4000 steps)", "probe_bf16.cu",
+              "tools/probe_bf16.py:65", "probe_bf16",
+              r16["bf16"]["ns"] * 4000 / 1e6, PB.bound("bf16", 64, 4000)),
+    ]
 
 
 def _profile(eng, pan, card, frames=5):

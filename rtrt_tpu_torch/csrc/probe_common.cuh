@@ -1,5 +1,6 @@
-// Shared pieces of the traversal-step probes K6-K9 (probe_step.cu,
-// probe_leaf.cu, probe_cores.cu).
+// Shared pieces of the probes K6-K9 (probe_step.cu, probe_leaf.cu,
+// probe_cores.cu) and K10-K16 (probe_consume.cu, probe_record.cu,
+// probe_bf16.cu).
 //
 // Each probe runs ONE thread block per (rows, 128) ray tile, as the TPU
 // kernel runs one tile: the probes' outputs depend on tile-wide state (a
@@ -79,6 +80,26 @@ __device__ __forceinline__ void block_reduce(float (&v)[N], float* red) {
   for (int n = 0; n < N; ++n) v[n] = red[32 * RED_MAX_N + n];
 }
 
+// Tile-wide int32 min: every thread returns the tile's min of v.  Exact at
+// any magnitude (a float reduction would round values above 2^24).  The
+// same two barriers as block_reduce; red: RED_INTS ints of shared memory,
+// the result after the 32 warp partials.
+constexpr int RED_INTS = 33;
+
+__device__ __forceinline__ int block_min_int(int v, int* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  v = __reduce_min_sync(0xffffffffu, v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    const int p = __reduce_min_sync(0xffffffffu,
+                                    lane < nw ? red[lane] : 0x7fffffff);
+    if (lane == 0) red[32] = p;
+  }
+  __syncthreads();
+  return red[32];
+}
 // Slab test of one ray (origin o, inverse direction i) against the box
 // [lo xyz | hi xyz] at b, as the probes' slab(): entry distance in tn.
 __device__ __forceinline__ bool slab(const float* b, float ox, float oy,
@@ -122,6 +143,37 @@ __device__ __forceinline__ bool tri_hit(const float (&v)[9], float ox,
   const bool ok = (det != 0.0f) && (u_s >= 0.0f) && (v_s >= 0.0f) &&
                   (u_s + v_s <= adet) && (t_s > mul(RAY_TMIN, adet)) &&
                   (t_s < mul(best, adet));
+  const float inv = det != 0.0f ? 1.0f / det : 0.0f;
+  t = mul(tq, inv);
+  return ok;
+}
+
+// tri_hit without the t_s > RAY_TMIN * adet test, in the form of
+// tools/probe_xpose.py's visit (probe_xpose.py:55-78): the sum of u and v
+// is taken before its sign product.
+__device__ __forceinline__ bool tri_hit_no_tmin(const float (&v)[9],
+                                                float ox, float oy, float oz,
+                                                float dx, float dy, float dz,
+                                                float best, float& t) {
+  const float v0x = v[0], v0y = v[1], v0z = v[2];
+  const float e1x = v[3], e1y = v[4], e1z = v[5];
+  const float e2x = v[6], e2y = v[7], e2z = v[8];
+  const float px = ox - v0x, py = oy - v0y, pz = oz - v0z;
+  const float hx = mul(dy, e2z) - mul(dz, e2y);
+  const float hy = mul(dz, e2x) - mul(dx, e2z);
+  const float hz = mul(dx, e2y) - mul(dy, e2x);
+  const float det = mul(e1x, hx) + mul(e1y, hy) + mul(e1z, hz);
+  const float uq = mul(px, hx) + mul(py, hy) + mul(pz, hz);
+  const float qx = mul(py, e1z) - mul(pz, e1y);
+  const float qy = mul(pz, e1x) - mul(px, e1z);
+  const float qz = mul(px, e1y) - mul(py, e1x);
+  const float vq = mul(dx, qx) + mul(dy, qy) + mul(dz, qz);
+  const float tq = mul(e2x, qx) + mul(e2y, qy) + mul(e2z, qz);
+  const float adet = fabsf(det);
+  const float sg = det > 0.0f ? 1.0f : (det < 0.0f ? -1.0f : 0.0f);
+  const bool ok = (det != 0.0f) && (mul(uq, sg) >= 0.0f) &&
+                  (mul(vq, sg) >= 0.0f) && (mul(uq + vq, sg) <= adet) &&
+                  (mul(tq, sg) < mul(best, adet));
   const float inv = det != 0.0f ? 1.0f / det : 0.0f;
   t = mul(tq, inv);
   return ok;

@@ -1,0 +1,182 @@
+// K14, K15: where a record's values come from, one thread block per
+// (rows, 128) tile.
+//
+// K14 replaces tools/probe_broadcast.py::make_kernel (pallas_call at
+// probe_broadcast.py:88).  Each step takes cand = the tile-wide int32 min
+// of pend, reads the 13 values of record i = cand & 1023, adds them on
+// the lanes where pend == cand (13 carried planes) and sets those pend to
+// 2^30; out = ((acc0 + acc1) + ... + acc12) + float(pend).  The modes are
+// the two record layouts (the TPU's lane roll and lane broadcast are TPU
+// machinery; on Hopper both are uniform loads):
+//   EXTRACT  AoS: value v at tab[16 i + v], 13 values in one 64-byte span
+//   BCAST16  SoA: value v at ttab[(i / 128) * 16 + v][i % 128], 13 values
+//            in 13 rows 512 bytes apart
+// The min is warp redux (__reduce_min_sync) plus one shared-memory
+// exchange: two barriers a step.  What bounds it on the H100: those
+// barriers and ~29 operations per lane per step (compare, 13 adds and 13
+// selects, the pend select, the lane's share of the min) on the one SM;
+// the 13 x 8 carried values of a thread exceed the 64-register cap of a
+// 1,024-thread block, so part of them live in local memory.
+//
+// K15 replaces tools/probe_xpose.py::make_kernel (probe_xpose.py:107).
+// Each step visits row stack[k % 128] of tab (stack[i] = (7 i) % 120, in
+// shared memory, filled by thread 0): 8 Moller-Trumbore tests without the
+// tmin test, best = min(best, nearest accepted t).  The modes compute the
+// same function and must agree bit for bit; they differ in how a row's 72
+// values reach every lane (the TPU's transpose and outer product has no
+// meaning on Hopper):
+//   EXTRACT  every thread loads each value itself (uniform loads, L1)
+//   XPOSE    each warp loads the 128-float row once, coalesced (a float4
+//            per lane), and broadcasts each value with __shfl_sync
+// What bounds it: ~465 float operations per lane per visit on the one SM.
+#include "probe_common.cuh"
+
+namespace {
+
+enum BMode { EXTRACT, BCAST16 };
+enum XMode { XEXTRACT, XPOSE };
+constexpr int NVAL = 13;
+constexpr int PEND_DONE = 1 << 30;
+
+template <int kMode>
+__global__ void __launch_bounds__(1024, 1)
+    broadcast_kernel(const float* __restrict__ tab,
+                     const float* __restrict__ ttab,
+                     const int* __restrict__ pend_in,
+                     float* __restrict__ out, int steps) {
+  constexpr int L = 8;
+  __shared__ int red[probe::RED_INTS];
+  const int n = blockDim.x;
+  int pend[L];
+  float acc[NVAL][L];
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    pend[j] = pend_in[threadIdx.x + j * n];
+#pragma unroll
+    for (int v = 0; v < NVAL; ++v) acc[v][j] = 0.0f;
+  }
+  for (int k = 0; k < steps; ++k) {
+    int m = pend[0];
+#pragma unroll
+    for (int j = 1; j < L; ++j) m = min(m, pend[j]);
+    const int cand = probe::block_min_int(m, red);
+    const int i = cand & 1023;
+    float val[NVAL];
+#pragma unroll
+    for (int v = 0; v < NVAL; ++v)
+      val[v] = kMode == EXTRACT
+                   ? __ldg(tab + 16 * i + v)
+                   : __ldg(ttab + ((i >> 7) * 16 + v) * 128 + (i & 127));
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      const bool hit = pend[j] == cand;
+#pragma unroll
+      for (int v = 0; v < NVAL; ++v)
+        acc[v][j] = hit ? acc[v][j] + val[v] : acc[v][j];
+      pend[j] = hit ? PEND_DONE : pend[j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    float s = acc[0][j];
+#pragma unroll
+    for (int v = 1; v < NVAL; ++v) s = s + acc[v][j];
+    out[threadIdx.x + j * n] = s + static_cast<float>(pend[j]);
+  }
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(1024, 1)
+    xpose_kernel(const float* __restrict__ tab,
+                 const float* __restrict__ planes, float* __restrict__ out,
+                 int steps) {
+  constexpr int L = 4;
+  __shared__ int stack[128];
+  const int n = blockDim.x, lanes = n * L, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0)
+    for (int i = 0; i < 128; ++i) stack[i] = (i * 7) % 120;
+  __syncthreads();
+  float o[L][6], best[L];
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c)
+      o[j][c] = planes[c * lanes + threadIdx.x + j * n];
+    best[j] = 1e9f;
+  }
+  for (int k = 0; k < steps; ++k) {
+    const float* row = tab + stack[k & 127] * 128;
+    float4 q{};
+    if constexpr (kMode == XPOSE)
+      q = __ldg(reinterpret_cast<const float4*>(row) + lane);
+    float gt[L];
+#pragma unroll
+    for (int j = 0; j < L; ++j) gt[j] = CUDART_INF_F;
+#pragma unroll
+    for (int rec = 0; rec < 8; ++rec) {
+      float v[9];
+#pragma unroll
+      for (int c = 0; c < 9; ++c) {
+        const int idx = 16 * rec + c;
+        if constexpr (kMode == XPOSE) {
+          const float w = (idx & 3) == 0   ? q.x
+                          : (idx & 3) == 1 ? q.y
+                          : (idx & 3) == 2 ? q.z
+                                           : q.w;
+          v[c] = __shfl_sync(0xffffffffu, w, idx >> 2);
+        } else {
+          v[c] = __ldg(row + idx);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < L; ++j) {
+        float tt;
+        const bool ok = probe::tri_hit_no_tmin(v, o[j][0], o[j][1], o[j][2],
+                                               o[j][3], o[j][4], o[j][5],
+                                               best[j], tt);
+        if (ok && tt < gt[j]) gt[j] = tt;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < L; ++j) best[j] = fminf(best[j], gt[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < L; ++j) out[threadIdx.x + j * n] = best[j];
+}
+
+}  // namespace
+
+// K14.  mode: index into rtrt_tpu_torch/tools/probe_broadcast.py::MODES;
+// tab, ttab: (128, 128) f32; pend: (rows, 128) int32; rows: a multiple of
+// 8 up to 64 (8 lanes a thread, rows * 16 threads)
+extern "C" int rtrt_probe_broadcast(int mode, const float* tab,
+                                    const float* ttab, const int* pend,
+                                    float* out, int rows, int steps,
+                                    void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (mode == EXTRACT)
+    broadcast_kernel<EXTRACT><<<1, rows * 16, 0, s>>>(tab, ttab, pend, out,
+                                                      steps);
+  else if (mode == BCAST16)
+    broadcast_kernel<BCAST16><<<1, rows * 16, 0, s>>>(tab, ttab, pend, out,
+                                                      steps);
+  else
+    return cudaErrorInvalidValue;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K15.  mode: index into rtrt_tpu_torch/tools/probe_xpose.py::MODES;
+// planes: (6, rows, 128) ox oy oz dx dy dz; rows: a multiple of 8 up to 32
+// (4 lanes a thread, rows * 32 threads)
+extern "C" int rtrt_probe_xpose(int mode, const float* tab,
+                                const float* planes, float* out, int rows,
+                                int steps, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (mode == XEXTRACT)
+    xpose_kernel<XEXTRACT><<<1, rows * 32, 0, s>>>(tab, planes, out, steps);
+  else if (mode == XPOSE)
+    xpose_kernel<XPOSE><<<1, rows * 32, 0, s>>>(tab, planes, out, steps);
+  else
+    return cudaErrorInvalidValue;
+  return static_cast<int>(cudaGetLastError());
+}

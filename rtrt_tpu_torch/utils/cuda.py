@@ -35,13 +35,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 launch_counts = {"packet_intersect": 0, "megakernel_trace": 0,
                  "post_tail": 0, "denoise_wide": 0, "reproject": 0,
                  "probe_step": 0, "probe_leaf": 0, "probe_cores": 0,
-                 "probe_cores_grid": 0}
+                 "probe_cores_grid": 0, "probe_cond": 0,
+                 "probe_smem_alloc": 0, "probe_smem_consume": 0,
+                 "probe_pressure": 0, "probe_broadcast": 0,
+                 "probe_xpose": 0, "probe_bf16": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint
-# C signatures (the last argument of each is the cudaStream_t)
+# C signatures (the last argument of each is the cudaStream_t, but for
+# rtrt_smem_optin, a device attribute query)
 _SIGNATURES = {
     "rtrt_traverse": [_P] * 8 + [_I, _I] + [_P] * 7 + [_I, _P, _P] + [_P],
     "rtrt_megakernel": [_P] * 6 + [_I, _P, _I, _P] + [_F] * 4 + [_U]
@@ -54,6 +58,14 @@ _SIGNATURES = {
     "rtrt_probe_leaf": [_I, _P, _P, _P, _I, _I] + [_P],
     "rtrt_probe_cores": [_I] + [_P] * 5 + [_I, _I] + [_P],
     "rtrt_probe_cores_grid": [_I] + [_P] * 5 + [_I, _I, _I] + [_P],
+    "rtrt_probe_cond": [_I, _P, _P, _P] + [_I] * 5 + [_P],
+    "rtrt_probe_smem_alloc": [_P, _P, _I, _I] + [_P],
+    "rtrt_smem_optin": [_I, ctypes.POINTER(_I)],
+    "rtrt_probe_smem_consume": [_I, _P, _P, _P, _I, _I] + [_P],
+    "rtrt_probe_pressure": [_I] + [_P] * 4 + [_I, _I] + [_P],
+    "rtrt_probe_broadcast": [_I] + [_P] * 4 + [_I, _I] + [_P],
+    "rtrt_probe_xpose": [_I, _P, _P, _P, _I, _I] + [_P],
+    "rtrt_probe_bf16": [_I, _P, _P, _F, _I, _I] + [_P],
 }
 
 _lib = None
@@ -145,14 +157,21 @@ def check_tensors(device, **specs):
             raise ValueError(f"{name}: not contiguous")
 
 
-def launch(fn, name: str, device, *args):
+def launch(fn, name: str, device, *args, refusal: int | None = None) -> bool:
     """Call C entry `fn` with tensors passed as device pointers and the
-    current stream appended; raise on a nonzero cudaGetLastError()."""
+    current stream appended; raise on a nonzero cudaGetLastError().
+
+    refusal: a status the entry point returns when the runtime refused the
+    launch as a result (not a failure); then nothing launched and the call
+    returns False.  Returns True when the kernel launched."""
     dev = torch.device(device)
     cargs = [_P(a.data_ptr()) if torch.is_tensor(a) else a for a in args]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*cargs, _P(stream))
+    if refusal is not None and rc == refusal:
+        return False
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed, cudaError {rc}")
     launch_counts[name] += 1
+    return True

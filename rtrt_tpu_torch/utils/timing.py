@@ -30,9 +30,12 @@ import torch
 
 # H100 SXM data sheet, at its 700 W limit: device memory bytes per second,
 # float32 operations per second outside the tensor cores (an FMA counts as
-# two), streaming multiprocessors
+# two), streaming multiprocessors.  BF16_OPS: bf16 operations per second
+# outside the tensor cores, twice the float32 rate through packed bf16x2
+# issue (Hopper architecture white paper, "Peak BF16 (non-Tensor)")
 HBM_BPS = 3.35e12
 F32_OPS = 67e12
+BF16_OPS = 2 * F32_OPS
 SMS = 132
 
 
@@ -92,13 +95,14 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     return time_chained(lambda _: fn(), iters, warmup)[0] * 1e3
 
 
-def bound_ms(nbytes: float, ops: float, share: float = 1.0):
+def bound_ms(nbytes: float, ops: float, share: float = 1.0,
+             rate: float = F32_OPS):
     """(bound ms, "bytes" or "operations"): the larger of the bytes over the
-    memory rate and the float operations over the float32 rate, both scaled
-    by `share`, the fraction of the card's SMs the launch can fill (a launch
-    of b blocks: b / SMS)."""
+    memory rate and the operations over `rate` (float32 by default;
+    BF16_OPS for bf16 work), both scaled by `share`, the fraction of the
+    card's SMs the launch can fill (a launch of b blocks: b / SMS)."""
     t_b = nbytes / (HBM_BPS * share) * 1e3
-    t_o = ops / (F32_OPS * share) * 1e3
+    t_o = ops / (rate * share) * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 

@@ -41,6 +41,13 @@ Tolerances:
     2^-20 in the other modes, K7-K9 bit-equal with equal visit counts (the
     kernels round every product on its own, as torch does), on the tools'
     own inputs and on rays that hit every record.
+  * K10-K16, the hardware probes (probe_cond, probe_smem, probe_pressure,
+    probe_broadcast, probe_xpose, probe_bf16): bit-equal in every mode on
+    every input recipe of tests/test_torch_hw_probes.py.  The kernels
+    round each product on its own (__fmul_rn) and each bf16 operation to
+    bf16, as torch's ops do; K10's three modes agree, and so do K15's two.
+    K11 is accepted at 48 KB and at the card's opt-in maximum, refused one
+    float beyond it and at every size of the JAX tool (0.25-4 MiB).
 """
 
 import numpy as np
@@ -59,7 +66,9 @@ from rtrt_tpu_torch.render import megakernel as M
 from rtrt_tpu_torch.render.kshade import pack_materials_rows
 from rtrt_tpu_torch.render.raygen import generate_rays_padded
 from rtrt_tpu_torch.render.sampling import rand2_bn
-from rtrt_tpu_torch.tools import probe_cores, probe_leaf, ubench_step
+from rtrt_tpu_torch.tools import (probe_bf16, probe_broadcast, probe_cond,
+                                  probe_cores, probe_leaf, probe_pressure,
+                                  probe_smem, probe_xpose, ubench_step)
 from rtrt_tpu_torch.utils import cuda
 from rtrt_tpu_torch.utils.config import (DynamicResolution, FeatureFlags,
                                          GlobalSettings, default_params)
@@ -356,3 +365,109 @@ def test_probe_wrappers_check_their_inputs(cuda_device):
     with pytest.raises(ValueError, match="planes"):
         probe_cores.cores_probe_grid("both", ntab, ttab,
                                      planes[:, 0].contiguous(), 4)
+
+
+# ---------------------------------------------------------------------------
+# K10-K16: the hardware probes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("recipe", list(probe_cond.RECIPES))
+def test_probe_cond_kernel_matches_plain(cuda_device, recipe):
+    tab, x = probe_cond.RECIPES[recipe](64, cuda_device)
+    outs = [probe_cond.cond_probe(m, tab, x, 40) for m in probe_cond.MODES]
+    ref = probe_cond.cond_probe_plain("flat", tab, x, 40)
+    torch.cuda.synchronize()
+    for got in outs:
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+def test_probe_smem_alloc_edges(cuda_device):
+    edges = probe_smem.edge_sizes(cuda_device)
+    accepted = {label: probe_smem.try_alloc(n, cuda_device)
+                for label, n in edges}
+    torch.cuda.synchronize()
+    want = [False] * len(probe_smem.SIZES_MIB) + [True, True, False]
+    assert list(accepted.values()) == want, accepted
+    x = probe_cond.uniform_inputs(64, cuda_device)[1]
+    for n in (1, 2, 1024):
+        assert torch.equal(probe_smem.smem_alloc(x, n),
+                           probe_smem.smem_alloc_plain(x, n))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("recipe", list(probe_cond.RECIPES))
+@pytest.mark.parametrize("mode", probe_smem.MODES)
+def test_probe_smem_consume_kernel_matches_plain(cuda_device, mode, recipe):
+    tab, x = probe_cond.RECIPES[recipe](64, cuda_device)
+    got = probe_smem.smem_consume(mode, tab, x, 40)
+    ref = probe_smem.smem_consume_plain(mode, tab, x, 40)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", probe_pressure.ROWS)
+@pytest.mark.parametrize("n_inv", probe_pressure.N_INV)
+def test_probe_pressure_kernel_matches_plain(cuda_device, n_inv, rows):
+    for make in probe_cond.RECIPES.values():
+        tab, x = make(rows, cuda_device)
+        got = probe_pressure.pressure_probe(n_inv, tab, x, 40)
+        ref = probe_pressure.pressure_probe_plain(n_inv, tab, x, 40)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", probe_broadcast.MODES)
+def test_probe_broadcast_kernel_matches_plain(cuda_device, mode):
+    for make in (probe_broadcast.tool_inputs, probe_broadcast.scaled_inputs):
+        tab, ttab, pend = make(cuda_device)
+        got = probe_broadcast.broadcast_probe(mode, tab, ttab, pend, 300)
+        ref = probe_broadcast.broadcast_probe_plain(mode, tab, ttab, pend,
+                                                    300)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [8, 32])
+def test_probe_xpose_kernel_matches_plain(cuda_device, rows):
+    for make in (probe_xpose.tool_inputs, probe_xpose.hit_inputs):
+        tab, planes = make(rows, cuda_device)
+        a, b = (probe_xpose.xpose_probe(m, tab, planes, 50)
+                for m in probe_xpose.MODES)
+        ref = probe_xpose.xpose_probe_plain("extract", tab, planes, 50)
+        torch.cuda.synchronize()
+        assert torch.equal(a, ref) and torch.equal(b, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("steps", [1, 8, 50])
+@pytest.mark.parametrize("dtype", list(probe_bf16.DTYPES))
+def test_probe_bf16_kernel_matches_plain(cuda_device, dtype, steps):
+    for make in (probe_bf16.tool_inputs, probe_bf16.uniform_inputs):
+        x = make(64, cuda_device)
+        got = probe_bf16.bf16_probe(dtype, x, steps)
+        ref = probe_bf16.bf16_probe_plain(dtype, x, steps)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+def test_hw_probe_wrappers_check_their_inputs(cuda_device):
+    tab, x = probe_cond.tool_inputs(64, cuda_device)
+    with pytest.raises(ValueError, match="rows"):
+        probe_cond.cond_probe("flat", tab, x[:12].contiguous(), 4)
+    with pytest.raises(ValueError, match="rows"):
+        probe_pressure.pressure_probe(0, tab, x[:16].contiguous(), 4)
+    with pytest.raises(ValueError, match="n_inv"):
+        probe_pressure.pressure_probe(5, tab, x, 4)
+    with pytest.raises(ValueError, match="mode"):
+        probe_smem.smem_consume("dma", tab, x, 4)
+    with pytest.raises(ValueError, match="dtype"):
+        probe_broadcast.broadcast_probe(
+            "extract", tab, tab, torch.zeros((64, 128), device=cuda_device),
+            4)
