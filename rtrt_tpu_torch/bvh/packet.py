@@ -160,7 +160,8 @@ def _cswap(a, b):
 
 
 def traverse_plain(tables: TraceTables, org, dir, t_cap, first_hit,
-                   overflow, visits=None, max_steps=None, steps=None):
+                   overflow, visits=None, max_steps=None, steps=None,
+                   depth=None):
     """Masked per-ray stack traversal vectorised over rays.
 
     org/dir (N,3), t_cap (N,) f32, first_hit (N,) bool; overflow (1,) i32
@@ -169,7 +170,9 @@ def traverse_plain(tables: TraceTables, org, dir, t_cap, first_hit,
     for a kernel's bound); max_steps: optional cap on each ray's node +
     leaf visits (pops pruned by their entry distance do not count): a ray
     stops there with the best hit found so far; steps: optional (N,) int
-    tensor that receives each ray's visits.  Returns (t, tri, u, v)."""
+    tensor that receives each ray's visits; depth: optional (1,) int
+    counter raised to the deepest stack (entries held after a node's
+    pushes) of any ray.  Returns (t, tri, u, v)."""
     n = org.shape[0]
     dev = org.device
     inv = torch.stack([_safe_inv(dir[:, k]) for k in range(3)], dim=1)
@@ -236,6 +239,8 @@ def traverse_plain(tables: TraceTables, org, dir, t_cap, first_hit,
         if node.numel():
             drops = drops + _node_visit(tables, node, ent[node], org, inv,
                                         best, st_e, st_t, sp, cur, curt)
+            if depth is not None:
+                torch.maximum(depth, sp.max().to(depth.dtype), out=depth)
     overflow += drops.to(overflow.dtype)
     if steps is not None:
         steps.copy_(nsteps)
@@ -403,3 +408,7 @@ def _check_tables(tables: TraceTables, dev):
         nrm=(tables.nrm, torch.float32, (p, 9)),
         ng=(tables.ng, torch.float32, (p, 3)),
         mat=(tables.mat, torch.int32, (p,)))
+    # node records load as float4, a leaf's triangle records as float2
+    if tables.nodes.data_ptr() % 16 or tables.tris.data_ptr() % 16:
+        raise ValueError("nodes / tris: the kernels need 16-byte aligned "
+                         "tables")

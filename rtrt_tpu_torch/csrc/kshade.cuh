@@ -118,30 +118,50 @@ __device__ __forceinline__ void rand2(uint32_t pix, uint32_t frame,
   u1 = to_unit_float(x);
   u2 = to_unit_float(y);
 }
-__device__ __forceinline__ void rand2_bn(float bnx, float bny, uint32_t frame,
-                                         uint32_t dim, float& u, float& v) {
-  float u1, u2;
-  rand2(0u, frame, dim, u1, u2);
-  float sx = to_unit_float(hash_pcg(dim ^ 0xA511E9B3u));
-  float sy = to_unit_float(hash_pcg(dim ^ 0x63D83595u));
-  float ox = bnx + sx, oy = bny + sy;
-  u = u1 + (ox - floorf(ox));
-  v = u2 + (oy - floorf(oy));
+// The blue-noise pair of a pixel is the shared sequence rand2(0, frame, dim)
+// rotated by the pixel's mask offsets and the dim's shift (sx, sy).  All but
+// the rotation depends on (frame, dim) only, so a launch computes it once
+// per dim into a table (render/kshade.py::sampler_table is its torch twin):
+// slot b * SAMPLER_SEGS + s holds (u1, u2, sx, sy) of dim sampler_dim(b, s).
+// The megakernel draws dims 2 + 2s (BSDF), 64 + 2s (light), 128 + 2s
+// (shadow-or-scatter choice) and 192 + 2s (sphere-light pick), s < 5.
+constexpr int SAMPLER_SEGS = 5;
+constexpr int SAMPLER_SLOTS = 4 * SAMPLER_SEGS;
+__device__ __forceinline__ uint32_t sampler_dim(int base, int seg) {
+  return (base == 0 ? 2u : 64u * (uint32_t)base) + 2u * (uint32_t)seg;
+}
+__device__ __forceinline__ float4 sampler_entry(uint32_t frame,
+                                                uint32_t dim) {
+  float4 e;
+  rand2(0u, frame, dim, e.x, e.y);
+  e.z = to_unit_float(hash_pcg(dim ^ 0xA511E9B3u));
+  e.w = to_unit_float(hash_pcg(dim ^ 0x63D83595u));
+  return e;
+}
+// the per-pixel part: Cranley-Patterson rotation by (bnx, bny) + (sx, sy)
+__device__ __forceinline__ void bn_rotate(float4 e, float bnx, float bny,
+                                          float& u, float& v) {
+  float ox = bnx + e.z, oy = bny + e.w;
+  u = e.x + (ox - floorf(ox));
+  v = e.y + (oy - floorf(oy));
   u = u - floorf(u);
   v = v - floorf(v);
 }
 
-// per-pixel sampler: blue-noise rotated shared sequence, or per-pixel Sobol
+// per-pixel sampler: blue-noise rotation of the launch's table (in shared
+// memory), or per-pixel Sobol
 struct Sampler {
   uint32_t pix, frame;
   float bnx, bny;
   bool use_bn;
-  __device__ __forceinline__ void get(uint32_t dim, float& u1,
+  const float4* table;
+  // the pair of dim sampler_dim(base, seg)
+  __device__ __forceinline__ void get(int base, int seg, float& u1,
                                       float& u2) const {
     if (use_bn)
-      rand2_bn(bnx, bny, frame, dim, u1, u2);
+      bn_rotate(table[base * SAMPLER_SEGS + seg], bnx, bny, u1, u2);
     else
-      rand2(pix, frame, dim, u1, u2);
+      rand2(pix, frame, sampler_dim(base, seg), u1, u2);
   }
 };
 

@@ -3,22 +3,56 @@
 // Replaces: rtrt_tpu/render/megakernel.py::_mega_kernel (launched by
 // megakernel_trace, wrapped by path_trace_mega).
 //
-// What bounds it on the H100: the traversal (dependent node/triangle loads,
-// see traverse.cuh) five times per pixel, plus register pressure — the path
-// state (~40 floats) stays live across each traversal.  Shading is a few
-// hundred FLOPs per bounce; the procedural soil texture (~9 noise octaves of
-// 8 hashed corners each) is the largest shading term.
+// What bounds it on the H100: latency.  Each segment is a chain of
+// dependent node and triangle loads from L2 (traverse.cuh), and the path
+// state stays live across it, so few warps fit an SM to hide that latency;
+// and divergence, where the lanes of a warp walk different nodes.  Of the
+// operations, the procedural soil texture (13 value-noise octaves of 8
+// hashed corners, ~2.8 k per textured hit) weighs as much as the
+// traversal's box and triangle tests; chip_smoke.py counts both for the
+// bound.  Output: 18 planes (18, N): radiance 3, albedo 3, normal 3, depth,
+// mat id, esc_dir 3, esc_beta 3, esc_pdf (-1 = delta).
 //
-// Simple design: one thread per pixel, 128-thread blocks over the flat image
-// index.  Each segment computes the ray's t_cap (the light distance for a
-// pending shadow ray, inf otherwise), traverses with K1's device function
-// (traverse.cuh; any-hit for shadow rays), resolves the hit's
-// attributes by a direct gather, and runs shade_segment.  The TPU kernel's
-// VMEM table staging, state parking, 32-row strips, per-tile segment skips
-// and i1/i32 mask round trips are TPU artifacts and are not carried over;
-// a finished path simply skips its remaining segments.  Output: 18 planes
-// (18, N): radiance 3, albedo 3, normal 3, depth, mat id, esc_dir 3,
-// esc_beta 3, esc_pdf (-1 = delta).
+// Design:
+//   * A per-launch sampler table.  With blue noise on (the default), every
+//     sample of a pixel is a shared Owen-scrambled Sobol pair of (frame,
+//     dim), rotated by the pixel's mask offsets.  The pair and the dim's
+//     shift are the same for every pixel: a block's first 20 threads
+//     compute them for the 20 dims of the launch into shared memory
+//     (kshade.cuh::sampler_entry, ~300 integer operations each), and a
+//     sample is then the rotation alone (12 operations), bit-identical to
+//     computing it per pixel.  Without blue noise the per-pixel pair stays.
+//   * Persistent lanes.  One wave of blocks (the occupancy calculator's
+//     blocks per SM times the SMs, fewer for a small n) stays resident.
+//     When every lane of a warp has ended its path (escaped, resolved
+//     shadow ray, absorbed, or its last segment), lane 0 takes the next
+//     tile of 32 pixels (8x4 on an image, a run of 32 on a flat batch) from
+//     a global work counter with one atomicAdd, and the warp starts 32 new
+//     paths on neighbouring pixels.  What a warp gains is coherence: its
+//     lanes walk the same nodes in lockstep and shade together.  So
+//     regenerating a lane as soon as its own path ends measured slower
+//     (PERF.md section 6: 1.52 ms against 1.36 when the warp waits for
+//     all 32 of a row run): it mixes camera, shadow and bounce rays in one
+//     warp and splits the soil texture's 2.8 k operations over fewer lanes
+//     a pass; and 8x4 tiles beat runs of 32 by 10%.
+//     The per-pixel arithmetic is unchanged (RNG keyed by pixel id and
+//     segment, is_last by segment), so each pixel's result does not depend
+//     on the lane that runs it.  The launch zeroes the counter on the
+//     stream: one launch a frame, no host sync.
+//   * Registers for occupancy.  __launch_bounds__(128, 8) caps a lane at
+//     64 registers (32 warps an SM, ~200 B spilled; 16 warps at the 127
+//     that ptxas chose unbounded).  To fit, the path's G-buffer and escape
+//     planes, written once and read when the path ends, live in shared
+//     memory ([plane][lane], 7.5 KB a block), and the sun's constants in
+//     __constant__ memory (copied on the stream before the launch;
+//     instructions read them as constant-bank operands).  PERF.md section 6
+//     lists the registers, spills and times at 4, 5, 6 and 8 blocks.
+//   * The traversal is K1's device function (traverse.cuh, any-hit for
+//     shadow rays); it raises a per-lane deepest-stack count, reduced to
+//     one atomicMax a warp at the end.
+// The TPU kernel's VMEM table staging, state parking, 32-row strips,
+// per-tile segment skips and i1/i32 mask round trips are TPU artifacts and
+// are not carried over.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -32,6 +66,10 @@ using rtrt::V3;
 using rtrt::v3;
 
 constexpr int SEGMENTS = 5;
+static_assert(SEGMENTS == rtrt::SAMPLER_SEGS, "one sampler slot a segment");
+constexpr int BLOCK = 128;
+constexpr int MIN_BLOCKS = 8;
+constexpr unsigned FULL = 0xFFFFFFFFu;
 
 struct MegaParams {
   const float* nodes;
@@ -43,7 +81,6 @@ struct MegaParams {
   int n_mat;
   const float* light_rows;
   int n_lights;
-  const float* sun_vec;
   float cos_max, sin2_max, disk_omega, disk_pdf;
   uint32_t frame;
   const float* org;
@@ -54,19 +91,63 @@ struct MegaParams {
   int use_bn, use_proctex, n;
   float* out;
   int* overflow;
+  int* depth;
+  int* work;
+  int width;           // the pixel grid's row length
+  int tile_w, tiles;   // warp tiles of tile_w x 32 / tile_w pixels
 };
 
-struct PathState {
-  V3 org, dir, beta, radiance, pending, esc_dir, esc_beta, albedo, normal;
-  float shadow_tmax, prev_pdf, cone, esc_pdf, depth;
-  int mat_id;
-  bool done, is_shadow, prev_delta, inside, esc_delta, got_primary;
+// the sun's direction, basis, transmittance and intensity (pack_sun_params'
+// first 13 floats), copied on the stream before each launch: instructions
+// read them as constant-bank operands, so they hold no registers
+__constant__ float c_sun[13];
+
+// The registers of a lane are what limits the warps an SM holds.  The
+// path's G-buffer and escape planes (output planes 3-17: albedo 3, normal
+// 3, depth, mat id, esc_dir 3, esc_beta 3, esc_pdf with -1 for a delta
+// lobe) are written once (primary hit, escape) and read when the path
+// ends, so they live in shared memory, [plane][lane] (conflict-free).
+constexpr int COLD = 15;
+struct Cold {
+  float* p;  // the lane's slot of plane 0
+  __device__ __forceinline__ void set(int k, float v) const {
+    p[k * BLOCK] = v;
+  }
+  __device__ __forceinline__ void set3(int k, V3 v) const {
+    set(k, v.x);
+    set(k + 1, v.y);
+    set(k + 2, v.z);
+  }
+  __device__ __forceinline__ float get(int k) const { return p[k * BLOCK]; }
 };
+constexpr int C_ALBEDO = 0, C_NORMAL = 3, C_DEPTH = 6, C_MAT = 7,
+              C_ESC_DIR = 8, C_ESC_BETA = 11, C_ESC_PDF = 14;
+
+// the registers' part of a path
+struct PathState {
+  V3 org, dir, beta, radiance, pending;
+  float shadow_tmax, prev_pdf, cone;
+  bool done, is_shadow, prev_delta, inside, got_primary;
+};
+
+__device__ __forceinline__ rtrt::SunC sun_consts(const MegaParams& p) {
+  rtrt::SunC sun;
+  sun.dir = v3(c_sun[0], c_sun[1], c_sun[2]);
+  sun.t = v3(c_sun[3], c_sun[4], c_sun[5]);
+  sun.b = v3(c_sun[6], c_sun[7], c_sun[8]);
+  sun.trans = v3(c_sun[9], c_sun[10], c_sun[11]);
+  sun.intensity = c_sun[12];
+  sun.cos_max = p.cos_max;
+  sun.sin2_max = p.sin2_max;
+  sun.disk_omega = p.disk_omega;
+  sun.disk_pdf = p.disk_pdf;
+  return sun;
+}
 
 // one bounce of shading (render/megakernel.py::shade_segment, per lane)
-__device__ void shade_segment(PathState& st, const rtrt::TraceHit& hit,
-                              int hmat, V3 hns, V3 hng,
-                              const MegaParams& p, const rtrt::SunC& sun,
+__device__ void shade_segment(PathState& st, const Cold& cold,
+                              const rtrt::TraceHit& hit, int hmat, V3 hns,
+                              V3 hng, const MegaParams& p,
                               const rtrt::Sampler& rng, int seg,
                               bool is_last) {
   if (st.done) return;
@@ -105,10 +186,9 @@ __device__ void shade_segment(PathState& st, const rtrt::TraceHit& hit,
   // escaped scatter rays: defer the environment to finish_gbuffer
   const bool esc = !sh && !found;
   if (esc) {
-    st.esc_dir = st.dir;
-    st.esc_beta = st.beta;
-    st.esc_pdf = st.prev_pdf;
-    st.esc_delta = st.prev_delta;
+    cold.set3(C_ESC_DIR, st.dir);
+    cold.set3(C_ESC_BETA, st.beta);
+    cold.set(C_ESC_PDF, st.prev_delta ? -1.0f : st.prev_pdf);
   }
   done = done || esc;
   const bool live = found && !sh && !done;
@@ -146,18 +226,18 @@ __device__ void shade_segment(PathState& st, const rtrt::TraceHit& hit,
 
   // primary-hit G-buffer capture
   if (!st.got_primary) {
-    st.normal = ns;
-    st.depth = ht;
-    st.mat_id = hmat;
-    st.albedo = v3(fmaxf(albedo.x, 1e-3f), fmaxf(albedo.y, 1e-3f),
-                   fmaxf(albedo.z, 1e-3f));
+    cold.set3(C_NORMAL, ns);
+    cold.set(C_DEPTH, ht);
+    cold.set(C_MAT, (float)hmat);
+    cold.set3(C_ALBEDO, v3(fmaxf(albedo.x, 1e-3f), fmaxf(albedo.y, 1e-3f),
+                           fmaxf(albedo.z, 1e-3f)));
   }
   st.got_primary = true;
 
   float u1b, u2b, ul1, ul2, u_sel, unused;
-  rng.get(2u + 2u * seg, u1b, u2b);
-  rng.get(64u + 2u * seg, ul1, ul2);
-  rng.get(128u + 2u * seg, u_sel, unused);
+  rng.get(0, seg, u1b, u2b);
+  rng.get(1, seg, ul1, ul2);
+  rng.get(2, seg, u_sel, unused);
 
   rtrt::BsdfSample bs = rtrt::sample_bsdf(m.mtype, albedo, rough, m.ior, m.f0,
                                           ns, wo, st.inside, u1b, u2b);
@@ -166,12 +246,12 @@ __device__ void shade_segment(PathState& st, const rtrt::TraceHit& hit,
   // light sample + MIS: sun NEE, 50/50 with sphere-light NEE
   V3 ls_wi, ls_rad;
   float ls_pdf;
-  rtrt::sample_sun(sun, ul1, ul2, ls_wi, ls_rad, ls_pdf);
+  rtrt::sample_sun(sun_consts(p), ul1, ul2, ls_wi, ls_rad, ls_pdf);
   float ls_dist = CUDART_INF_F;
   if (p.n_lights > 0) {
     const int nl = p.n_lights;
     float p1, p2;
-    rng.get(192u + 2u * seg, p1, p2);
+    rng.get(3, seg, p1, p2);
     int li = (int)(p1 * nl);
     li = li < 0 ? 0 : (li > nl - 1 ? nl - 1 : li);
     V3 sp_wi, sp_rad;
@@ -226,76 +306,112 @@ __device__ void shade_segment(PathState& st, const rtrt::TraceHit& hit,
   if (!take_shadow && rtrt::vlum(st.beta) < 1e-5f) st.done = true;
 }
 
-__global__ void __launch_bounds__(128)
-    megakernel(const MegaParams p) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.n) return;
-
-  rtrt::SunC sun;
-  const float* s = p.sun_vec;
-  sun.dir = v3(s[0], s[1], s[2]);
-  sun.t = v3(s[3], s[4], s[5]);
-  sun.b = v3(s[6], s[7], s[8]);
-  sun.trans = v3(s[9], s[10], s[11]);
-  sun.intensity = s[12];
-  sun.cos_max = p.cos_max;
-  sun.sin2_max = p.sin2_max;
-  sun.disk_omega = p.disk_omega;
-  sun.disk_pdf = p.disk_pdf;
-
-  rtrt::Sampler rng;
+// a new path: the pixel's primary ray and the path state's initial values
+__device__ __forceinline__ void start_path(PathState& st, const Cold& cold,
+                                           rtrt::Sampler& rng,
+                                           const MegaParams& p, int i) {
   rng.pix = (uint32_t)p.pix[i];
-  rng.frame = p.frame;
-  rng.use_bn = p.use_bn != 0;
   rng.bnx = rng.use_bn ? p.bn[2 * i] : 0.0f;
   rng.bny = rng.use_bn ? p.bn[2 * i + 1] : 0.0f;
-
-  PathState st;
   st.org = v3(p.org[3 * i], p.org[3 * i + 1], p.org[3 * i + 2]);
   st.dir = v3(p.dir[3 * i], p.dir[3 * i + 1], p.dir[3 * i + 2]);
   st.beta = v3(1.0f, 1.0f, 1.0f);
   st.radiance = v3(0.0f, 0.0f, 0.0f);
   st.pending = v3(0.0f, 0.0f, 0.0f);
-  st.esc_dir = st.dir;
-  st.esc_beta = v3(0.0f, 0.0f, 0.0f);
-  st.albedo = v3(1.0f, 1.0f, 1.0f);
-  st.normal = v3(0.0f, 0.0f, 0.0f);
   st.shadow_tmax = CUDART_INF_F;
   st.prev_pdf = 0.0f;
   st.cone = p.cone[i];
-  st.esc_pdf = 0.0f;
-  st.depth = CUDART_INF_F;
-  st.mat_id = -1;
   st.done = st.is_shadow = st.inside = st.got_primary = false;
-  st.prev_delta = st.esc_delta = true;
+  st.prev_delta = true;
+  cold.set3(C_ALBEDO, v3(1.0f, 1.0f, 1.0f));
+  cold.set3(C_NORMAL, v3(0.0f, 0.0f, 0.0f));
+  cold.set(C_DEPTH, CUDART_INF_F);
+  cold.set(C_MAT, -1.0f);
+  cold.set3(C_ESC_DIR, st.dir);
+  cold.set3(C_ESC_BETA, v3(0.0f, 0.0f, 0.0f));
+  cold.set(C_ESC_PDF, -1.0f);
+}
 
-  for (int seg = 0; seg < SEGMENTS; ++seg) {
-    if (st.done) break;
-    const float t_cap = st.is_shadow ? st.shadow_tmax : CUDART_INF_F;
-    const rtrt::TraceHit h = rtrt::traverse(
-        p.nodes, p.tris, make_float3(st.org.x, st.org.y, st.org.z),
-        make_float3(st.dir.x, st.dir.y, st.dir.z), t_cap, st.is_shadow,
-        p.overflow);
-    int hmat;
-    float3 ns, ng;
-    rtrt::hit_attrs(p.nrm, p.ng, p.mat, h, hmat, ns, ng);
-    shade_segment(st, h, hmat, v3(ns.x, ns.y, ns.z), v3(ng.x, ng.y, ng.z), p,
-                  sun, rng, seg, seg == SEGMENTS - 1);
-  }
-
-  const float planes[18] = {
-      st.radiance.x, st.radiance.y, st.radiance.z, st.albedo.x, st.albedo.y,
-      st.albedo.z,   st.normal.x,   st.normal.y,   st.normal.z, st.depth,
-      (float)st.mat_id, st.esc_dir.x, st.esc_dir.y, st.esc_dir.z,
-      st.esc_beta.x, st.esc_beta.y, st.esc_beta.z,
-      st.esc_delta ? -1.0f : st.esc_pdf};
+// the 18 planes of an ended path: radiance, then the cold planes
+__device__ __forceinline__ void write_planes(const PathState& st,
+                                             const Cold& cold,
+                                             const MegaParams& p, int i) {
   const size_t n = (size_t)p.n;
+  p.out[i] = st.radiance.x;
+  p.out[n + i] = st.radiance.y;
+  p.out[2 * n + i] = st.radiance.z;
 #pragma unroll
-  for (int k = 0; k < 18; ++k) p.out[k * n + i] = planes[k];
+  for (int k = 0; k < COLD; ++k) p.out[(3 + k) * n + i] = cold.get(k);
+}
+
+__global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
+    megakernel(const MegaParams p) {
+  __shared__ float4 table[rtrt::SAMPLER_SLOTS];
+  __shared__ float cold_planes[COLD][BLOCK];
+  const Cold cold{&cold_planes[0][threadIdx.x]};
+  if (p.use_bn && threadIdx.x < rtrt::SAMPLER_SLOTS)
+    table[threadIdx.x] = rtrt::sampler_entry(
+        p.frame, rtrt::sampler_dim(threadIdx.x / rtrt::SAMPLER_SEGS,
+                                   threadIdx.x % rtrt::SAMPLER_SEGS));
+  __syncthreads();
+
+  rtrt::Sampler rng;
+  rng.frame = p.frame;
+  rng.use_bn = p.use_bn != 0;
+  rng.table = table;
+
+  // Persistent lanes: when every lane of the warp has ended its path, lane
+  // 0 takes the next tile of 32 pixels (tile_w x 32 / tile_w) from the work
+  // counter (one atomicAdd a warp) and lane i starts the tile's pixel i, so
+  // the warp's paths start together on neighbouring pixels.
+  const int lane = threadIdx.x & 31;
+  const int tile_h = 32 / p.tile_w;
+  const int tiles_x = (p.width + p.tile_w - 1) / p.tile_w;
+  int pix = -1, seg = 0, deepest = 0;
+  PathState st;
+  while (true) {
+    __syncwarp();
+    if (__all_sync(FULL, pix < 0)) {
+      int t = 0;
+      if (lane == 0) t = atomicAdd(p.work, 1);
+      t = __shfl_sync(FULL, t, 0);
+      if (t >= p.tiles) break;
+      const int x = (t % tiles_x) * p.tile_w + lane % p.tile_w;
+      const int i = ((t / tiles_x) * tile_h + lane / p.tile_w) * p.width + x;
+      if (x < p.width && i < p.n) {
+        pix = i;
+        seg = 0;
+        start_path(st, cold, rng, p, pix);
+      }
+    }
+    if (pix >= 0) {
+      const float t_cap = st.is_shadow ? st.shadow_tmax : CUDART_INF_F;
+      const rtrt::TraceHit h = rtrt::traverse(
+          p.nodes, p.tris, make_float3(st.org.x, st.org.y, st.org.z),
+          make_float3(st.dir.x, st.dir.y, st.dir.z), t_cap, st.is_shadow,
+          p.overflow, deepest);
+      int hmat;
+      float3 ns, ng;
+      rtrt::hit_attrs(p.nrm, p.ng, p.mat, h, hmat, ns, ng);
+      shade_segment(st, cold, h, hmat, v3(ns.x, ns.y, ns.z),
+                    v3(ng.x, ng.y, ng.z), p, rng, seg, seg == SEGMENTS - 1);
+      if (st.done || ++seg == SEGMENTS) {
+        write_planes(st, cold, p, pix);
+        pix = -1;
+      }
+    }
+  }
+  if (p.depth != nullptr) {  // one atomicMax a warp
+    const int m = __reduce_max_sync(FULL, deepest);
+    if (lane == 0 && m > 0) atomicMax(p.depth, m);
+  }
 }
 
 }  // namespace
 
+// work: (1,) int32 scratch (zeroed here, on the stream); depth: (1,) int32
+// counter of the deepest traversal stack, or nullptr; width: the pixels'
+// row length (n for a flat batch)
 extern "C" int rtrt_megakernel(
     const float* nodes, const float* tris, const float* nrm, const float* ng,
     const int* mat, const float* mat_rows, int n_mat, const float* light_rows,
@@ -303,16 +419,40 @@ extern "C" int rtrt_megakernel(
     float disk_omega, float disk_pdf, unsigned frame, const float* org,
     const float* dir, const float* cone, const int* pix, const float* bn,
     int use_bn, int use_proctex, int n, float* out, int* overflow,
-    void* stream) {
+    int* depth, int* work, int width, void* stream) {
   MegaParams p{nodes,    tris,     nrm,        ng,       mat,
-               mat_rows, n_mat,    light_rows, n_lights, sun_vec,
+               mat_rows, n_mat,    light_rows, n_lights,
                cos_max,  sin2_max, disk_omega, disk_pdf, frame,
                org,      dir,      cone,       pix,      bn,
-               use_bn,   use_proctex, n,       out,      overflow};
-  if (n > 0) {
-    const int block = 128;
-    megakernel<<<(n + block - 1) / block, block, 0,
-                 static_cast<cudaStream_t>(stream)>>>(p);
+               use_bn,   use_proctex, n,       out,      overflow,
+               depth,    work,     width};
+  if (n <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
+  // 8x4 tiles where the grid has 4 rows or more, else runs of 32 pixels
+  const int rows = (n + width - 1) / width;
+  p.tile_w = rows >= 4 ? 8 : 32;
+  const int tile_h = 32 / p.tile_w;
+  p.tiles = ((width + p.tile_w - 1) / p.tile_w) *
+            ((rows + tile_h - 1) / tile_h);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // resident blocks a SM (from the kernel's registers and shared memory)
+  // times the SMs: one wave of persistent blocks, fewer for a small n
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, megakernel, BLOCK, 0);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaMemsetAsync(work, 0, sizeof(int), s);
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbolAsync(c_sun, sun_vec, sizeof(c_sun), 0,
+                                cudaMemcpyDeviceToDevice, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int warps = BLOCK / 32;
+  const int grid = min(per_sm * sms, (p.tiles + warps - 1) / warps);
+  megakernel<<<grid, BLOCK, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,9 +33,10 @@ __global__ void traverse_kernel(
   if (i >= n) return;
   float3 o = make_float3(org[3 * i], org[3 * i + 1], org[3 * i + 2]);
   float3 d = make_float3(dir[3 * i], dir[3 * i + 1], dir[3 * i + 2]);
-  int visits;
-  rtrt::TraceHit h = rtrt::traverse<kCount>(
-      nodes, tris, o, d, tmax[i], any_hit != 0, overflow, max_steps, &visits);
+  int visits, deepest = 0;
+  rtrt::TraceHit h = rtrt::traverse<kCount>(nodes, tris, o, d, tmax[i],
+                                            any_hit != 0, overflow, deepest,
+                                            max_steps, &visits);
   if (kCount) steps[i] = visits;
   int m;
   float3 ns, g;
@@ -80,3 +81,6 @@ extern "C" int rtrt_traverse(const float* nodes, const float* tris,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// the traversal stack's depth (entries), for the callers' checks
+extern "C" int rtrt_traverse_stack() { return rtrt::STACK; }

@@ -4,23 +4,30 @@
 // packet.py::_kernel / packet_intersect, and inside the megakernel
 // render/megakernel.py::_mega_kernel).
 //
-// What bounds it on the H100: latency of dependent global loads (a 128-byte
+// What bounds it on the H100: latency of dependent global loads (a 112-byte
 // node record, then 8 x 36-byte triangle records per leaf visit) and the
 // divergence of per-ray control flow; arithmetic is small (4 slab tests or
 // 8 Moller-Trumbore tests per step).  The whole table set of the 1080p
-// terrain scene is a few MB, so it stays resident in the 50 MB L2.
+// terrain scene is a few MB, so it stays resident in the 50 MB L2.  How
+// many warps an SM holds to hide that latency is set by the registers of
+// the caller (K2 holds a path state around it).
 //
-// Simple design: one thread per ray and a private STACK-deep stack of
-// (entry, entry distance) in local memory — the TPU tile's shared scalar
-// stack, step unions, VMEM staging and distinct-winner resolve loop are TPU
-// artifacts and are not carried over.  Node records load as 8 float4 reads
-// through the read-only cache; triangle rows as scalar reads.  Per-ray
-// semantics mirror one lane of traverse_tile (see bvh/packet.py): root-exit
-// cap on best_t, near-first child order by the same 5-comparator network,
-// pops pruned by their stored entry distance, strict '<' within a leaf row
-// (padding slots duplicate real triangles).  A push that overflows the
-// stack is dropped and counted in a device counter (atomicAdd), never
-// silently.
+// Design: one thread per ray and a private STACK-deep stack of (entry,
+// entry distance) — the TPU tile's shared scalar stack, step unions, VMEM
+// staging and distinct-winner resolve loop are TPU artifacts and are not
+// carried over.  Node records load as 7 float4 reads through the read-only
+// cache (staging records in shared memory measured slower, PERF.md K12),
+// and each child's box is slab-tested from its two float4 as they arrive:
+// no copy of the 28-float record is held, which keeps registers for the
+// caller.  A stack entry is one int2 (entry, distance bits): one 8-byte
+// local access a push or pop.  Triangle records (36 B) of a leaf load
+// as float2 pairs.  Per-ray semantics mirror one lane of traverse_tile (see
+// bvh/packet.py): root-exit cap on best_t, near-first child order by the
+// same 5-comparator network, pops pruned by their stored entry distance,
+// strict '<' within a leaf row (padding slots duplicate real triangles).
+// A push that overflows the stack is dropped and counted in a device
+// counter (atomicAdd), never silently; the caller also gets the deepest
+// stack a ray reached.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -28,7 +35,12 @@
 
 namespace rtrt {
 
-constexpr int STACK = 64;
+// STACK: the deepest stack K2 reaches on the 1080p terrain frames is 11
+// entries (9 on frame 0; chip_smoke phases 3 and 5 print it), and a BVH4 of
+// L internal levels needs at most 3 L entries (3 pushes kept per level of
+// the current descent): 24 for the terrain's 8 levels.  32 leaves a margin
+// over both; a deeper tree's overflow is counted, never silent.
+constexpr int STACK = 32;
 constexpr int LEAF_WIDTH = 8;
 constexpr int LEAF_BIT = 1 << 23;
 constexpr float RAY_TMIN = 1e-4f;
@@ -46,29 +58,28 @@ __device__ __forceinline__ float safe_inv(float d) {
   return 1.0f / s;
 }
 
-// slab test of the ray against box (lo, hi); entry distance in tn
-__device__ __forceinline__ bool slab(float lo0, float lo1, float lo2,
-                                     float hi0, float hi1, float hi2,
-                                     float3 o, float3 inv, float best,
-                                     float& tn) {
+// slab test of the ray against box (lo, hi): the entry distance, or +inf
+// where the ray misses the box or enters it beyond best
+__device__ __forceinline__ float child_t(float lo0, float lo1, float lo2,
+                                         float hi0, float hi1, float hi2,
+                                         float3 o, float3 inv, float best) {
   float n0 = ((inv.x < 0.0f ? hi0 : lo0) - o.x) * inv.x;
   float n1 = ((inv.y < 0.0f ? hi1 : lo1) - o.y) * inv.y;
   float n2 = ((inv.z < 0.0f ? hi2 : lo2) - o.z) * inv.z;
   float f0 = ((inv.x < 0.0f ? lo0 : hi0) - o.x) * inv.x;
   float f1 = ((inv.y < 0.0f ? lo1 : hi1) - o.y) * inv.y;
   float f2 = ((inv.z < 0.0f ? lo2 : hi2) - o.z) * inv.z;
-  tn = fmaxf(fmaxf(n0, n1), n2);
+  float tn = fmaxf(fmaxf(n0, n1), n2);
   float tf = fminf(fminf(f0, f1), f2) * FAR_SCALE;
-  return (tn <= tf) && (tf > RAY_TMIN) && (tn < best);
+  return (tn <= tf) && (tf > RAY_TMIN) && (tn < best) ? tn : CUDART_INF_F;
 }
 
 // Moller-Trumbore over a [v0 | e1 | e2] record (division-free accept)
-__device__ __forceinline__ bool tri_test(const float* __restrict__ r,
+__device__ __forceinline__ bool tri_test(float v0x, float v0y, float v0z,
+                                         float e1x, float e1y, float e1z,
+                                         float e2x, float e2y, float e2z,
                                          float3 o, float3 d, float best,
                                          float& t, float& u, float& v) {
-  float v0x = __ldg(r + 0), v0y = __ldg(r + 1), v0z = __ldg(r + 2);
-  float e1x = __ldg(r + 3), e1y = __ldg(r + 4), e1z = __ldg(r + 5);
-  float e2x = __ldg(r + 6), e2y = __ldg(r + 7), e2z = __ldg(r + 8);
   float px = o.x - v0x, py = o.y - v0y, pz = o.z - v0z;
   float hx = d.y * e2z - d.z * e2y;
   float hy = d.z * e2x - d.x * e2z;
@@ -107,7 +118,8 @@ __device__ __forceinline__ void cswap(Cand& a, Cand& b) {
 }
 
 // Closest hit under t_cap (t_cap <= 0: no hit), or with first_hit the first
-// accepted leaf hit.  overflow: device counter of dropped pushes.
+// accepted leaf hit.  overflow: device counter of dropped pushes; deepest:
+// raised to the most entries the stack held.
 // kCount (the standalone launcher's variant that
 // rtrt_tpu_torch/tools/probe_traverse.py times): the ray stops after
 // max_steps node or leaf visits (pops pruned by their entry distance do not
@@ -115,48 +127,46 @@ __device__ __forceinline__ void cswap(Cand& a, Cand& b) {
 // false, which compiles to the loop without counter.
 template <bool kCount = false>
 static __device__ TraceHit traverse(const float* __restrict__ nodes,
-                             const float* __restrict__ tris, float3 o,
-                             float3 d, float t_cap, bool first_hit,
-                             int* overflow, int max_steps = 0,
-                             int* steps = nullptr) {
+                                    const float* __restrict__ tris, float3 o,
+                                    float3 d, float t_cap, bool first_hit,
+                                    int* overflow, int& deepest,
+                                    int max_steps = 0, int* steps = nullptr) {
   TraceHit hit{CUDART_INF_F, -1, 0.0f, 0.0f};
   int visits = 0;
   if (kCount) *steps = 0;
   if (!(t_cap > 0.0f)) return hit;
   float3 inv = make_float3(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
 
-  // per-ray scene-exit cap: a hit lies inside the root box
-  float r[32];
+  // A node record is 7 float4: child k's box [lo xyz | hi xyz] is floats
+  // 6k..6k+5, the four child entries floats 24..27.
+  // per-ray scene-exit cap: a hit lies inside the root box (the union of
+  // the root's child boxes)
+  float best;
   {
     const float4* rec = reinterpret_cast<const float4*>(nodes);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      float4 q = __ldg(rec + k);
-      r[4 * k] = q.x; r[4 * k + 1] = q.y; r[4 * k + 2] = q.z;
-      r[4 * k + 3] = q.w;
-    }
+    const float4 q0 = __ldg(rec), q1 = __ldg(rec + 1), q2 = __ldg(rec + 2);
+    const float4 q3 = __ldg(rec + 3), q4 = __ldg(rec + 4),
+                 q5 = __ldg(rec + 5);
+    const float lx = fminf(fminf(fminf(q0.x, q1.z), q3.x), q4.z);
+    const float ly = fminf(fminf(fminf(q0.y, q1.w), q3.y), q4.w);
+    const float lz = fminf(fminf(fminf(q0.z, q2.x), q3.z), q5.x);
+    const float hx = fmaxf(fmaxf(fmaxf(q0.w, q2.y), q3.w), q5.y);
+    const float hy = fmaxf(fmaxf(fmaxf(q1.x, q2.z), q4.x), q5.z);
+    const float hz = fmaxf(fmaxf(fmaxf(q1.y, q2.w), q4.y), q5.w);
+    float n0 = ((inv.x < 0.0f ? hx : lx) - o.x) * inv.x;
+    float n1 = ((inv.y < 0.0f ? hy : ly) - o.y) * inv.y;
+    float n2 = ((inv.z < 0.0f ? hz : lz) - o.z) * inv.z;
+    float f0 = ((inv.x < 0.0f ? lx : hx) - o.x) * inv.x;
+    float f1 = ((inv.y < 0.0f ? ly : hy) - o.y) * inv.y;
+    float f2 = ((inv.z < 0.0f ? lz : hz) - o.z) * inv.z;
+    float r_tn = fmaxf(fmaxf(n0, n1), n2);
+    float r_tf = fminf(fminf(f0, f1), f2) * FAR_SCALE;
+    bool hit_root = (r_tn <= r_tf) && (r_tf > RAY_TMIN);
+    float exit_cap = hit_root ? r_tf * 1.001f + 1e-2f : 0.0f;
+    best = fminf(t_cap, exit_cap);
   }
-  float rlo[3], rhi[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    rlo[k] = fminf(fminf(fminf(r[k], r[6 + k]), r[12 + k]), r[18 + k]);
-    rhi[k] = fmaxf(fmaxf(fmaxf(r[3 + k], r[9 + k]), r[15 + k]), r[21 + k]);
-  }
-  float r_tn;
-  float n0 = ((inv.x < 0.0f ? rhi[0] : rlo[0]) - o.x) * inv.x;
-  float n1 = ((inv.y < 0.0f ? rhi[1] : rlo[1]) - o.y) * inv.y;
-  float n2 = ((inv.z < 0.0f ? rhi[2] : rlo[2]) - o.z) * inv.z;
-  float f0 = ((inv.x < 0.0f ? rlo[0] : rhi[0]) - o.x) * inv.x;
-  float f1 = ((inv.y < 0.0f ? rlo[1] : rhi[1]) - o.y) * inv.y;
-  float f2 = ((inv.z < 0.0f ? rlo[2] : rhi[2]) - o.z) * inv.z;
-  r_tn = fmaxf(fmaxf(n0, n1), n2);
-  float r_tf = fminf(fminf(f0, f1), f2) * FAR_SCALE;
-  bool hit_root = (r_tn <= r_tf) && (r_tf > RAY_TMIN);
-  float exit_cap = hit_root ? r_tf * 1.001f + 1e-2f : 0.0f;
-  float best = fminf(t_cap, exit_cap);
 
-  int st_e[STACK];
-  float st_t[STACK];
+  int2 stack[STACK];  // (entry, entry distance's bits): one 8-byte access
   int sp = 0;
   int cur = 0;
   float curt = -CUDART_INF_F;
@@ -165,8 +175,8 @@ static __device__ TraceHit traverse(const float* __restrict__ nodes,
     if (cur < 0) {
       if (sp == 0) break;
       --sp;
-      cur = st_e[sp];
-      curt = st_t[sp];
+      cur = stack[sp].x;
+      curt = __int_as_float(stack[sp].y);
     }
     const int e = cur;
     cur = -1;
@@ -176,13 +186,26 @@ static __device__ TraceHit traverse(const float* __restrict__ nodes,
       const int base = ((e >> 11) & 0x7FF) * 1024 + (e & 0x7FF);
       float gt = CUDART_INF_F, gu = 0.0f, gv = 0.0f;
       int gtri = 0;
-#pragma unroll 2
-      for (int k = 0; k < LEAF_WIDTH; ++k) {
+      // a leaf's base is a multiple of LEAF_WIDTH (bvh/sah.py pads leaves
+      // to row-aligned 8-slot rows), so a pair of 36-byte records starts
+      // 8-byte aligned: 9 float2 loads a pair instead of 18 scalar ones
+      const float2* row =
+          reinterpret_cast<const float2*>(tris + (size_t)base * 9);
+#pragma unroll 1
+      for (int k = 0; k < LEAF_WIDTH; k += 2) {
+        float2 q[9];
+#pragma unroll
+        for (int j = 0; j < 9; ++j) q[j] = __ldg(row + (k / 2) * 9 + j);
         float tt, tu, tv;
-        bool ok = tri_test(tris + (size_t)(base + k) * 9, o, d, best, tt,
-                           tu, tv);
+        bool ok = tri_test(q[0].x, q[0].y, q[1].x, q[1].y, q[2].x, q[2].y,
+                           q[3].x, q[3].y, q[4].x, o, d, best, tt, tu, tv);
         if (ok && tt < gt) {
           gt = tt; gu = tu; gv = tv; gtri = base + k;
+        }
+        ok = tri_test(q[4].y, q[5].x, q[5].y, q[6].x, q[6].y, q[7].x,
+                      q[7].y, q[8].x, q[8].y, o, d, best, tt, tu, tv);
+        if (ok && tt < gt) {
+          gt = tt; gu = tu; gv = tv; gtri = base + k + 1;
         }
       }
       if (gt < best) {
@@ -193,23 +216,24 @@ static __device__ TraceHit traverse(const float* __restrict__ nodes,
         if (first_hit) break;
       }
     } else {
+      // each child's box is tested from its two float4 as they arrive; no
+      // copy of the whole record is held
       const float4* rec = reinterpret_cast<const float4*>(
           nodes + (size_t)(e & 0x3FFFFF) * 32);
-#pragma unroll
-      for (int k = 0; k < 7; ++k) {
-        float4 q = __ldg(rec + k);
-        r[4 * k] = q.x; r[4 * k + 1] = q.y; r[4 * k + 2] = q.z;
-        r[4 * k + 3] = q.w;
-      }
       Cand c[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        float tn;
-        bool h = slab(r[6 * k], r[6 * k + 1], r[6 * k + 2], r[6 * k + 3],
-                      r[6 * k + 4], r[6 * k + 5], o, inv, best, tn);
-        c[k].t = h ? tn : CUDART_INF_F;
-        c[k].e = (int)r[24 + k];
-      }
+      const float4 q0 = __ldg(rec), q1 = __ldg(rec + 1);
+      c[0].t = child_t(q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, o, inv, best);
+      const float4 q2 = __ldg(rec + 2);
+      c[1].t = child_t(q1.z, q1.w, q2.x, q2.y, q2.z, q2.w, o, inv, best);
+      const float4 q3 = __ldg(rec + 3), q4 = __ldg(rec + 4);
+      c[2].t = child_t(q3.x, q3.y, q3.z, q3.w, q4.x, q4.y, o, inv, best);
+      const float4 q5 = __ldg(rec + 5);
+      c[3].t = child_t(q4.z, q4.w, q5.x, q5.y, q5.z, q5.w, o, inv, best);
+      const float4 q6 = __ldg(rec + 6);
+      c[0].e = (int)q6.x;
+      c[1].e = (int)q6.y;
+      c[2].e = (int)q6.z;
+      c[3].e = (int)q6.w;
       cswap(c[0], c[1]);
       cswap(c[2], c[3]);
       cswap(c[0], c[2]);
@@ -219,14 +243,14 @@ static __device__ TraceHit traverse(const float* __restrict__ nodes,
       for (int k = 3; k >= 1; --k) {
         if (c[k].t < CUDART_INF_F) {
           if (sp < STACK) {
-            st_e[sp] = c[k].e;
-            st_t[sp] = c[k].t;
+            stack[sp] = make_int2(c[k].e, __float_as_int(c[k].t));
             ++sp;
           } else {
             atomicAdd(overflow, 1);
           }
         }
       }
+      deepest = max(deepest, sp);
       if (c[0].t < CUDART_INF_F) {
         cur = c[0].e;
         curt = c[0].t;

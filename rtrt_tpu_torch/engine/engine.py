@@ -124,6 +124,8 @@ class Engine:
                                   screen_h=s.render_height, flags=self.flags)
         self.consts = make_frame_consts(self.static, self.device)
         self.overflow = overflow_counter(self.device)
+        # the deepest traversal stack of any frame (entries)
+        self.stack_depth = overflow_counter(self.device)
         self.last_gbuffer = None
         self._last_time = None
 
@@ -156,7 +158,7 @@ class Engine:
         image, self.state, self.last_gbuffer = render_frame(
             self.static, self.scene_data, self.state, self.camera,
             self.prev_camera, self.params, max(dt, 1e-4), self.consts,
-            self.overflow)
+            self.overflow, self.stack_depth)
         self.prev_camera = self.camera
         return image
 

@@ -82,10 +82,12 @@ def make_frame_consts(static: FrameStatic, device) -> FrameConsts:
 
 def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
                  camera: Camera, prev_camera: Camera, params: RenderParams,
-                 dt: float, consts: FrameConsts = None, overflow=None):
+                 dt: float, consts: FrameConsts = None, overflow=None,
+                 stack_depth=None):
     """One full frame.  Returns (u8 image (screen_h, screen_w, 3),
     new FrameState, GBuffer).  overflow: optional (1,) int32 counter of
-    dropped traversal-stack pushes."""
+    dropped traversal-stack pushes; stack_depth: optional (1,) int32
+    counter raised to the deepest traversal stack."""
     check_flags(static.flags)
     w, h = static.render_w, static.render_h
     dev = scene.tables.nodes.device
@@ -109,7 +111,7 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
     gbuf: GBuffer = path_trace_mega(
         scene, rays, consts.pixel_ids, frame, prev_basis, w / h,
         use_proctex=static.flags.procedural_textures, bn=consts.bn,
-        overflow=overflow)
+        overflow=overflow, stack_depth=stack_depth)
 
     if static.flags.denoise:
         if state.history is None:

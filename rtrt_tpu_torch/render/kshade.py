@@ -124,16 +124,50 @@ def rand2_c(pixel_id, frame, dim_pair):
                            pixel_seed(u32(pixel_id), u32(dim_pair)))
 
 
-def rand2_bn_c(bnx, bny, frame, dim_pair):
-    """Blue-noise-dithered pair: the shared sequence rotated by the
-    per-pixel mask offsets (bnx, bny)."""
-    u1, u2 = rand2_c(0, frame, dim_pair)
-    sx, sy = _dim_shift(dim_pair)
+# The blue-noise pair splits into a part shared by every pixel of a launch,
+# (u1, u2, sx, sy) of (frame, dim), and a per-pixel rotation.  K2 computes
+# the shared part once per launch into a table in shared memory
+# (csrc/kshade.cuh::sampler_entry); these are its torch twins.  The
+# megakernel draws dims base + 2 * seg for these bases: BSDF, light
+# sample, shadow-or-scatter choice, sphere-light pick.
+SAMPLER_BASES = (2, 64, 128, 192)
+
+
+def sampler_dims(segments: int) -> list:
+    """The dims of the table's slots, slot b * segments + s holding dim
+    SAMPLER_BASES[b] + 2 s."""
+    return [b + 2 * s for b in SAMPLER_BASES for s in range(segments)]
+
+
+def sampler_entry(frame, dim_pair) -> tuple:
+    """(u1, u2, sx, sy) of (frame, dim) as Python floats (float32 values):
+    the shared sequence's pair and the dim's Cranley-Patterson shift."""
+    return rand2_c(0, frame, dim_pair) + _dim_shift(dim_pair)
+
+
+def sampler_table(frame, segments: int) -> torch.Tensor:
+    """(4 * segments, 4) float32 table of sampler_entry over
+    sampler_dims(segments)."""
+    return torch.tensor([sampler_entry(frame, d)
+                         for d in sampler_dims(segments)],
+                        dtype=torch.float32)
+
+
+def bn_rotate(entry, bnx, bny):
+    """The per-pixel part: the entry's pair rotated by the mask offsets
+    (bnx, bny) plus the entry's shift."""
+    u1, u2, sx, sy = entry
     ox = bnx + sx
     oy = bny + sy
     u = u1 + (ox - torch.floor(ox))
     v = u2 + (oy - torch.floor(oy))
     return u - torch.floor(u), v - torch.floor(v)
+
+
+def rand2_bn_c(bnx, bny, frame, dim_pair):
+    """Blue-noise-dithered pair: the shared sequence rotated by the
+    per-pixel mask offsets (bnx, bny)."""
+    return bn_rotate(sampler_entry(frame, dim_pair), bnx, bny)
 
 
 # ---------------------------------------------------------------------------

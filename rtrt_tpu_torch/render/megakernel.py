@@ -32,11 +32,12 @@ from ..core.camera import motion_vector
 from ..utils import cuda
 from .bsdf import MAT_EMISSIVE
 from .integrator import RADIANCE_CLAMP, GBuffer
-from .kshade import (LIGHT_ROW, V3, SunParamsC, _w, eval_bsdf_c,
-                     material_select_c, orient_normals_c,
-                     pack_materials_rows, power_heuristic_c, rand2_bn_c,
-                     rand2_c, ray_sphere_c, sample_bsdf_c,
-                     sample_sphere_light_c, sample_sun_c, soil_shading_c,
+from .kshade import (LIGHT_ROW, V3, SunParamsC, _w,
+                     bn_rotate, eval_bsdf_c, material_select_c,
+                     orient_normals_c, pack_materials_rows,
+                     power_heuristic_c, rand2_c, ray_sphere_c,
+                     sample_bsdf_c, sample_sphere_light_c, sample_sun_c,
+                     sampler_dims, sampler_table, soil_shading_c,
                      sphere_lights_pdf_c, vdot, vlum, vwhere)
 from .light import sun_pdf_dir
 from .sampling import power_heuristic
@@ -95,6 +96,7 @@ class ShadeCtx:
     n_lights: int
     use_proctex: bool
     rand2: object   # dim -> (u1, u2)
+    hits: list | None = None  # [shaded, textured, sampled] counts or None
 
 
 def init_state(org: V3, dir: V3, cone) -> PathState:
@@ -170,6 +172,10 @@ def shade_segment(st: PathState, hit, ctx: ShadeCtx, seg: int,
     ns, ng = orient_normals_c(hns, hng, wo)
     mtype, albedo, rough, ior, f0, emission, textured = material_select_c(
         ctx.mat_rows, hmat)
+    if ctx.hits is not None:
+        ctx.hits[0] += int(live.sum())
+        if ctx.use_proctex:
+            ctx.hits[1] += int((textured & live).sum())
     if ctx.use_proctex and bool((textured & live).any()):
         tex_alb, tex_rough, ns_tex = soil_shading_c(pos, ns, cone_w)
         albedo = vwhere(textured, albedo * tex_alb, albedo)
@@ -192,6 +198,8 @@ def shade_segment(st: PathState, hit, ctx: ShadeCtx, seg: int,
     mat_id = torch.where(first, hmat.to(torch.int64), st.mat_id)
     alb_g = vwhere(first, alb_c, st.albedo)
     got_primary = st.got_primary | live
+    if ctx.hits is not None:
+        ctx.hits[2] += int(live.sum())
 
     u1b, u2b = ctx.rand2(2 + 2 * seg)
     ul1, ul2 = ctx.rand2(64 + 2 * seg)
@@ -292,10 +300,15 @@ def _flat(x, k=None):
 def megakernel_trace_plain(tables, mat_rows, light_rows, sun_vec, frame_idx,
                            org, dir, cone, pixel_ids, *, n_lights,
                            use_proctex=True, bn=None, overflow=None,
-                           visits=None) -> MegaOut:
-    """Torch twin of the JAX simulate_megakernel on the port's traversal
-    (visits: optional [node visits, leaf visits] counts over all segments,
-    as in bvh.packet.traverse_plain)."""
+                           stack_depth=None, visits=None,
+                           hits=None) -> MegaOut:
+    """Torch twin of the JAX simulate_megakernel on the port's traversal.
+    The work this run's data needs, for a kernel's bound: visits, optional
+    [node visits, leaf visits] over all segments (as in
+    bvh.packet.traverse_plain); hits, optional [shaded, textured, sampled]
+    counts: hits that reach the surface interaction (normals, material),
+    those that evaluate the procedural soil, those that sample the BSDF
+    and the lights (not emissive).  stack_depth as in megakernel_trace."""
     lead = org.shape[:-1]
     if overflow is None:
         overflow = overflow_counter(org.device)
@@ -303,13 +316,15 @@ def megakernel_trace_plain(tables, mat_rows, light_rows, sun_vec, frame_idx,
     frame = int(frame_idx) & 0xFFFFFFFF
     if bn is not None:
         bnf = _flat(bn, 2)
-        sampler = lambda dim: rand2_bn_c(bnf[:, 0], bnf[:, 1], frame, dim)
+        rows = dict(zip(sampler_dims(SEGMENTS),
+                        sampler_table(frame, SEGMENTS).tolist()))
+        sampler = lambda dim: bn_rotate(rows[dim], bnf[:, 0], bnf[:, 1])
     else:
         pix = _flat(pixel_ids).to(torch.int64)
         sampler = lambda dim: rand2_c(pix, frame, dim)
     ctx = ShadeCtx(sun=SunParamsC(sun_vec), mat_rows=mat_rows,
                    light_rows=light_rows, n_lights=n_lights,
-                   use_proctex=use_proctex, rand2=sampler)
+                   use_proctex=use_proctex, rand2=sampler, hits=hits)
     st = init_state(V3(o[:, 0], o[:, 1], o[:, 2]),
                     V3(d[:, 0], d[:, 1], d[:, 2]), cone_f)
     for seg in range(SEGMENTS):
@@ -319,7 +334,7 @@ def megakernel_trace_plain(tables, mat_rows, light_rows, sun_vec, frame_idx,
         ro = torch.stack(list(st.org), dim=1)
         rd = torch.stack(list(st.dir), dim=1)
         t, tri, u, v = traverse_plain(tables, ro, rd, t_cap, fh, overflow,
-                                      visits)
+                                      visits, depth=stack_depth)
         h = _resolve(tables, t, tri, u, v)
         hit = (h.t, h.tri, h.mat, V3(*h.ns.unbind(1)), V3(*h.ng.unbind(1)))
         st = shade_segment(st, hit, ctx, seg, is_last=(seg == SEGMENTS - 1))
@@ -335,19 +350,24 @@ def megakernel_trace_plain(tables, mat_rows, light_rows, sun_vec, frame_idx,
 
 def megakernel_trace(tables, mat_rows, light_rows, sun_vec, frame_idx, org,
                      dir, cone, pixel_ids, *, n_lights, use_proctex=True,
-                     bn=None, overflow=None) -> MegaOut:
+                     bn=None, overflow=None, stack_depth=None,
+                     out=None) -> MegaOut:
     """Trace full paths for image-shaped (..., 3) primary rays.  CPU tensors
     run the plain version; CUDA tensors launch K2 (csrc/megakernel.cu).
 
     mat_rows (M, 16) from pack_materials_rows; light_rows (L, 8) from
     pack_light_rows with n_lights real rows; sun_vec (16,) from
     pack_sun_params; pixel_ids (...) int32; bn (..., 2) blue-noise
-    offsets or None; overflow (1,) int32 counter of dropped stack pushes."""
+    offsets or None; overflow (1,) int32 counter of dropped stack pushes;
+    stack_depth None or a (1,) int32 counter raised to the deepest
+    traversal stack (entries) of the launch; out: for CUDA tensors, an
+    optional (18, N) float32 buffer that receives the planes (the result's
+    planes are views of it)."""
     if org.device.type == "cpu":
         return megakernel_trace_plain(
             tables, mat_rows, light_rows, sun_vec, frame_idx, org, dir, cone,
             pixel_ids, n_lights=n_lights, use_proctex=use_proctex, bn=bn,
-            overflow=overflow)
+            overflow=overflow, stack_depth=stack_depth)
     dev = org.device
     lead = tuple(org.shape[:-1])
     n = math.prod(lead)
@@ -362,11 +382,16 @@ def megakernel_trace(tables, mat_rows, light_rows, sun_vec, frame_idx, org,
                              (max(n_lights, 1), LIGHT_ROW)),
                  sun_vec=(sun_vec, torch.float32, (16,)),
                  overflow=(overflow, torch.int32, (1,)))
+    if stack_depth is not None:
+        specs["stack_depth"] = (stack_depth, torch.int32, (1,))
     if bn is not None:
         specs["bn"] = (bn, torch.float32, lead + (2,))
+    if out is None:
+        out = torch.empty((18, n), dtype=torch.float32, device=dev)
+    specs["out"] = (out, torch.float32, (18, n))
     cuda.check_tensors(dev, **specs)
     _check_tables(tables, dev)
-    out = torch.empty((18, n), dtype=torch.float32, device=dev)
+    work = torch.empty(1, dtype=torch.int32, device=dev)  # zeroed by K2
     cuda.launch(
         cuda.library().rtrt_megakernel, "megakernel_trace", dev,
         tables.nodes, tables.tris, tables.nrm, tables.ng, tables.mat,
@@ -377,7 +402,9 @@ def megakernel_trace(tables, mat_rows, light_rows, sun_vec, frame_idx, org,
         ctypes.c_uint(int(frame_idx) & 0xFFFFFFFF), org, dir, cone,
         pixel_ids, bn if bn is not None else ctypes.c_void_p(0),
         ctypes.c_int(int(bn is not None)), ctypes.c_int(int(use_proctex)),
-        ctypes.c_int(n), out, overflow)
+        ctypes.c_int(n), out, overflow,
+        stack_depth if stack_depth is not None else ctypes.c_void_p(0), work,
+        ctypes.c_int(lead[-1] if len(lead) > 1 else n))
     p = out.reshape((18,) + lead)
     s3 = lambda k: p[k:k + 3].movedim(0, -1)
     return MegaOut(radiance=s3(0), albedo=s3(3), normal=s3(6), depth=p[9],
@@ -403,8 +430,8 @@ def finish_gbuffer(sky, rays, out: MegaOut, prev_basis, aspect) -> GBuffer:
 
 
 def path_trace_mega(scene, rays, pixel_ids, frame_idx, prev_basis, aspect,
-                    use_proctex: bool = True, bn=None,
-                    overflow=None) -> GBuffer:
+                    use_proctex: bool = True, bn=None, overflow=None,
+                    stack_depth=None) -> GBuffer:
     """Path-trace image-shaped rays through the megakernel and finish the
     G-buffer.  scene: render.integrator.SceneData."""
     dev = rays.org.device
@@ -416,5 +443,6 @@ def path_trace_mega(scene, rays, pixel_ids, frame_idx, prev_basis, aspect,
         frame_idx, rays.org.contiguous(), rays.dir.contiguous(),
         rays.cone_width.contiguous(), pixel_ids.to(torch.int32).contiguous(),
         n_lights=n_lights, use_proctex=use_proctex,
-        bn=None if bn is None else bn.contiguous(), overflow=overflow)
+        bn=None if bn is None else bn.contiguous(), overflow=overflow,
+        stack_depth=stack_depth)
     return finish_gbuffer(scene.sky, rays, out, prev_basis, aspect)

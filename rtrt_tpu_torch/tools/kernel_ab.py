@@ -1,0 +1,178 @@
+"""A/B timing of the trace and denoise kernels (K1, K2, K4) of several
+trees of this package on one card, in one run.
+
+    python rtrt_tpu_torch/tools/kernel_ab.py [--rounds 2] TREE [TREE ...]
+
+Each TREE is a directory that holds an ``rtrt_tpu_torch`` package and
+``resources/bluenoise64.npy`` (the Engine's blue-noise mask): this
+checkout's root, or another revision unpacked beside it (``git archive
+REV rtrt_tpu_torch resources/bluenoise64.npy`` into a directory that
+.gitignore lists).  In each round the trees are
+timed in the order given and then in reverse (A B ... B A), each in a fresh
+process that imports the package from that tree only, builds its kernels
+(into TREE/build/), builds the 1080p terrain Engine and times, with CUDA
+events, at the main path's shapes:
+
+  * K1: packet_intersect on the frame's 1920x1080 primary rays;
+  * K2: megakernel_trace on the full frame (blue noise, frame 0), and its
+    deepest traversal stack where the tree's K2 reports one;
+  * K4: edge_aware_pass at each of the frame's four pass settings (7x7 half
+    kernel, 5x5 at strides 3, 6, 12) on the G-buffer that tree's K2 renders.
+
+Each process prints one line ``AB {json}`` (times in ms, ptxas' registers
+and spills of the three kernels); the parent prints the median of each
+tree's processes beside the card's name and power limit.  Needs a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+W, H = 1920, 1080
+PASSES = (("7x7", 3, 1, True, 0), ("s3", 2, 3, False, 0),
+          ("s6", 2, 6, False, 0), ("s12", 2, 12, False, 0))
+
+
+def _ptxas(log: str) -> dict:
+    """{mangled kernel name: ptxas' stack / spill and register lines} of
+    the build log, for K1's, K2's and K4's kernels."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+            cur = name if any(k in name for k in (
+                "megakernel", "traverse_kernel", "denoise_wide")) else None
+        elif cur and ("spill stores" in line or "registers" in line):
+            out.setdefault(cur, []).append(
+                line.split("ptxas info    :")[-1].strip())
+    return out
+
+
+def child(tree: str, reps2: int, reps4: int) -> dict:
+    """Time K1, K2 and K4 of the package in `tree` (this process only)."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import inspect
+
+    import torch
+    import rtrt_tpu_torch
+    from rtrt_tpu_torch.bvh import packet as P
+    from rtrt_tpu_torch.core.camera import camera_basis
+    from rtrt_tpu_torch.denoise.spatial import edge_aware_pass
+    from rtrt_tpu_torch.engine.engine import Engine
+    from rtrt_tpu_torch.render import megakernel as M
+    from rtrt_tpu_torch.render.kshade import pack_materials_rows
+    from rtrt_tpu_torch.render.raygen import generate_rays_padded
+    from rtrt_tpu_torch.render.sampling import rand2_bn
+    from rtrt_tpu_torch.utils import cuda
+    from rtrt_tpu_torch.utils.config import (DynamicResolution, FeatureFlags,
+                                             GlobalSettings, default_params)
+    from rtrt_tpu_torch.utils.timing import time_ms
+
+    pkg = os.path.dirname(os.path.abspath(rtrt_tpu_torch.__file__))
+    assert pkg.startswith(os.path.abspath(tree)), pkg
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: no CUDA card")
+    dev = torch.device("cuda:0")
+    cuda.library()
+    eng = Engine(GlobalSettings(scene="terrain", render_width=W,
+                                render_height=H, texture_size=256,
+                                dynamic_resolution=DynamicResolution(
+                                    enabled=False)),
+                 flags=FeatureFlags(denoise=False, bloom=False,
+                                    lens_flare=False), device=dev)
+    sc, consts = eng.scene_data, eng.consts
+    rays = generate_rays_padded(camera_basis(eng.camera), W, H,
+                                consts.pixel_ids, rand2_bn(consts.bn, 0, 0),
+                                rand2_bn(consts.bn, 0, 256))
+    org = rays.org.reshape(-1, 3).contiguous()
+    dirs = rays.dir.reshape(-1, 3).contiguous()
+    res = dict(tree=tree, build=_ptxas(cuda.build_info["log"]))
+    res["K1"] = time_ms(lambda: P.packet_intersect(sc.tables, org, dirs), 20)
+
+    args = (sc.tables, pack_materials_rows(sc.materials).to(dev),
+            M.pack_light_rows(sc.lights, dev), M.pack_sun_params(sc.sky), 0,
+            rays.org, rays.dir, rays.cone_width, consts.pixel_ids)
+    n_lights = 0 if sc.lights is None else sc.lights.center.shape[0]
+    kw = dict(n_lights=n_lights, bn=consts.bn)
+    if "stack_depth" in inspect.signature(M.megakernel_trace).parameters:
+        depth = torch.zeros(1, dtype=torch.int32, device=dev)
+        M.megakernel_trace(*args, stack_depth=depth, **kw)
+        res["K2 deepest stack"] = int(depth)
+    out = M.megakernel_trace(*args, **kw)
+    res["K2"] = time_ms(lambda: M.megakernel_trace(*args, **kw), reps2)
+
+    gb = M.finish_gbuffer(sc.sky, rays, out, camera_basis(eng.camera), W / H)
+    gb_in = (gb.color.contiguous(), gb.normal.contiguous(),
+             gb.depth.contiguous(), gb.mat_id.contiguous(),
+             default_params().denoise)
+    k4 = []
+    for label, rad, stride, half, par in PASSES:
+        t = time_ms(lambda: edge_aware_pass(
+            *gb_in, radius=rad, stride=stride, half_taps=half, parity=par),
+            reps4)
+        res[f"K4 {label}"] = t
+        k4.append(t)
+    res["K4 mean"] = sum(k4) / len(k4)
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("trees", nargs="*")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--reps2", type=int, default=10)
+    ap.add_argument("--reps4", type=int, default=50)
+    ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
+    a = ap.parse_args(argv)
+    if a.child is not None:
+        print("AB " + json.dumps(child(a.child, a.reps2, a.reps4)),
+              flush=True)
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    runs = {t: [] for t in a.trees}
+    failed = set()
+    order = []
+    for _ in range(a.rounds):
+        order += list(a.trees) + list(reversed(a.trees))
+    for tree in order:
+        p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--child", tree, "--reps2", str(a.reps2),
+                            "--reps4", str(a.reps4)],
+                           capture_output=True, text=True)
+        lines = [ln for ln in p.stdout.splitlines() if ln.startswith("AB ")]
+        if p.returncode or not lines:
+            print(f"AB {tree} failed (rc {p.returncode}):\n"
+                  + p.stdout[-2000:] + p.stderr[-4000:], flush=True)
+            failed.add(tree)
+            continue
+        r = json.loads(lines[-1][3:])
+        print(lines[-1], flush=True)
+        runs[tree].append(r)
+    print(f"median over {2 * a.rounds} processes per tree, ms [{smi}]:")
+    for tree, rs in runs.items():
+        if not rs:
+            continue
+        keys = [k for k in rs[0] if isinstance(rs[0][k], float)]
+        med = {k: round(statistics.median(r[k] for r in rs), 4)
+               for k in keys}
+        extra = {k: rs[0][k] for k in rs[0]
+                 if k not in keys and k not in ("tree",)}
+        print(f"  {tree}: {json.dumps(med)} {json.dumps(extra)}")
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

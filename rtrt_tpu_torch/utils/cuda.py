@@ -45,11 +45,13 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint
 # C signatures (the last argument of each is the cudaStream_t, but for
-# rtrt_smem_optin, a device attribute query)
+# the queries rtrt_smem_optin, a device attribute, and rtrt_traverse_stack,
+# the traversal stack's depth)
 _SIGNATURES = {
     "rtrt_traverse": [_P] * 8 + [_I, _I] + [_P] * 7 + [_I, _P, _P] + [_P],
+    "rtrt_traverse_stack": [],
     "rtrt_megakernel": [_P] * 6 + [_I, _P, _I, _P] + [_F] * 4 + [_U]
-    + [_P] * 5 + [_I, _I, _I] + [_P, _P] + [_P],
+    + [_P] * 5 + [_I, _I, _I] + [_P] * 4 + [_I] + [_P],
     "rtrt_post_tail": [_P, _I, _I, _P, _P, _I, _I, _P] + [_P],
     "rtrt_denoise_wide": [_P] * 4 + [_I, _I, _P] + [_I] * 4 + [_F] * 3
     + [_P] + [_P],
