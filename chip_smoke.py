@@ -13,16 +13,20 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      terrain scene's tables and the full 1920x1080 frame's rays: K1
      traversal (the primary rays + any-hit rays from their hits toward a
      low sun), K2 megakernel (all 18 output planes, the finished G-buffer
-     colour, the deepest traversal stack against the kernel's STACK and
-     the plain version's; the plain version counts the visits and the
+     colour, the deepest traversal stack against the tables' stack depth
+     and the plain version's; the plain version counts the visits and the
      shaded, textured and sampled hits that K2's bound counts), K3 post
      tail (the frame K2 rendered), K4 a-trous pass (that frame's
      G-buffer; the 7x7 pass at both parities and the 5x5 passes at
      strides 3, 6, 12), K5 history reprojection (that frame's planes as
-     bf16 history; a camera's motion and a synthetic field); each kernel
-     and its plain version are timed at that shape, and each kernel's
-     bound (bytes or operations, `utils/timing.py::bound_ms`) is computed
-     from this run's inputs;
+     bf16 history; a camera's motion and a synthetic field); each kernel and its plain version are timed at that
+     shape (K3 and K5 also by CUDA graph replays, `time_graph_ms`, which
+     leave the host's launch path out; their bounds are held against
+     those), and each kernel's bound (bytes or operations,
+     `utils/timing.py::bound_ms`) is computed from this run's inputs;
+     then K1 and K2 on the chain scene (engine/scene.py::build_chain_scene,
+     12 BVH4 levels: the 256-entry stack) against their plain versions,
+     0 dropped pushes and a deepest stack beyond 32 entries;
   4. the first slice's path: Engine(terrain, 1920x1080,
      FeatureFlags(denoise=False, bloom=False, lens_flare=False)) renders 2
      warm-up and 5 timed frames; K2 and K3 must each read 7 launches;
@@ -204,7 +208,7 @@ def main() -> int:
     from rtrt_tpu_torch.utils.config import DynamicResolution, \
         FeatureFlags, GlobalSettings, default_params
     from rtrt_tpu_torch.utils.timing import bound_ms, card as card_line, \
-        time_ms
+        time_graph_ms, time_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -239,11 +243,15 @@ def main() -> int:
                                               lens_flare=False),
                  device="cuda")
     s = eng.init_seconds
-    print(f"init: scene {s['scene']:.2f} s, SAH+BVH4 {s['sah']:.2f} s, "
-          f"sky {s['sky']:.2f} s; {eng.scene.num_tris} tris, "
-          f"{eng.scene_data.tables.nodes.shape[0]} BVH4 nodes {card}")
     sc, consts = eng.scene_data, eng.consts
     tables = sc.tables
+    print(f"init: scene {s['scene']:.2f} s, SAH+BVH4 {s['sah']:.2f} s, "
+          f"sky {s['sky']:.2f} s; {eng.scene.num_tris} tris, "
+          f"{tables.nodes.shape[0]} BVH4 nodes, {tables.levels} levels: "
+          f"traversal stack {tables.stack} entries {card}")
+    stacks = cuda.traverse_stacks()
+    assert stacks == P.STACK_DEPTHS, f"stack instantiations {stacks}"
+    assert tables.stack == 32, f"terrain stack {tables.stack}"
     rays = generate_rays_padded(camera_basis(eng.camera), W, H,
                                 consts.pixel_ids, rand2_bn(consts.bn, 0, 0),
                                 rand2_bn(consts.bn, 0, 256))
@@ -301,9 +309,9 @@ def main() -> int:
                                  stack_depth=plain_depth)
     k2_plain = time_ms(lambda: M.megakernel_trace_plain(
         *args, n_lights=n_lights, bn=consts.bn), 1)
-    stack = cuda.library().rtrt_traverse_stack()
+    stack = tables.stack
     print(f"K2 deepest traversal stack {int(k2_depth)} entries (plain "
-          f"version {int(plain_depth)}; the kernel's stack holds {stack}); "
+          f"version {int(plain_depth)}; the tables' stack holds {stack}); "
           f"dropped pushes {int(ovf)}")
     assert int(k2_depth) < stack, f"K2 stack {int(k2_depth)} of {stack}"
     # bytes: rays, cone, pixel id, blue-noise pair in; 18 planes out.
@@ -382,11 +390,15 @@ def main() -> int:
     assert int(du.max()) <= 1 and eq >= 0.999, "K3 disagrees with plain"
     k3_ms = time_ms(lambda: post_tail(final, par, mask, do_sharpen=True,
                                      do_dither=True), 50)
+    k3_graph = time_graph_ms(lambda: post_tail(
+        final, par, mask, do_sharpen=True, do_dither=True), 20, 50)
     k3_plain = time_ms(lambda: post_tail_plain(
         final, par, mask, do_sharpen=True, do_dither=True), 5)
     k3_bound = bound_ms(W * H * (12 + 3), W * H * TAIL_OPS_PX)
-    print(f"K3 time, {W}x{H}: kernel {k3_ms:.3f} ms, plain {k3_plain:.3f} ms"
-          f"; bound {k3_bound[0]:.4f} ms ({k3_bound[1]}) {card}")
+    print(f"K3 time, {W}x{H}: kernel {k3_ms:.4f} ms by events, "
+          f"{k3_graph:.4f} ms by graph replay, plain {k3_plain:.3f} ms; "
+          f"bound {k3_bound[0]:.4f} ms ({k3_bound[1]}), "
+          f"{k3_bound[0] / k3_graph:.0%} of it {card}")
 
     # ---- 3d. K4 a-trous pass: the G-buffer of the frame K2 rendered ----
     dp = default_params().denoise
@@ -469,13 +481,19 @@ def main() -> int:
         assert min(fr.values()) >= 0.9999, f"K5 {label} colour {fr}"
         assert all(exact.values()), f"K5 {label} nearest planes {exact}"
     k5_ms = time_ms(lambda: reproject(*hist, mv_cam), 20)
+    k5_graph = time_graph_ms(lambda: reproject(*hist, mv_cam), 20, 20)
     k5_plain = time_ms(lambda: reproject_plain(
         wide(hist[0]), wide(hist[1]), wide(hist[2]), hist[3], wide(hist[4]),
         mv_cam), 3)
     # 8 bf16 planes + mat i32 + motion 2 x f32 in; 9 f32 planes + ok out
     k5_bound = bound_ms(W * H * (28 + 37), W * H * K5_PX_OPS)
-    print(f"K5 time, {W}x{H}: kernel {k5_ms:.4f} ms, plain {k5_plain:.3f} ms"
-          f"; bound {k5_bound[0]:.4f} ms ({k5_bound[1]}) {card}")
+    print(f"K5 time, {W}x{H}, camera motion: kernel {k5_ms:.4f} ms by "
+          f"events, {k5_graph:.4f} ms by graph replay, plain {k5_plain:.3f} "
+          f"ms; bound {k5_bound[0]:.4f} ms ({k5_bound[1]}), "
+          f"{k5_bound[0] / k5_graph:.0%} of it {card}")
+
+    # ---- 3f. K1 and K2 on a tree that needs the deep stack ----
+    _deep_tree(dev, card)
 
     # ---- 4. the first slice's path (denoiser, bloom, lens flare off) ----
     cuda.reset_launch_counts()
@@ -594,8 +612,8 @@ def main() -> int:
              source="rtrt_tpu_torch/csrc/post_tail.cu",
              replaces="rtrt_tpu/post/tail.py:177",
              launches=counts["post_tail"], max_abs_err=float(du.max()),
-             ms=k3_ms, plain_ms=k3_plain, bound_ms=k3_bound[0],
-             bound_by=k3_bound[1], library_ms=None),
+             ms=k3_ms, graph_ms=k3_graph, plain_ms=k3_plain,
+             bound_ms=k3_bound[0], bound_by=k3_bound[1], library_ms=None),
         dict(name="K4 denoise a-trous pass (7x7 half kernel, 5x5 at strides "
              "3/6/12; ms per pass)", route=route,
              source="rtrt_tpu_torch/csrc/denoise_wide.cu",
@@ -608,14 +626,68 @@ def main() -> int:
              source="rtrt_tpu_torch/csrc/reproject.cu",
              replaces="rtrt_tpu/denoise/reproject.py:244",
              launches=counts["reproject"], max_abs_err=k5_err,
-             ms=k5_ms, plain_ms=k5_plain, bound_ms=k5_bound[0],
-             bound_by=k5_bound[1], library_ms=None),
+             ms=k5_ms, graph_ms=k5_graph, plain_ms=k5_plain,
+             bound_ms=k5_bound[0], bound_by=k5_bound[1], library_ms=None),
     ] + probes + hw_probes
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _deep_tree(dev, card):
+    """Phase 3f: K1 and K2 on the chain scene, whose 12 BVH4 levels need
+    the 256-entry stack, against their plain versions (K1: hit slots and t;
+    K2: the primary hits' material and depth), 0 dropped pushes."""
+    import torch
+    from rtrt_tpu_torch.bvh import packet as P
+    from rtrt_tpu_torch.engine.engine import Engine
+    from rtrt_tpu_torch.engine.scene import build_chain_scene, \
+        chain_scene_rays
+    from rtrt_tpu_torch.render import megakernel as M
+    from rtrt_tpu_torch.render.kshade import pack_materials_rows
+    from rtrt_tpu_torch.utils.config import DynamicResolution, \
+        FeatureFlags, GlobalSettings
+
+    eng = Engine(GlobalSettings(render_width=64, render_height=32,
+                                dynamic_resolution=DynamicResolution(
+                                    enabled=False)),
+                 flags=FeatureFlags(denoise=False, bloom=False,
+                                    lens_flare=False),
+                 scene=build_chain_scene(), device=dev)
+    sc = eng.scene_data
+    tables = sc.tables
+    assert tables.stack == 256, f"chain stack {tables.stack}"
+    org, d = (torch.from_numpy(x).to(dev)
+              for x in chain_scene_rays(1 << 16, seed=3))
+    n = org.shape[0]
+    ovf = P.overflow_counter(dev)
+    a = P.packet_intersect(tables, org, d, overflow=ovf)
+    b = P.packet_intersect_plain(tables, org, d)
+    args = (tables, pack_materials_rows(sc.materials).to(dev),
+            M.pack_light_rows(sc.lights, dev), M.pack_sun_params(sc.sky), 0,
+            org, d, torch.zeros(n, device=dev),
+            torch.arange(n, dtype=torch.int32, device=dev))
+    depth, pdepth = P.overflow_counter(dev), P.overflow_counter(dev)
+    ga = M.megakernel_trace(*args, n_lights=0, overflow=ovf,
+                            stack_depth=depth)
+    gb = M.megakernel_trace_plain(*args, n_lights=0, stack_depth=pdepth)
+    torch.cuda.synchronize()
+    h = b.tri >= 0
+    t_err = ((a.t - b.t).abs() / b.t)[h].max().item()
+    dz = ((ga.depth - gb.depth).abs() / gb.depth)[gb.mat_id >= 0]
+    print(f"deep tree (chain scene, {tables.levels} BVH4 levels, stack "
+          f"{tables.stack}): {n} rays, K1 hits {int(h.sum())} with slots "
+          f"equal {torch.equal(a.tri, b.tri)}, t max rel err {t_err:.2e}; "
+          f"K2 material equal {torch.equal(ga.mat_id, gb.mat_id)}, depth max "
+          f"rel err {dz.max().item():.2e}; deepest stack K2 {int(depth)}, "
+          f"plain {int(pdepth)}; dropped pushes {int(ovf)} {card}")
+    assert int(ovf) == 0, f"deep tree: dropped pushes {int(ovf)}"
+    assert torch.equal(a.tri, b.tri) and t_err <= 1e-5, "deep tree K1"
+    assert torch.equal(ga.mat_id, gb.mat_id) and dz.max().item() <= 1e-5, \
+        "deep tree K2"
+    assert 32 < int(depth) <= 3 * tables.levels, f"K2 deepest {int(depth)}"
 
 
 def _probes(card, tables, org, dirs):

@@ -19,8 +19,16 @@ Per-ray semantics are those of traverse_tile for one lane:
     edges; padding slots duplicate real triangles, so a strict `<` keeps
     the first slot of a tie;
   * any-hit lanes stop at their first accepted leaf hit and report it;
-  * a push that does not fit the STACK-deep stack is dropped AND counted
-    in the caller's overflow counter (must stay 0 for a correct image).
+  * a push that does not fit the stack is dropped AND counted in the
+    caller's overflow counter (must stay 0 for a correct image).
+
+The stack depth comes from the tree.  A BVH4 of L internal levels needs at
+most 3 L entries (each node of the current descent keeps at most its 3 far
+children), so `TraceTables` carries L and `stack`, the smallest depth of
+STACK_DEPTHS that holds 3 L.  K1, K2 and the plain traversal all use that
+depth: the kernels have one instantiation per entry of STACK_DEPTHS
+(csrc/traverse.cuh), and a tree deeper than the deepest is refused when
+its tables are built, before anything is traced.
 
 The hit id is the sorted slot; shading attributes come from the sorted
 normal / geometric-normal / material tables at that slot.
@@ -37,7 +45,12 @@ import torch
 from ..utils import cuda
 from .types import _LEAF_BIT, entry_slot
 
-STACK = 64           # per-ray traversal stack depth (entries)
+# the traversal stack depths (entries) of the kernels' instantiations
+# (csrc/traverse.cuh STACK_SMALL, STACK_DEEP).  256 holds every tree that
+# bvh/sah.py builds: its SAH splits stop at binary depth 64, the median
+# splits below leave at most log2(2^21 / 8) = 18 more internal levels, and
+# a BVH4 level consumes at least one binary level, so L <= 82, 3 L <= 246.
+STACK_DEPTHS = (32, 256)
 LEAF_WIDTH = 8       # triangle slots per leaf row
 RAY_TMIN = 1e-4
 FAR_SCALE = 1.0 + 3.6e-7
@@ -63,9 +76,45 @@ class TraceTables:
     ng: torch.Tensor
     mat: torch.Tensor
 
+    def __post_init__(self):
+        # not fields: derived from nodes (levels: the BVH4's internal
+        # levels; stack: the traversal stack depth of every traversal of
+        # these tables)
+        self.levels = tree_levels(self.nodes)
+        self.stack = stack_depth(self.levels)
+
     def to(self, device) -> "TraceTables":
         return TraceTables(*(getattr(self, f.name).to(device).contiguous()
                              for f in dataclasses.fields(self)))
+
+
+def tree_levels(nodes) -> int:
+    """Internal levels of the BVH4 in (q, 32) records (the root is level 1):
+    a walk from the root over the child entries (floats 24..27; -1 empty,
+    leaf bit 23)."""
+    nodes = torch.as_tensor(nodes).detach().cpu()
+    kids = nodes[:, 24:28].to(torch.int64)
+    front = torch.zeros(1, dtype=torch.int64)
+    levels = 0
+    while front.numel():
+        levels += 1
+        e = kids[front].reshape(-1)
+        front = e[(e >= 0) & ((e & _LEAF_BIT) == 0)] & 0x3FFFFF
+    return levels
+
+
+def stack_depth(levels: int) -> int:
+    """The smallest traversal stack of STACK_DEPTHS that holds a tree of
+    `levels` internal BVH4 levels (3 entries a level); ValueError when the
+    deepest does not."""
+    need = 3 * levels
+    for depth in STACK_DEPTHS:
+        if depth >= need:
+            return depth
+    raise ValueError(
+        f"the BVH4 has {levels} internal levels and needs a {need}-entry "
+        f"traversal stack; the deepest the kernels hold is "
+        f"{max(STACK_DEPTHS)} entries ({max(STACK_DEPTHS) // 3} levels)")
 
 
 def pack_tables(bvh, tri_nrm_t, tri_mat, nodes4) -> TraceTables:
@@ -172,7 +221,8 @@ def traverse_plain(tables: TraceTables, org, dir, t_cap, first_hit,
     stops there with the best hit found so far; steps: optional (N,) int
     tensor that receives each ray's visits; depth: optional (1,) int
     counter raised to the deepest stack (entries held after a node's
-    pushes) of any ray.  Returns (t, tri, u, v)."""
+    pushes) of any ray.  The stack holds tables.stack entries, as the
+    kernels' does.  Returns (t, tri, u, v)."""
     n = org.shape[0]
     dev = org.device
     inv = torch.stack([_safe_inv(dir[:, k]) for k in range(3)], dim=1)
@@ -197,8 +247,9 @@ def traverse_plain(tables: TraceTables, org, dir, t_cap, first_hit,
     tri = torch.full((n,), -1, dtype=torch.int64, device=dev)
     hu = torch.zeros(n, device=dev)
     hv = torch.zeros(n, device=dev)
-    st_e = torch.zeros((n, STACK + 1), dtype=torch.int64, device=dev)
-    st_t = torch.zeros((n, STACK + 1), device=dev)
+    stack = tables.stack
+    st_e = torch.zeros((n, stack + 1), dtype=torch.int64, device=dev)
+    st_t = torch.zeros((n, stack + 1), device=dev)
     sp = torch.zeros(n, dtype=torch.int64, device=dev)
     cur = torch.where(t_cap > 0.0, 0, -1).to(torch.int64)
     curt = torch.full((n,), -math.inf, device=dev)
@@ -238,7 +289,8 @@ def traverse_plain(tables: TraceTables, org, dir, t_cap, first_hit,
                         sp, first_hit, slots)
         if node.numel():
             drops = drops + _node_visit(tables, node, ent[node], org, inv,
-                                        best, st_e, st_t, sp, cur, curt)
+                                        best, st_e, st_t, sp, cur, curt,
+                                        stack)
             if depth is not None:
                 torch.maximum(depth, sp.max().to(depth.dtype), out=depth)
     overflow += drops.to(overflow.dtype)
@@ -278,9 +330,11 @@ def _leaf_visit(tables, idx, ent, org, dir, best, tri, hu, hv, sp, first_hit,
     sp[idx] = torch.where(better & first_hit[idx], 0, sp[idx])
 
 
-def _node_visit(tables, idx, ent, org, inv, best, st_e, st_t, sp, cur, curt):
+def _node_visit(tables, idx, ent, org, inv, best, st_e, st_t, sp, cur, curt,
+                stack):
     """Slab-test the 4 children of each visited node, continue with the
-    nearest and push the rest far-to-near; returns the dropped pushes."""
+    nearest and push the rest far-to-near onto the `stack`-deep stacks;
+    returns the dropped pushes."""
     inf = math.inf
     rec = tables.nodes[ent & 0x3FFFFF]
     o, iv, b = org[idx], inv[idx], best[idx]
@@ -300,8 +354,8 @@ def _node_visit(tables, idx, ent, org, inv, best, st_e, st_t, sp, cur, curt):
     dropped = torch.zeros((), dtype=torch.int64, device=s.device)
     for p in (p3, p2, p1):
         valid = p[0] < inf
-        ok = valid & (s < STACK)
-        w = torch.where(ok, s, STACK)   # column STACK is a trash slot
+        ok = valid & (s < stack)
+        w = torch.where(ok, s, stack)   # column `stack` is a trash slot
         st_e[idx, w] = p[1]
         st_t[idx, w] = p[0]
         s = s + ok.to(s.dtype)
@@ -394,7 +448,7 @@ def packet_intersect(tables: TraceTables, org, dir, t_max=None, *,
                 tables.nodes, tables.tris, tables.nrm, tables.ng, tables.mat,
                 org, dir, t_max, ctypes.c_int(n), ctypes.c_int(int(any_hit)),
                 out.t, out.tri, out.u, out.v, out.mat, out.ns, out.ng,
-                ctypes.c_int(cap), steps, overflow)
+                ctypes.c_int(cap), steps, overflow, ctypes.c_int(tables.stack))
     if count_steps:
         out.steps = steps
     return out

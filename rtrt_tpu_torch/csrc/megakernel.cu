@@ -49,7 +49,9 @@
 //     lists the registers, spills and times at 4, 5, 6 and 8 blocks.
 //   * The traversal is K1's device function (traverse.cuh, any-hit for
 //     shadow rays); it raises a per-lane deepest-stack count, reduced to
-//     one atomicMax a warp at the end.
+//     one atomicMax a warp at the end.  The kernel is instantiated for
+//     each traversal stack depth (STACK_SMALL, STACK_DEEP), and the C
+//     entry launches the one the tables' tree needs.
 // The TPU kernel's VMEM table staging, state parking, 32-row strips,
 // per-tile segment skips and i1/i32 mask round trips are TPU artifacts and
 // are not carried over.
@@ -344,6 +346,7 @@ __device__ __forceinline__ void write_planes(const PathState& st,
   for (int k = 0; k < COLD; ++k) p.out[(3 + k) * n + i] = cold.get(k);
 }
 
+template <int STACK>
 __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
     megakernel(const MegaParams p) {
   __shared__ float4 table[rtrt::SAMPLER_SLOTS];
@@ -386,7 +389,7 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
     }
     if (pix >= 0) {
       const float t_cap = st.is_shadow ? st.shadow_tmax : CUDART_INF_F;
-      const rtrt::TraceHit h = rtrt::traverse(
+      const rtrt::TraceHit h = rtrt::traverse<STACK>(
           p.nodes, p.tris, make_float3(st.org.x, st.org.y, st.org.z),
           make_float3(st.dir.x, st.dir.y, st.dir.z), t_cap, st.is_shadow,
           p.overflow, deepest);
@@ -407,11 +410,35 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
   }
 }
 
+// one wave of persistent blocks: resident blocks a SM (from the kernel's
+// registers and shared memory, queried once per instantiation) times the
+// SMs, fewer for a small n
+template <int STACK>
+int launch(const MegaParams& p, cudaStream_t s) {
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, megakernel<STACK>, BLOCK, 0);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int warps = BLOCK / 32;
+  const int grid = min(per_sm * sms, (p.tiles + warps - 1) / warps);
+  megakernel<STACK><<<grid, BLOCK, 0, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // work: (1,) int32 scratch (zeroed here, on the stream); depth: (1,) int32
 // counter of the deepest traversal stack, or nullptr; width: the pixels'
-// row length (n for a flat batch)
+// row length (n for a flat batch); stack: the traversal stack's depth (the
+// tables' TraceTables.stack), STACK_SMALL or STACK_DEEP, else refused
+// (cudaErrorInvalidValue) before anything is enqueued
 extern "C" int rtrt_megakernel(
     const float* nodes, const float* tris, const float* nrm, const float* ng,
     const int* mat, const float* mat_rows, int n_mat, const float* light_rows,
@@ -419,13 +446,15 @@ extern "C" int rtrt_megakernel(
     float disk_omega, float disk_pdf, unsigned frame, const float* org,
     const float* dir, const float* cone, const int* pix, const float* bn,
     int use_bn, int use_proctex, int n, float* out, int* overflow,
-    int* depth, int* work, int width, void* stream) {
+    int* depth, int* work, int width, int stack, void* stream) {
   MegaParams p{nodes,    tris,     nrm,        ng,       mat,
                mat_rows, n_mat,    light_rows, n_lights,
                cos_max,  sin2_max, disk_omega, disk_pdf, frame,
                org,      dir,      cone,       pix,      bn,
                use_bn,   use_proctex, n,       out,      overflow,
                depth,    work,     width};
+  if (stack != rtrt::STACK_SMALL && stack != rtrt::STACK_DEEP)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
   // 8x4 tiles where the grid has 4 rows or more, else runs of 32 pixels
   const int rows = (n + width - 1) / width;
@@ -434,25 +463,11 @@ extern "C" int rtrt_megakernel(
   p.tiles = ((width + p.tile_w - 1) / p.tile_w) *
             ((rows + tile_h - 1) / tile_h);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // resident blocks a SM (from the kernel's registers and shared memory)
-  // times the SMs: one wave of persistent blocks, fewer for a small n
-  static int per_sm = 0;
-  if (per_sm == 0) {
-    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, megakernel, BLOCK, 0);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = cudaMemsetAsync(work, 0, sizeof(int), s);
+  cudaError_t e = cudaMemsetAsync(work, 0, sizeof(int), s);
   if (e == cudaSuccess)
     e = cudaMemcpyToSymbolAsync(c_sun, sun_vec, sizeof(c_sun), 0,
                                 cudaMemcpyDeviceToDevice, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int warps = BLOCK / 32;
-  const int grid = min(per_sm * sms, (p.tiles + warps - 1) / warps);
-  megakernel<<<grid, BLOCK, 0, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return stack == rtrt::STACK_SMALL ? launch<rtrt::STACK_SMALL>(p, s)
+                                    : launch<rtrt::STACK_DEEP>(p, s);
 }

@@ -17,8 +17,9 @@
 
 namespace {
 
-// kCount: cap each ray at max_steps visits and write its visits to steps
-template <bool kCount>
+// kCount: cap each ray at max_steps visits and write its visits to steps;
+// STACK: the traversal stack's depth
+template <int STACK, bool kCount>
 __global__ void traverse_kernel(
     const float* __restrict__ nodes, const float* __restrict__ tris,
     const float* __restrict__ nrm, const float* __restrict__ ng,
@@ -34,9 +35,9 @@ __global__ void traverse_kernel(
   float3 o = make_float3(org[3 * i], org[3 * i + 1], org[3 * i + 2]);
   float3 d = make_float3(dir[3 * i], dir[3 * i + 1], dir[3 * i + 2]);
   int visits, deepest = 0;
-  rtrt::TraceHit h = rtrt::traverse<kCount>(nodes, tris, o, d, tmax[i],
-                                            any_hit != 0, overflow, deepest,
-                                            max_steps, &visits);
+  rtrt::TraceHit h = rtrt::traverse<STACK, kCount>(
+      nodes, tris, o, d, tmax[i], any_hit != 0, overflow, deepest, max_steps,
+      &visits);
   if (kCount) steps[i] = visits;
   int m;
   float3 ns, g;
@@ -54,10 +55,29 @@ __global__ void traverse_kernel(
   ng_out[3 * i + 2] = g.z;
 }
 
+template <int STACK>
+void launch(int grid, int block, cudaStream_t s, const float* nodes,
+            const float* tris, const float* nrm, const float* ng,
+            const int* mat, const float* org, const float* dir,
+            const float* tmax, int n, int any_hit, float* t, int* tri,
+            float* u, float* v, int* mat_out, float* ns, float* ng_out,
+            int max_steps, int* steps, int* overflow) {
+  if (steps == nullptr)
+    traverse_kernel<STACK, false><<<grid, block, 0, s>>>(
+        nodes, tris, nrm, ng, mat, org, dir, tmax, n, any_hit, t, tri, u, v,
+        mat_out, ns, ng_out, max_steps, steps, overflow);
+  else
+    traverse_kernel<STACK, true><<<grid, block, 0, s>>>(
+        nodes, tris, nrm, ng, mat, org, dir, tmax, n, any_hit, t, tri, u, v,
+        mat_out, ns, ng_out, max_steps, steps, overflow);
+}
+
 }  // namespace
 
 // steps: nullptr for the plain traversal; else (n,) visits per ray, each
-// ray capped at max_steps
+// ray capped at max_steps.  stack: the traversal stack's depth, one of
+// rtrt_traverse_stack's (the tables' TraceTables.stack); any other value is
+// refused (cudaErrorInvalidValue) and nothing launches.
 extern "C" int rtrt_traverse(const float* nodes, const float* tris,
                              const float* nrm, const float* ng,
                              const int* mat, const float* org,
@@ -65,22 +85,33 @@ extern "C" int rtrt_traverse(const float* nodes, const float* tris,
                              int any_hit, float* t, int* tri, float* u,
                              float* v, int* mat_out, float* ns,
                              float* ng_out, int max_steps, int* steps,
-                             int* overflow, void* stream) {
+                             int* overflow, int stack, void* stream) {
+  if (stack != rtrt::STACK_SMALL && stack != rtrt::STACK_DEEP)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
     const int block = 128;
     const int grid = (n + block - 1) / block;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (steps == nullptr)
-      traverse_kernel<false><<<grid, block, 0, s>>>(
-          nodes, tris, nrm, ng, mat, org, dir, tmax, n, any_hit, t, tri, u,
-          v, mat_out, ns, ng_out, max_steps, steps, overflow);
+    if (stack == rtrt::STACK_SMALL)
+      launch<rtrt::STACK_SMALL>(grid, block, s, nodes, tris, nrm, ng, mat,
+                                org, dir, tmax, n, any_hit, t, tri, u, v,
+                                mat_out, ns, ng_out, max_steps, steps,
+                                overflow);
     else
-      traverse_kernel<true><<<grid, block, 0, s>>>(
-          nodes, tris, nrm, ng, mat, org, dir, tmax, n, any_hit, t, tri, u,
-          v, mat_out, ns, ng_out, max_steps, steps, overflow);
+      launch<rtrt::STACK_DEEP>(grid, block, s, nodes, tris, nrm, ng, mat,
+                               org, dir, tmax, n, any_hit, t, tri, u, v,
+                               mat_out, ns, ng_out, max_steps, steps,
+                               overflow);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// the traversal stack's depth (entries), for the callers' checks
-extern "C" int rtrt_traverse_stack() { return rtrt::STACK; }
+// the traversal stack depths (entries) that have an instantiation, for the
+// callers' checks: writes up to cap of them to depths, returns how many
+// exist
+extern "C" int rtrt_traverse_stack(int* depths, int cap) {
+  const int all[] = {rtrt::STACK_SMALL, rtrt::STACK_DEEP};
+  const int n = sizeof(all) / sizeof(all[0]);
+  for (int k = 0; k < n && k < cap; ++k) depths[k] = all[k];
+  return n;
+}

@@ -35,12 +35,19 @@
 
 namespace rtrt {
 
-// STACK: the deepest stack K2 reaches on the 1080p terrain frames is 11
-// entries (9 on frame 0; chip_smoke phases 3 and 5 print it), and a BVH4 of
-// L internal levels needs at most 3 L entries (3 pushes kept per level of
-// the current descent): 24 for the terrain's 8 levels.  32 leaves a margin
-// over both; a deeper tree's overflow is counted, never silent.
-constexpr int STACK = 32;
+// The stack depth is a template parameter, one instantiation for each
+// entry of bvh/packet.py STACK_DEPTHS.  A BVH4 of L internal levels needs at
+// most 3 L entries (3 pushes kept a level of the current descent), and the
+// callers (traverse.cu, megakernel.cu) launch the smallest instantiation
+// that holds the tree's 3 L (TraceTables.stack, from the tables' own
+// levels).  STACK_SMALL holds L <= 10: the 1080p terrain (8 levels, 24
+// entries; its deepest stack on the frames is 11).  STACK_DEEP holds every
+// tree bvh/sah.py builds (L <= 82, see STACK_DEPTHS).  The entries live in
+// local memory either way, so the small instantiation's gain is the
+// smaller local-memory reservation, not the loop; a push beyond the stack
+// is still counted, never silent.
+constexpr int STACK_SMALL = 32;
+constexpr int STACK_DEEP = 256;
 constexpr int LEAF_WIDTH = 8;
 constexpr int LEAF_BIT = 1 << 23;
 constexpr float RAY_TMIN = 1e-4f;
@@ -124,8 +131,9 @@ __device__ __forceinline__ void cswap(Cand& a, Cand& b) {
 // rtrt_tpu_torch/tools/probe_traverse.py times): the ray stops after
 // max_steps node or leaf visits (pops pruned by their entry distance do not
 // count) and writes its visits to *steps.  K2 uses the default kCount =
-// false, which compiles to the loop without counter.
-template <bool kCount = false>
+// false, which compiles to the loop without counter.  STACK: the stack's
+// depth in entries (STACK_SMALL or STACK_DEEP).
+template <int STACK, bool kCount = false>
 static __device__ TraceHit traverse(const float* __restrict__ nodes,
                                     const float* __restrict__ tris, float3 o,
                                     float3 d, float t_cap, bool first_hit,

@@ -170,6 +170,66 @@ def build_demo_scene() -> HostScene:
                      materials=default_materials(), lights=lights)
 
 
+CHAIN_SIZE = 2.0 ** 20  # side of build_chain_scene's squares
+
+
+def build_chain_scene(k_lo: int = -39, k_hi: int = 84) -> HostScene:
+    """A stress scene for the traversal stack: squares of side CHAIN_SIZE
+    (two triangles each) in the y-z plane at x = 2^k, k in [k_lo, k_hi).
+    Each SAH split peels the few largest-x squares off, so the tree is a
+    chain of BVH4 levels (the default: 246 triangles, 12 levels, a
+    36-entry stack, where the terrain's 36,834 triangles make 8 levels).  The range keeps
+    the tree exact for the traversal: below 2^-39 the SAH's centroid
+    extent falls under 1e-12 (median splits), and the slab test takes a
+    direction component below 1e-20 as 1e-20 (safe_inv), so a ray along x
+    sees a box edge CHAIN_SIZE / 5 away only within 2^84."""
+    vs, ix = [], []
+    c = CHAIN_SIZE
+    for k in range(k_lo, k_hi):
+        x = float(np.float32(2.0) ** k)
+        b = len(vs)
+        vs += [(x, 0.0, 0.0), (x, c, 0.0), (x, c, c), (x, 0.0, c)]
+        ix += [(b, b + 1, b + 2), (b, b + 2, b + 3)]
+    vertices = np.asarray(vs, np.float32)
+    indices = np.asarray(ix, np.int32)
+    normals = np.tile(np.float32([1.0, 0.0, 0.0]), (len(vs), 1))
+    return HostScene(vertices=vertices, indices=indices, normals=normals,
+                     tri_mat=np.ones(indices.shape[0], np.int32),
+                     num_batches=_pad_batch_count(indices.shape[0]),
+                     materials=default_materials())
+
+
+def chain_scene_rays(n: int, seed: int = 0, k_lo: int = -10,
+                     k_hi: int = 83):
+    """(org, dir) float32 numpy rays for build_chain_scene: from x =
+    1.5 * 2^j (j in [k_lo, k_hi)) inside the squares' cross-section, away
+    from its diagonal and edges, along +x or -x with a slope small enough
+    to meet the next square inside, so that they hit squares at every
+    depth of the chain; a quarter start at x = -1 and run exactly along
+    +x: they enter every box of the chain and descend it to the nearest
+    square, pushing the far children of every level (the deepest stack).
+    A slope below 1e-18 is set to 0, so that no direction component lies
+    in safe_inv's clamped range."""
+    rng = np.random.default_rng(seed)
+    c = CHAIN_SIZE
+    j = rng.integers(k_lo, k_hi, n)
+    x = 1.5 * np.exp2(j.astype(np.float64))
+    x[: n // 4] = -1.0
+    y = rng.uniform(0.2, 0.8, n)
+    z = np.where(rng.uniform(size=n) < 0.5, y - rng.uniform(0.1, 0.15, n),
+                 y + rng.uniform(0.1, 0.15, n))
+    sgn = np.where(rng.uniform(size=n) < 0.5, -1.0, 1.0)
+    sgn[: n // 4] = 1.0
+    # over the 0.5 * 2^j to the next square, y and z move by <= 0.04 c
+    slope = rng.uniform(-0.08, 0.08, (n, 2)) * c / np.maximum(x, 1.0)[:, None]
+    slope[: n // 4] = 0.0
+    slope[np.abs(slope) < 1e-18] = 0.0
+    d = np.stack([sgn, slope[:, 0], slope[:, 1]], axis=1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    org = np.stack([x, y * c, z * c], axis=1)
+    return org.astype(np.float32), d.astype(np.float32)
+
+
 def padded_arrays(scene: HostScene):
     """Pad index/material arrays to whole 1024-triangle batches.
     Returns numpy dict: indices (B*1024, 3), tri_mat (B*1024,),

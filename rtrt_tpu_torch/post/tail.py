@@ -45,17 +45,22 @@ def post_tail_plain(color, params, mask, *, do_sharpen: bool,
     return torch.clamp(ldr * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
 
 
-def post_tail(color, params, mask, *, do_sharpen: bool, do_dither: bool):
-    """Fused tail on an (H,W,3) float32 frame; see module docstring."""
+def post_tail(color, params, mask, *, do_sharpen: bool, do_dither: bool,
+              out=None):
+    """Fused tail on an (H,W,3) float32 frame; see module docstring.  out:
+    for CUDA tensors, an optional (H,W,3) uint8 buffer that receives the
+    image (and is returned)."""
     if color.device.type == "cpu":
         return post_tail_plain(color, params, mask, do_sharpen=do_sharpen,
                                do_dither=do_dither)
     dev = color.device
     h, w = color.shape[0], color.shape[1]
+    if out is None:
+        out = torch.empty((h, w, 3), dtype=torch.uint8, device=dev)
     cuda.check_tensors(dev, color=(color, torch.float32, (h, w, 3)),
                        params=(params, torch.float32, (5,)),
-                       mask=(mask, torch.float32, (64, 64)))
-    out = torch.empty((h, w, 3), dtype=torch.uint8, device=dev)
+                       mask=(mask, torch.float32, (64, 64)),
+                       out=(out, torch.uint8, (h, w, 3)))
     cuda.launch(cuda.library().rtrt_post_tail, "post_tail", dev, color,
                 ctypes.c_int(h), ctypes.c_int(w), params, mask,
                 ctypes.c_int(int(do_sharpen)), ctypes.c_int(int(do_dither)),

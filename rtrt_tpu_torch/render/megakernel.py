@@ -404,7 +404,8 @@ def megakernel_trace(tables, mat_rows, light_rows, sun_vec, frame_idx, org,
         ctypes.c_int(int(bn is not None)), ctypes.c_int(int(use_proctex)),
         ctypes.c_int(n), out, overflow,
         stack_depth if stack_depth is not None else ctypes.c_void_p(0), work,
-        ctypes.c_int(lead[-1] if len(lead) > 1 else n))
+        ctypes.c_int(lead[-1] if len(lead) > 1 else n),
+        ctypes.c_int(tables.stack))
     p = out.reshape((18,) + lead)
     s3 = lambda k: p[k:k + 3].movedim(0, -1)
     return MegaOut(radiance=s3(0), albedo=s3(3), normal=s3(6), depth=p[9],

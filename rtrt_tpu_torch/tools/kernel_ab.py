@@ -1,5 +1,5 @@
-"""A/B timing of the trace and denoise kernels (K1, K2, K4) of several
-trees of this package on one card, in one run.
+"""A/B timing of the frame's kernels (K1, K2, K3, K4, K5) of several trees
+of this package on one card, in one run.
 
     python rtrt_tpu_torch/tools/kernel_ab.py [--rounds 2] TREE [TREE ...]
 
@@ -17,16 +17,28 @@ events, at the main path's shapes:
   * K2: megakernel_trace on the full frame (blue noise, frame 0), and its
     deepest traversal stack where the tree's K2 reports one;
   * K4: edge_aware_pass at each of the frame's four pass settings (7x7 half
-    kernel, 5x5 at strides 3, 6, 12) on the G-buffer that tree's K2 renders.
+    kernel, 5x5 at strides 3, 6, 12) on the G-buffer that tree's K2 renders;
+  * K3: post_tail (ACES fitted, gamma 2.2, sharpen and dither on) on that
+    frame's colour;
+  * K5: reproject of that frame's planes as bfloat16 history under a
+    camera motion (yaw 0.02 rad and 0.1 units), as chip_smoke does.
 
-Each process prints one line ``AB {json}`` (times in ms, ptxas' registers
-and spills of the three kernels); the parent prints the median of each
-tree's processes beside the card's name and power limit.  Needs a card.
+K2, K3 and K5 are timed twice: by CUDA events around chained calls ("K2",
+"K3", "K5"; a call's Python wrapper costs as much as K3 or K5, so the host
+can set the pace, and a busy host shifts even K2) and by replays of a CUDA
+graph of the calls ("K2 graph", "K3 graph", "K5 graph": the kernels
+alone).  The graph timer is this checkout's
+`utils/timing.py::time_graph_ms`, loaded by path, so every tree is timed
+by the same code.  Each process prints one line ``AB {json}`` (times in
+ms, ptxas' registers and spills of K1-K5's kernels); the parent prints the
+median of each tree's processes beside the card's name and power limit.
+Needs a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import statistics
@@ -46,24 +58,40 @@ def _ptxas(log: str) -> dict:
         if "Compiling entry function" in line:
             name = line.split("'")[1] if "'" in line else line
             cur = name if any(k in name for k in (
-                "megakernel", "traverse_kernel", "denoise_wide")) else None
+                "megakernel", "traverse_kernel", "denoise_wide", "post_tail",
+                "reproject")) else None
         elif cur and ("spill stores" in line or "registers" in line):
             out.setdefault(cur, []).append(
                 line.split("ptxas info    :")[-1].strip())
     return out
 
 
+def _own_timing():
+    """This checkout's utils/timing.py, whichever tree is imported."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "utils", "timing.py")
+    spec = importlib.util.spec_from_file_location("kernel_ab_timing", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def child(tree: str, reps2: int, reps4: int) -> dict:
-    """Time K1, K2 and K4 of the package in `tree` (this process only)."""
+    """Time K1-K5 of the package in `tree` (this process only)."""
+    graph_ms = _own_timing().time_graph_ms
     sys.path.insert(0, os.path.abspath(tree))
     import inspect
 
     import torch
     import rtrt_tpu_torch
     from rtrt_tpu_torch.bvh import packet as P
-    from rtrt_tpu_torch.core.camera import camera_basis
+    from rtrt_tpu_torch.core.camera import (camera_basis, make_camera,
+                                            motion_vector)
+    from rtrt_tpu_torch.denoise.reproject import reproject
     from rtrt_tpu_torch.denoise.spatial import edge_aware_pass
     from rtrt_tpu_torch.engine.engine import Engine
+    from rtrt_tpu_torch.post.pipeline import dither_mask
+    from rtrt_tpu_torch.post.tail import post_tail, tail_params
     from rtrt_tpu_torch.render import megakernel as M
     from rtrt_tpu_torch.render.kshade import pack_materials_rows
     from rtrt_tpu_torch.render.raygen import generate_rays_padded
@@ -104,7 +132,9 @@ def child(tree: str, reps2: int, reps4: int) -> dict:
         M.megakernel_trace(*args, stack_depth=depth, **kw)
         res["K2 deepest stack"] = int(depth)
     out = M.megakernel_trace(*args, **kw)
-    res["K2"] = time_ms(lambda: M.megakernel_trace(*args, **kw), reps2)
+    k2 = lambda: M.megakernel_trace(*args, **kw)
+    res["K2"] = time_ms(k2, reps2)
+    res["K2 graph"] = graph_ms(k2, 5, reps2)
 
     gb = M.finish_gbuffer(sc.sky, rays, out, camera_basis(eng.camera), W / H)
     gb_in = (gb.color.contiguous(), gb.normal.contiguous(),
@@ -118,6 +148,29 @@ def child(tree: str, reps2: int, reps4: int) -> dict:
         res[f"K4 {label}"] = t
         k4.append(t)
     res["K4 mean"] = sum(k4) / len(k4)
+
+    final = (gb.color * gb.albedo).contiguous()
+    par = tail_params(torch.tensor(0.9), 1.0, 2.2, 0.5, 0.37, dev)
+    mask = dither_mask(dev)
+    k3 = lambda: post_tail(final, par, mask, do_sharpen=True, do_dither=True)
+    res["K3"] = time_ms(k3, reps4)
+    res["K3 graph"] = graph_ms(k3, 20, reps4)
+
+    bf = lambda x: x.to(torch.bfloat16).contiguous()
+    count = torch.full((H, W), 4.0, device=dev)
+    hist = (bf(gb.color), bf(final), bf(gb.depth), gb.mat_id.contiguous(),
+            bf(count))
+    cam = eng.camera
+    prev = make_camera(pos=(cam.pos + torch.tensor([0.1, 0.0, 0.0],
+                                                   device=dev)).tolist(),
+                       yaw=float(cam.yaw) - 0.02, pitch=float(cam.pitch),
+                       fov_y=float(cam.fov_y), device=dev)
+    world = rays.org + rays.dir * torch.clamp(gb.depth, max=1e8)[..., None]
+    mv = motion_vector(camera_basis(prev), rays.uv, world,
+                       W / H).contiguous()
+    k5 = lambda: reproject(*hist, mv)
+    res["K5"] = time_ms(k5, reps4)
+    res["K5 graph"] = graph_ms(k5, 20, reps4)
     return res
 
 

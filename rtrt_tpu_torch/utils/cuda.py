@@ -46,12 +46,13 @@ _F = ctypes.c_float
 _U = ctypes.c_uint
 # C signatures (the last argument of each is the cudaStream_t, but for
 # the queries rtrt_smem_optin, a device attribute, and rtrt_traverse_stack,
-# the traversal stack's depth)
+# the traversal stack depths that have an instantiation)
 _SIGNATURES = {
-    "rtrt_traverse": [_P] * 8 + [_I, _I] + [_P] * 7 + [_I, _P, _P] + [_P],
-    "rtrt_traverse_stack": [],
+    "rtrt_traverse": [_P] * 8 + [_I, _I] + [_P] * 7 + [_I, _P, _P, _I]
+    + [_P],
+    "rtrt_traverse_stack": [ctypes.POINTER(_I), _I],
     "rtrt_megakernel": [_P] * 6 + [_I, _P, _I, _P] + [_F] * 4 + [_U]
-    + [_P] * 5 + [_I, _I, _I] + [_P] * 4 + [_I] + [_P],
+    + [_P] * 5 + [_I, _I, _I] + [_P] * 4 + [_I, _I] + [_P],
     "rtrt_post_tail": [_P, _I, _I, _P, _P, _I, _I, _P] + [_P],
     "rtrt_denoise_wide": [_P] * 4 + [_I, _I, _P] + [_I] * 4 + [_F] * 3
     + [_P] + [_P],
@@ -142,6 +143,14 @@ def library():
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def traverse_stacks() -> tuple:
+    """The traversal stack depths (entries) that K1 and K2 are instantiated
+    for, as the library reports them."""
+    depths = (_I * 8)()
+    n = library().rtrt_traverse_stack(depths, 8)
+    return tuple(depths[:n])
 
 
 def check_tensors(device, **specs):

@@ -9,7 +9,14 @@ events and `torch.cuda.synchronize()` are reliable, so:
   * `time_chained(dispatch, reps, warmup)` returns (seconds per rep,
     checksum), timed with CUDA events around `reps` chained dispatches;
   * `time_ms(fn, iters)` is the same for a call that takes no argument, in
-    milliseconds.
+    milliseconds;
+  * `time_graph_ms(fn, launches, reps)` captures `launches` back-to-back
+    calls of fn in one CUDA graph and replays it `reps` times between CUDA
+    events: milliseconds per call of the kernel alone.  Event timing of
+    chained calls (`time_ms`) includes each call's Python wrapper (checks,
+    `torch.empty`, a ctypes launch, ~20-50 us on the host); a kernel shorter
+    than that is then timed at the host's pace.  A replay launches the
+    captured kernels with no host work between them.
 
 `fetch_rtt` is not ported: CUDA events time the device's own stream, so
 there is no host round trip to subtract.  A result that lies on the CPU
@@ -93,6 +100,30 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     """Mean milliseconds per call of fn() over `iters` calls after `warmup`
     calls (CUDA events)."""
     return time_chained(lambda _: fn(), iters, warmup)[0] * 1e3
+
+
+def time_graph_ms(fn, launches: int = 20, reps: int = 10) -> float:
+    """Mean milliseconds per call of fn() on the card, from `reps` replays
+    of a CUDA graph of `launches` back-to-back calls (one warm-up call
+    before the capture, one replay after it).  fn must launch on the
+    current stream and neither synchronise nor copy to the host; its
+    outputs come from the graph's private memory pool."""
+    _cuda_tensor(fn())
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * launches)
 
 
 def bound_ms(nbytes: float, ops: float, share: float = 1.0,

@@ -26,7 +26,13 @@ Tolerances:
     rtol 1e-2 added, 99.98% agree.  The kernel differs from the plain
     version the same way: 4.3% of hits beyond atol 5e-3, by 0.25-0.5%.
   * K3 post tail: u8 within 1 LSB everywhere and equal on >= 99.9% (a value
-    within an ulp of a quantisation step may round either way).
+    within a few ulps of a quantisation step may round either way: the
+    kernel's gamma is exp2(log2) by the fast intrinsics and its divisions
+    __fdividef, each within 2 ulps).  At ragged shapes (1x1 up to 1080p,
+    widths that are not multiples of the 4-pixel group or the 128-pixel
+    tile, a colour buffer that is not 16-byte aligned) every byte of the
+    output is written: two launches into buffers pre-filled with 0 and 255
+    agree.
   * K2 as persistent lanes: a launch over any subset of a frame's pixels
     (1, 37, 4,099 or all of them; the output pre-filled with NaN) writes
     every pixel, bit-equal to the same pixels of the full frame's launch:
@@ -38,10 +44,19 @@ Tolerances:
     64, ~4e-6 relative), the depth weight by __expf, products and sums
     contracted into FMA (csrc/denoise_wide.cu states the a-priori error).
   * K5 reprojection: colour rtol 1e-5 + atol 1e-6 on >= 99.99% of pixels
-    (the same float32 operations in the same order); depth, count,
-    material and ok exactly equal on every pixel.
+    (the same order; each tap's product and sum fused by fmaf, so 16
+    roundings a channel fewer, each within an ulp); depth, count,
+    material and ok exactly equal on every pixel.  Also on three motion
+    fields at a ragged size: a smooth pan, +-30 px noise (taps scattered
+    over a 60-pixel window) and the two side by side.
   * K1 under a step cap (max_steps / count_steps): as K1, and each ray's
     visit count equal on >= 99.9% of rays and never above the cap.
+  * K1 and K2 on the chain scene (engine/scene.py::build_chain_scene, 12
+    BVH4 levels, so its tables take the 256-entry stack): 0 dropped
+    pushes, a deepest stack beyond 32 entries and within 3 per level; K1's
+    hits equal the plain version's (slot and t as K1 above; the rays pass
+    far from every edge, so all slots agree), K2's primary hits too (mat
+    id equal and depth to rtol 1e-5 on every ray).
   * K6-K9, the traversal-step probes (rtrt_tpu_torch/tools): the tolerances
     of tests/test_torch_probes.py — K6 exact in loop and fetch and rtol
     2^-20 in the other modes, K7-K9 bit-equal with equal visit counts (the
@@ -66,6 +81,7 @@ from rtrt_tpu_torch.denoise.reproject import reproject, reproject_plain
 from rtrt_tpu_torch.denoise.spatial import (edge_aware_pass,
                                             edge_aware_pass_plain)
 from rtrt_tpu_torch.engine.engine import Engine
+from rtrt_tpu_torch.engine.scene import build_chain_scene, chain_scene_rays
 from rtrt_tpu_torch.post.pipeline import dither_mask
 from rtrt_tpu_torch.post.tail import post_tail, post_tail_plain, tail_params
 from rtrt_tpu_torch.render import megakernel as M
@@ -177,6 +193,37 @@ def test_post_tail_kernel_matches_plain(cuda_device, tone):
         ref = post_tail_plain(c, par, mask, do_sharpen=sh, do_dither=di)
         torch.cuda.synchronize()
         d = (got.int() - ref.int()).abs()
+        assert int(d.max()) <= 1
+        assert (d.amax(-1) == 0).float().mean() >= 0.999
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tone", [0.0, 1.0, 2.0, 3.0])
+@pytest.mark.parametrize("shape", [(1, 1), (3, 5), (17, 131), (64, 130),
+                                   (19, 260), (301, 517), (1080, 1920),
+                                   "unaligned"])
+def test_post_tail_kernel_ragged_shapes(cuda_device, shape, tone):
+    h, w = (37, 256) if shape == "unaligned" else shape
+    rng = np.random.default_rng(h * 7919 + w)
+    c = rng.lognormal(mean=-1.0, sigma=1.5, size=(h, w, 3))
+    c[: h // 3] *= 4.0
+    c = torch.from_numpy(c.astype(np.float32)).to(cuda_device)
+    if shape == "unaligned":  # a contiguous view 4 bytes into its buffer
+        buf = torch.empty(h * w * 3 + 1, device=cuda_device)
+        buf[1:].copy_(c.reshape(-1))
+        c = buf[1:].view(h, w, 3)
+        assert c.is_contiguous() and c.data_ptr() % 16
+    mask = dither_mask(cuda_device)
+    par = tail_params(torch.tensor(0.8), tone, 2.2, 0.5, 0.37, cuda_device)
+    for sh, di in ((True, True), (False, False), (True, False)):
+        outs = [post_tail(c, par, mask, do_sharpen=sh, do_dither=di,
+                          out=torch.full((h, w, 3), v, dtype=torch.uint8,
+                                         device=cuda_device))
+                for v in (0, 255)]
+        ref = post_tail_plain(c, par, mask, do_sharpen=sh, do_dither=di)
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1])  # every byte written
+        d = (outs[0].int() - ref.int()).abs()
         assert int(d.max()) <= 1
         assert (d.amax(-1) == 0).float().mean() >= 0.999
 
@@ -296,7 +343,9 @@ def test_megakernel_pixel_counts(frame_1080p, cuda_device, n):
     """Persistent lanes at pixel counts that are not multiples of a warp or
     a block and (but 1080p) smaller than one wave of the grid."""
     common, flat, full, got, ref, ovf, depth = frame_1080p
-    assert ovf == 0 and 0 < depth < cuda.library().rtrt_traverse_stack()
+    stack = common[0].stack
+    assert stack in cuda.traverse_stacks()
+    assert ovf == 0 and 0 < depth < stack
     assert not torch.isnan(full).any()
     if n == 1920 * 1080:  # the full frame against the plain version
         miss = (got.mat_id == -1) & (ref.mat_id == -1)
@@ -344,6 +393,50 @@ def test_reproject_kernel_matches_plain(cuda_device, half):
                          rng.integers(-4, 4, (h // 4, w, 2)) + 0.5,
                          rng.uniform(-0.6, 0.6, (h - 3 * (h // 4), w, 2))
                          * [w, h]])
+    motion = torch.from_numpy((px / [w, h]).astype(np.float32)).to(
+        cuda_device)
+    got = reproject(color, color2, depth, mat, count, motion)
+    wide = lambda x: x.to(torch.float32)
+    ref = reproject_plain(wide(color), wide(color2), wide(depth), mat,
+                          wide(count), motion)
+    torch.cuda.synchronize()
+    for fld in ("color", "color2"):
+        a, b = getattr(got, fld), getattr(ref, fld)
+        close = ((a - b).abs() <= 1e-6 + 1e-5 * b.abs()).all(-1)
+        assert close.float().mean() >= 0.9999, fld
+    for fld in ("depth", "count", "mat_id", "ok"):
+        assert torch.equal(getattr(got, fld), getattr(ref, fld)), fld
+
+
+def _motion_field(kind, h, w, rng):
+    """(h, w, 2) motion in pixels: "pan", a uniform shift with a smooth
+    sub-pixel ripple; "wild", +-30 px noise; "mixed", pan on the left half
+    and wild on the right."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    pan = np.stack([-3.37 + 0.4 * np.sin(xx / 23.0 + yy / 41.0),
+                    1.71 + 0.3 * np.cos(yy / 17.0)], -1)
+    wild = rng.uniform(-30, 30, (h, w, 2))
+    if kind == "pan":
+        return pan
+    if kind == "wild":
+        return wild
+    return np.where((xx < w // 2)[..., None], pan, wild)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("half", [True, False])
+@pytest.mark.parametrize("kind", ["pan", "wild", "mixed"])
+def test_reproject_kernel_motion_fields(cuda_device, kind, half):
+    rng = np.random.default_rng(11)
+    h, w = 140, 232  # ragged 32x8 blocks
+    dt = torch.bfloat16 if half else torch.float32
+    f = lambda *s: torch.from_numpy(rng.uniform(0, 3, s).astype(
+        np.float32)).to(cuda_device, dt)
+    color, color2, count, depth = f(h, w, 3), f(h, w, 3), f(h, w), f(h, w)
+    depth[:10] = float("inf")
+    mat = torch.from_numpy(rng.integers(-1, 4, (h, w)).astype(
+        np.int32)).to(cuda_device)
+    px = _motion_field(kind, h, w, rng)
     motion = torch.from_numpy((px / [w, h]).astype(np.float32)).to(
         cuda_device)
     got = reproject(color, color2, depth, mat, count, motion)
@@ -408,6 +501,60 @@ def test_traverse_cap_matches_plain(engine, cuda_device, cap):
     assert binding == (cap == 2)
     if not binding:  # a cap that never binds changes no hit
         assert (got.tri == free.tri).float().mean() >= 0.999
+
+
+@pytest.fixture(scope="module")
+def chain_engine(cuda_device):
+    return Engine(GlobalSettings(render_width=64, render_height=32,
+                                 dynamic_resolution=DynamicResolution(
+                                     enabled=False)),
+                  flags=SLICE, scene=build_chain_scene(), device=cuda_device)
+
+
+def _chain_rays(cuda_device, n=4096):
+    return [torch.from_numpy(x).to(cuda_device)
+            for x in chain_scene_rays(n, seed=3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_traverse_kernel_deep_tree(chain_engine, cuda_device, any_hit):
+    tables = chain_engine.scene_data.tables
+    assert (tables.levels, tables.stack) == (12, 256)
+    org, d = _chain_rays(cuda_device)
+    ovf = P.overflow_counter(cuda_device)
+    got = P.packet_intersect(tables, org, d, any_hit=any_hit, overflow=ovf)
+    ref = P.packet_intersect_plain(tables, org, d, any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert int(ovf) == 0
+    assert (ref.tri >= 0).float().mean() > 0.9
+    assert torch.equal(got.tri, ref.tri)
+    h = ref.tri >= 0
+    torch.testing.assert_close(got.t[h], ref.t[h], rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+def test_megakernel_deep_tree(chain_engine, cuda_device):
+    sc = chain_engine.scene_data
+    org, d = _chain_rays(cuda_device)
+    n = org.shape[0]
+    args = (sc.tables, pack_materials_rows(sc.materials).to(cuda_device),
+            M.pack_light_rows(sc.lights, cuda_device),
+            M.pack_sun_params(sc.sky), 0, org, d,
+            torch.zeros(n, device=cuda_device),
+            torch.arange(n, dtype=torch.int32, device=cuda_device))
+    ovf, depth, pdepth = (P.overflow_counter(cuda_device) for _ in range(3))
+    got = M.megakernel_trace(*args, n_lights=0, overflow=ovf,
+                             stack_depth=depth)
+    ref = M.megakernel_trace_plain(*args, n_lights=0, stack_depth=pdepth)
+    torch.cuda.synchronize()
+    assert int(ovf) == 0
+    for dep in (depth, pdepth):
+        assert 32 < int(dep) <= 3 * sc.tables.levels
+    assert (ref.mat_id >= 0).float().mean() > 0.9
+    assert torch.equal(got.mat_id, ref.mat_id)
+    h = ref.mat_id >= 0
+    torch.testing.assert_close(got.depth[h], ref.depth[h], rtol=1e-5, atol=0)
 
 
 @pytest.mark.gpu

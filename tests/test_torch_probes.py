@@ -304,6 +304,22 @@ def test_timing_refuses_cpu_results():
         timing.time_ms(lambda: (x, x), 2)
 
 
+@pytest.mark.parametrize("result", ["tensor", "tuple"])
+def test_time_graph_refuses_cpu_results(result):
+    """time_graph_ms raises on a CPU result after its one warm-up call,
+    before it captures anything."""
+    x = torch.zeros(3)
+    calls = []
+
+    def fn():
+        calls.append(1)
+        return x if result == "tensor" else (x, x)
+
+    with pytest.raises(ValueError, match="card"):
+        timing.time_graph_ms(fn, launches=2, reps=2)
+    assert len(calls) == 1
+
+
 def test_bound_ms_scales_with_the_share_of_sms():
     one = timing.bound_ms(0, 67e9)
     assert one == pytest.approx((1.0, "operations"))
