@@ -60,10 +60,40 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      the six tools' entry points at their default steps and reps (every
      new kernel must read launches), and the plain versions timed once at
      the defaults;
-  --profile adds 6: torch.profiler over 5 main-path frames (device busy
-     time, launches per frame, top device ops).
-Prints the card's name and power limit, the per-kernel JSON line (K1-K16),
-then as its last line
+  9. the north star's call: Engine(GlobalSettings(scene="terrain")) — the
+     default settings (1920x1080, dynamic resolution on) and the default
+     FeatureFlags() — with the launch counters reset just before: a warm
+     frame at 1080, dt 1/20 s until the controller drops to the 720
+     bucket, 10 timed frames there (dt 1/60 s keeps the bucket), dt 1/200
+     s until it climbs back to 1080, 10 timed frames there with the "w"
+     key held (camera input moves the camera every frame), then 8 frames
+     with dt=None (the bucket sequence and the dt the controller saw
+     from Timer.update are printed); every image (1080, 1920, 3) uint8,
+     the history at each bucket's size, 0 dropped pushes; K2, K5, K4,
+     K3 and K3's pre-mapped instantiation must read launches.  The timed
+     frames run under torch.cuda.set_sync_debug_mode("error"): a host
+     sync inside them fails the run.  Then K3's pre-mapped instantiation
+     against its plain version on a 720p frame of that run (the denoised
+     colour, tone-mapped and upscaled to 1080p): max |du8| <= 1, equal
+     on >= 99.99%; timed by events and by graph replay beside its bytes
+     bound;
+ 10. interlace: Engine(terrain, 1920x1080, dynamic resolution off,
+     interlace=True), default FeatureFlags(), 3 warm-up and 10 timed
+     frames of the slow pan (sync debug "error" on the timed ones); launch
+     counters reset just before must read K2 13 (each over the 540 traced
+     rows), K3 13, K4 52, K5 13; ms/frame beside phase 5's full-rate
+     frame; then for a frame index of each parity, the field's traced
+     G-buffer rows equal the full-rate frame's rows bit for bit on every
+     plane (both rendered from the same state);
+ 11. headless: `python -m rtrt_tpu_torch.app.headless --scene terrain
+     --frames 3 --out <tmp>.png` in a subprocess exits 0 and writes a
+     1920x1080 PNG.
+  --profile adds 6: torch.profiler over 5 frames each of the main path,
+     the north star's Engine at the 720 bucket and the interlaced Engine
+     (device busy time, launches and synchronising calls per frame, top
+     device ops).
+Prints the card's name and power limit, the per-kernel JSON line (K1-K16
+and K3's pre-mapped instantiation), then as its last line
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX nor of the JAX package.  Exits 1 when CUDA is not
 available.
@@ -90,6 +120,9 @@ SLICE_WARMUP, SLICE_TIMED = 2, 5
 # 16 taps x 6 channels multiply-add, nearest and ok).  pow / exp count as
 # one operation each, so each count is a lower bound.
 NODE_OPS, LEAF_OPS, TAIL_OPS_PX = 86, 8 * 59, 160
+# K3's pre-mapped instantiation: the sharpen's sums, minima, maxima and
+# clamp ~29 a channel, dither and quantize ~6 (csrc/post_tail.cu)
+TAIL_MAPPED_OPS_PX = 110
 K4_TAP_OPS, K4_PX_OPS, K5_PX_OPS = 21, 10, 280
 # K2's shading, per hit of the plain version's counts (`hits=`), from
 # csrc/kshade.cuh and megakernel.cu::shade_segment, each float or integer
@@ -181,6 +214,7 @@ def _check_k1(name, tables, o, d, a, b):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -587,8 +621,37 @@ def main() -> int:
     # ---- 8. the hardware probes ----
     hw_probes = _hw_probes(card)
 
+    # ---- 9. the north star's call: the default settings ----
+    ns = _north_star(card)
+
+    # ---- 10. interlace ----
+    il, il_pan = _interlace(card, settings, main.scene, cam0, frame_ms)
+
+    # ---- 11. the headless entry point ----
+    _headless(card)
+
     if "--profile" in sys.argv[1:]:
-        _profile(main, pan, card)
+        def main_step(k):
+            pan(100 + k)
+            main.render_frame_device(dt=1 / 60)
+
+        def il_step(k):
+            il_pan(100 + k)
+            il.render_frame_device(dt=1 / 60)
+
+        low = ns["engine"]
+        for _ in range(6):  # the controller moves one bucket a frame
+            if low.render_h == 720:
+                break
+            low.render_frame_device(dt=1 / 200 if low.render_h < 720
+                                    else 1 / 20)
+        assert low.render_h == 720, low.render_h
+        _profile(card, [
+            ("main-path", main_step),
+            ("720-bucket (upscaled to 1080p)",
+             lambda k: low.render_frame_device(dt=1 / 60)),
+            ("interlaced", il_step)])
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s {card}")
 
     route = "cuda"
     kernels = [
@@ -614,6 +677,16 @@ def main() -> int:
              launches=counts["post_tail"], max_abs_err=float(du.max()),
              ms=k3_ms, graph_ms=k3_graph, plain_ms=k3_plain,
              bound_ms=k3_bound[0], bound_by=k3_bound[1], library_ms=None),
+        dict(name="K3 post tail on pre-mapped input (K3's MAPPED "
+             "instantiation: sharpen/dither/u8 of the Catmull-Rom upscale's "
+             "output, below the screen size; the TPU frame runs XLA ops "
+             "there, rtrt_tpu/post/pipeline.py:78-95)", route=route,
+             source="rtrt_tpu_torch/csrc/post_tail.cu",
+             replaces="rtrt_tpu/post/tail.py:177",
+             launches=ns["launches"], max_abs_err=ns["err"], ms=ns["ms"],
+             graph_ms=ns["graph_ms"], plain_ms=ns["plain_ms"],
+             bound_ms=ns["bound"][0], bound_by=ns["bound"][1],
+             library_ms=None),
         dict(name="K4 denoise a-trous pass (7x7 half kernel, 5x5 at strides "
              "3/6/12; ms per pass)", route=route,
              source="rtrt_tpu_torch/csrc/denoise_wide.cu",
@@ -634,6 +707,218 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _north_star(card):
+    """Phase 9: Engine(GlobalSettings(scene="terrain")) through its buckets
+    (the settings' H rows and 720); then K3's pre-mapped instantiation
+    against its plain version on a frame of the run at 720.  Returns that
+    kernel's numbers for the kernels line and the Engine."""
+    import torch
+    from rtrt_tpu_torch.engine.engine import Engine
+    from rtrt_tpu_torch.ops.resize import upscale_catmull_rom
+    from rtrt_tpu_torch.post.pipeline import dither_mask
+    from rtrt_tpu_torch.post.tail import post_tail, post_tail_plain, \
+        tail_params
+    from rtrt_tpu_torch.post.tonemap import tonemap
+    from rtrt_tpu_torch.utils import cuda
+    from rtrt_tpu_torch.utils.config import FeatureFlags, GlobalSettings
+    from rtrt_tpu_torch.utils.timing import bound_ms, time_graph_ms, time_ms
+
+    eng = Engine(GlobalSettings(scene="terrain"), device="cuda")
+    dev = eng.device
+    low, n_timed, n_free = 720, TIMED, 8
+    assert eng.settings.dynamic_resolution.enabled
+    assert eng.flags == FeatureFlags() and (eng.render_w, eng.render_h) == (
+        W, H)
+    s = eng.init_seconds
+    print(f"north star: Engine(GlobalSettings(scene='terrain')) init: scene "
+          f"{s['scene']:.2f} s, SAH+BVH4 {s['sah']:.2f} s, sky "
+          f"{s['sky']:.2f} s; dynamic resolution on, bucket {eng.render_h}")
+    buckets = []
+
+    def frame(dt):
+        img = eng.render_frame_device(dt)
+        buckets.append(eng.render_h)
+        assert tuple(img.shape) == (H, W, 3) and img.dtype == torch.uint8
+        hist = eng.state.history
+        assert tuple(hist.color.shape) == (eng.render_h, eng.render_w, 3)
+        return img
+
+    def timed(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(n):
+                frame(1 / 60)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    cuda.reset_launch_counts()
+    eng.overflow.zero_()
+    frame(1 / 60)
+    while eng.render_h != low:
+        assert len(buckets) < 4, f"no drop to {low}: {buckets}"
+        frame(1 / 20)
+    lw = eng.render_w
+    ms = {low: timed(n_timed)}
+    f_low = eng.state.history.color2.float().clone()  # the denoised frame
+    ev_low = eng.state.exposure[0].clone()
+    while eng.render_h != H:
+        assert len(buckets) < 20, f"no climb to {H}: {buckets}"
+        frame(1 / 200)
+    pos0 = eng.camera.pos.clone()
+    eng.key_event("w", True)
+    ms[H] = timed(n_timed)
+    eng.key_event("w", False)
+    moved = (eng.camera.pos - pos0).norm().item()
+    assert abs(moved - n_timed * eng.MOVE_SPEED / 60) < 1e-3, moved
+    fixed = list(buckets)
+    free, dts = [], []
+    for _ in range(n_free):
+        frame(None)
+        free.append(eng.render_h)
+        dts.append(eng.timer.delta)
+    torch.cuda.synchronize()
+    counts = dict(cuda.launch_counts)
+    print(f"north star: buckets with given dt {fixed}; with dt=None "
+          f"{free}, the dt the controller saw (ms) "
+          f"{[round(d * 1e3, 3) for d in dts]}")
+    print(f"north star: {ms[low]:.2f} ms/frame at the {low} bucket "
+          f"({lw}x{low} upscaled to {W}x{H}), {ms[H]:.2f} ms/frame at {H} "
+          f"with camera input, {n_timed} frames each, host clock around "
+          f"synchronize, no host sync inside a frame {card}")
+    print(f"north star launch counts: {counts}")
+    for k in ("megakernel_trace", "post_tail", "post_tail_mapped",
+              "denoise_wide", "reproject"):
+        assert counts[k] > 0, f"{k} launched no time on the north star's path"
+    assert counts["megakernel_trace"] == len(buckets)
+    assert int(eng.overflow) == 0, f"stack overflow {int(eng.overflow)}"
+
+    # K3's pre-mapped instantiation on that frame, out at the screen size
+    par = tail_params(ev_low, 1.0, 2.2, 0.5, 0.37, dev)
+    ldr = torch.clamp(upscale_catmull_rom(tonemap(
+        f_low * par[0], par[1], par[2]), H, W), 0.0, 1.0).contiguous()
+    mask = dither_mask(dev)
+    run = lambda f: f(ldr, par, mask, do_sharpen=True, do_dither=True,
+                      mapped=True)
+    u8, u8p = run(post_tail), run(post_tail_plain)
+    torch.cuda.synchronize()
+    du = (u8.int() - u8p.int()).abs()
+    eq = (du.amax(-1) == 0).float().mean().item()
+    print(f"K3 pre-mapped, {lw}x{low} -> {W}x{H}: max |du8| "
+          f"{int(du.max())}, equal on {eq:.6f}")
+    assert int(du.max()) <= 1 and eq >= 0.9999, "K3 pre-mapped disagrees"
+    k_ms = time_ms(lambda: run(post_tail), 50)
+    k_graph = time_graph_ms(lambda: run(post_tail), 20, 50)
+    k_plain = time_ms(lambda: run(post_tail_plain), 5)
+    bound = bound_ms(W * H * (12 + 3), W * H * TAIL_MAPPED_OPS_PX)
+    print(f"K3 pre-mapped time, {W}x{H}: kernel {k_ms:.4f} ms by events, "
+          f"{k_graph:.4f} ms by graph replay, plain {k_plain:.3f} ms; bound "
+          f"{bound[0]:.4f} ms ({bound[1]}), {bound[0] / k_graph:.0%} of it "
+          f"{card}")
+    return dict(launches=counts["post_tail_mapped"], err=float(du.max()),
+                ms=k_ms, graph_ms=k_graph, plain_ms=k_plain, bound=bound,
+                engine=eng)
+
+
+def _interlace(card, settings, scene, cam0, full_ms):
+    """Phase 10: the interlaced 1080p frame (its launches, its time beside
+    the full-rate frame's), and its traced rows against the full-rate
+    frame's for a frame index of each parity.  Returns the Engine and its
+    pan."""
+    import torch
+    from rtrt_tpu_torch.engine import frame as F
+    from rtrt_tpu_torch.engine.engine import Engine
+    from rtrt_tpu_torch.utils import cuda
+    from rtrt_tpu_torch.utils.config import FeatureFlags
+
+    eng = Engine(dataclasses.replace(settings, interlace=True),
+                 flags=FeatureFlags(), scene=scene, device="cuda")
+    assert F.interlaced(eng.static)
+
+    def pan(k):
+        eng.camera = dataclasses.replace(cam0, yaw=cam0.yaw + 0.002 * k)
+
+    cuda.reset_launch_counts()
+    eng.overflow.zero_()
+    for k in range(WARMUP):
+        pan(k)
+        eng.render_frame_device(dt=1 / 60)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for k in range(WARMUP, WARMUP + TIMED):
+            pan(k)
+            img = eng.render_frame_device(dt=1 / 60)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    il_ms = (time.perf_counter() - t0) / TIMED * 1e3
+    counts = dict(cuda.launch_counts)
+    n = WARMUP + TIMED
+    print(f"interlace: {il_ms:.2f} ms/frame over {TIMED} frames (host clock "
+          f"around synchronize), {W}x{H} terrain, default flags, tracing "
+          f"{H // 2} rows a frame; full rate {full_ms:.2f} ms/frame in this "
+          f"run {card}")
+    print(f"interlace launch counts over {n} frames: {counts}")
+    want = dict(megakernel_trace=n, post_tail=n, denoise_wide=4 * n,
+                reproject=n)
+    for k, v in want.items():
+        assert counts[k] == v, f"interlace: {k} launched {counts[k]}, not {v}"
+    gb = eng.last_gbuffer
+    assert tuple(gb.depth.shape) == (H // 2, W), tuple(gb.depth.shape)
+    assert tuple(img.shape) == (H, W, 3) and int(eng.overflow) == 0
+    assert tuple(eng.state.history.color.shape) == (H, W, 3)
+
+    full = dataclasses.replace(eng.static, interlace=False)
+    full_consts = F.make_frame_consts(full, eng.device)
+    for k in (20, 21):
+        state = dataclasses.replace(eng.state, frame_idx=k)
+        out = {}
+        for static, consts in ((full, full_consts), (eng.static, eng.consts)):
+            _, _, out[static.interlace] = F.render_frame(
+                static, eng.scene_data, state, eng.camera, eng.prev_camera,
+                eng.params, 1 / 60, consts)
+        torch.cuda.synchronize()
+        p = k & 1
+        diff = {}
+        for name in ("color", "albedo", "normal", "depth", "motion",
+                     "mat_id"):
+            a, b = getattr(out[True], name), getattr(out[False], name)[p::2]
+            same = (a == b) | (torch.isnan(a) & torch.isnan(b)) \
+                if a.is_floating_point() else a == b
+            diff[name] = int((~same).sum())
+        print(f"interlace frame {k} (parity {p}): traced rows that differ "
+              f"from the full-rate frame's, per plane: {diff}")
+        assert not any(diff.values()), f"interlace parity {p}: {diff}"
+    return eng, pan
+
+
+def _headless(card):
+    """Phase 11: the headless CLI at its defaults on the terrain."""
+    import subprocess
+    import tempfile
+    from rtrt_tpu_torch.utils.image import read_png
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "frame.png")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m",
+                            "rtrt_tpu_torch.app.headless", "--scene",
+                            "terrain", "--frames", "3", "--out", out],
+                           cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                           capture_output=True, text=True, timeout=600)
+        print(f"headless: exit {r.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s: "
+              f"{r.stdout.strip().splitlines()}")
+        assert r.returncode == 0, r.stderr[-3000:]
+        img = read_png(out)
+    assert img.shape == (H, W, 3), img.shape
 
 
 def _deep_tree(dev, card):
@@ -1002,40 +1287,51 @@ def _hw_probes(card):
     ]
 
 
-def _profile(eng, pan, card, frames=5):
-    """torch.profiler over `frames` main-path frames: device busy time and
-    kernel launches per frame, the top device ops."""
+def _profile(card, runs, frames=5):
+    """torch.profiler over `frames` frames of each (label, step) in runs
+    (step(k) renders frame k): device busy time, kernel launches and
+    synchronising calls per frame, the top device ops."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
-        for k in range(frames):
-            pan(100 + k)
-            eng.render_frame_device(dt=1 / 60)
-        torch.cuda.synchronize()
-    avg = prof.key_averages()
     dev_t = lambda e: getattr(e, "self_device_time_total",
                               getattr(e, "self_cuda_time_total", 0.0))
-    # device-side events (kernels, memcpy, memset) only: the CPU-side op
-    # rows carry the same device time again
-    kern = [e for e in avg if e.device_type == DeviceType.CUDA]
-    busy = sum(dev_t(e) for e in kern) / frames / 1e3
-    launches = sum(e.count for e in avg if "LaunchKernel" in e.key) / frames
-    syncs = sum(e.count for e in avg if "Synchronize" in e.key) / frames
-    items = sum(e.count for e in avg
-                if e.key == "aten::_local_scalar_dense") / frames
-    print(f"profile over {frames} main-path frames: device busy "
-          f"{busy:.3f} ms/frame, {launches:.1f} kernel launches/frame, "
-          f"{syncs:.1f} synchronize calls/frame, {items:.1f} device-to-host "
-          f"scalar reads/frame {card}")
-    top = sorted(kern, key=dev_t, reverse=True)[:15]
-    for e in top:
-        calls = e.count // frames
-        print(f"  {dev_t(e) / frames / 1e3:8.3f} ms/frame  {calls:5d} "
-              f"calls/frame  {e.key[:90]}")
+    sync_calls = lambda avg: {e.key: e.count for e in avg
+                              if "ynchroniz" in e.key}
+    with profile(activities=acts) as prof:  # a window without frames
+        torch.cuda.synchronize()
+    print(f"profile of an empty window (one synchronize): synchronising "
+          f"calls {sync_calls(prof.key_averages())}")
+    for label, step in runs:
+        step(-1)  # warm: a bucket's first frame allocates its buffers
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            for k in range(frames):
+                step(k)
+            torch.cuda.synchronize()
+        avg = prof.key_averages()
+        # device-side events (kernels, memcpy, memset) only: the CPU-side
+        # op rows carry the same device time again
+        kern = [e for e in avg if e.device_type == DeviceType.CUDA]
+        busy = sum(dev_t(e) for e in kern) / frames / 1e3
+        launches = sum(e.count for e in avg
+                       if "LaunchKernel" in e.key) / frames
+        # the runtime's synchronising calls by name, to hold against the
+        # empty window's
+        syncs = sync_calls(avg)
+        items = sum(e.count for e in avg
+                    if e.key == "aten::_local_scalar_dense") / frames
+        print(f"profile over {frames} {label} frames: device busy "
+              f"{busy:.3f} ms/frame, {launches:.1f} kernel launches/frame, "
+              f"synchronising calls in the window {syncs}, {items:.1f} "
+              f"device-to-host scalar reads/frame {card}")
+        top = sorted(kern, key=dev_t, reverse=True)[:15]
+        for e in top:
+            calls = e.count // frames
+            print(f"  {dev_t(e) / frames / 1e3:8.3f} ms/frame  {calls:5d} "
+                  f"calls/frame  {e.key[:90]}")
 
 
 if __name__ == "__main__":

@@ -7,8 +7,10 @@ and nothing of the JAX package: the host content pipeline
 (``content/``) is its own copy, with the native C++ twin built from
 ``content/native/rtrt_native.cpp`` at first use.
 
-It renders the static-scene product frame with the default
-``FeatureFlags()``:
+It renders the static-scene product frame with the JAX Engine's default
+settings (engine/engine.py: resolution buckets and the dynamic-resolution
+controller, camera input and persistence; app/headless.py is the CLI) and
+the default ``FeatureFlags()``:
 
   SAH/BVH4 tables (bvh/sah.py) -> raygen (render/raygen.py) ->
   path-trace megakernel (render/megakernel.py, CUDA K2 with the K1
@@ -17,7 +19,9 @@ It renders the static-scene product frame with the default
   denoise/reproject.py; temporal filter; 7x7 and a-trous 5x5 passes,
   CUDA K4 in denoise/spatial.py; bf16 history) ->
   post chain (post/pipeline.py: exposure, bloom, lens flare, the fused
-  tail kernel CUDA K3 of post/tail.py) -> uint8.
+  tail kernel CUDA K3 of post/tail.py; below the screen size the
+  Catmull-Rom upscale of ops/resize.py and K3's pre-mapped
+  instantiation) -> uint8.
 
 Hand-written kernels live in ``csrc/`` and are built with nvcc at first use
 (utils/cuda.py).  Every kernel wrapper runs its plain PyTorch version for

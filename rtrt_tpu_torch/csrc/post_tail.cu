@@ -45,6 +45,18 @@
 //     w % 4 != 0.
 // The frame parameters [ev, tone map index, gamma, sharpen amount, dither
 // shift] stay on the device (no host sync per frame).
+//
+// Pre-mapped instantiation (MAPPED = true): where the render size is below
+// the screen size, the JAX frame runs no fused tail: it tone-maps at
+// render size, upscales to the screen by Catmull-Rom and clamps to [0, 1],
+// then sharpens, dithers and quantizes at screen size
+// (rtrt_tpu/post/pipeline.py:70-95, XLA ops).  The port keeps the tone map
+// and the upscale as torch ops and runs the screen-size steps here: the
+// window is staged from the LDR image as it is (no ev, no tone map);
+// sharpen, dither, quantize and the 16-byte staging are the same code.
+// Bound: the same 12 B read + 3 B written per pixel; ~110 operations a
+// pixel (the sharpen's sums, minima and maxima ~29 a channel, dither and
+// quantize ~6), so bytes bound it.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -126,16 +138,19 @@ __device__ __forceinline__ uint32_t pack4(const uint8_t* b) {
          ((uint32_t)b[3] << 24);
 }
 
-// 32 warps an SM at <= 64 registers (ptxas spills ~32 B)
+// 32 warps an SM at <= 64 registers (ptxas spills ~32 B).  MAPPED: the
+// input is the LDR image already (no exposure, no tone map)
+template <bool MAPPED>
 __global__ void __launch_bounds__(THREADS, 1024 / THREADS)
     post_tail_kernel(const float* __restrict__ color, int h, int w,
                      const float* __restrict__ params,
                      const float* __restrict__ mask, int do_sharpen,
                      int do_dither, int aligned, uint8_t* __restrict__ out) {
   __shared__ float4 win[WR * PITCH4];
-  const float ev = params[0];
-  const int op = (int)rintf(params[1]);  // 0, 1, 2; anything else Hable
-  const float inv_gamma = 1.0f / params[2];
+  [[maybe_unused]] const float ev = params[0];
+  // 0, 1, 2; anything else Hable
+  [[maybe_unused]] const int op = (int)rintf(params[1]);
+  [[maybe_unused]] const float inv_gamma = 1.0f / params[2];
   const float amount2 = 2.0f * params[3];
   const float fshift = params[4];
   const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
@@ -187,19 +202,23 @@ __global__ void __launch_bounds__(THREADS, 1024 / THREADS)
     const int k = tid + j * THREADS;
     if (k < WR * GW) {
       const int r = k / GW, g = k % GW;
+      if constexpr (!MAPPED) {
 #pragma unroll
-      for (int i = 0; i < 12; ++i) c[j][i] *= ev;
+        for (int i = 0; i < 12; ++i) c[j][i] *= ev;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) tonemap(c[j] + 3 * i, op, inv_gamma);
+        for (int i = 0; i < 4; ++i) tonemap(c[j] + 3 * i, op, inv_gamma);
+      }
       float4* dst = win + r * PITCH4 + 3 + 3 * g;
       dst[0] = make_float4(c[j][0], c[j][1], c[j][2], c[j][3]);
       dst[1] = make_float4(c[j][4], c[j][5], c[j][6], c[j][7]);
       dst[2] = make_float4(c[j][8], c[j][9], c[j][10], c[j][11]);
     } else if (k < ITEMS) {
       const int q = k - WR * GW, r = q >> 1;
+      if constexpr (!MAPPED) {
 #pragma unroll
-      for (int i = 0; i < 3; ++i) c[j][i] *= ev;
-      tonemap(c[j], op, inv_gamma);
+        for (int i = 0; i < 3; ++i) c[j][i] *= ev;
+        tonemap(c[j], op, inv_gamma);
+      }
       float* dst = reinterpret_cast<float*>(win + r * PITCH4) +
                    ((q & 1) ? TW + 4 : 3) * 3;
       dst[0] = c[j][0];
@@ -282,16 +301,19 @@ __global__ void __launch_bounds__(THREADS, 1024 / THREADS)
 
 }  // namespace
 
+// mapped: 0 tone-maps `color` (linear radiance), 1 takes it as the LDR
+// image (the pre-mapped instantiation)
 extern "C" int rtrt_post_tail(const float* color, int h, int w,
                               const float* params, const float* mask,
-                              int do_sharpen, int do_dither, uint8_t* out,
-                              void* stream) {
+                              int do_sharpen, int do_dither, int mapped,
+                              uint8_t* out, void* stream) {
   if (h > 0 && w > 0) {
     const int aligned = reinterpret_cast<uintptr_t>(color) % 16 == 0 &&
                         reinterpret_cast<uintptr_t>(out) % 4 == 0 &&
                         reinterpret_cast<uintptr_t>(mask) % 16 == 0;
     dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH);
-    post_tail_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+    auto kernel = mapped ? post_tail_kernel<true> : post_tail_kernel<false>;
+    kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         color, h, w, params, mask, do_sharpen, do_dither, aligned, out);
   }
   return static_cast<int>(cudaGetLastError());

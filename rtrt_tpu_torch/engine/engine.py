@@ -1,42 +1,69 @@
-"""Engine: the public host runtime of the port (port of the static-scene
-part of rtrt_tpu/engine/engine.py).
+"""Engine: the public host runtime of the port — init, per-frame rendering,
+resolution buckets and the dynamic-resolution controller, camera input and
+persistence (port of the static-scene part of rtrt_tpu/engine/engine.py).
 
 `Engine(settings, flags, device="cuda").render_frame()` builds the scene,
 its SAH/BVH4 tables and the sky once, then renders frames through
 engine/frame.py::render_frame.  The device is explicit: with
 ``device="cuda"`` and no card it raises; it never falls back to the CPU.
-One fixed resolution bucket: the frame renders at the settings' own size.
+
+Resolution buckets, as in the JAX Engine: a frame renders at the 16:9
+bucket of its height (`_BUCKET_HEIGHTS`; the first bucket at or above
+``settings.render_height``) and its image comes out at the settings' size
+(`render_w` x `render_h` -> ``render_width`` x ``render_height``, by the
+Catmull-Rom upscale where they differ).  With dynamic resolution on, the
+controller moves one bucket down or up after each frame from that frame's
+dt; a switch resets the denoiser history to the new size.
 
 With the default FeatureFlags() a frame is denoised (K5, K4), bloomed,
 lens-flared and tone-mapped (K3).  Settings whose pass is not ported raise
 NotImplementedError naming the setting (ROADMAP.md lists the queue):
-interlace, dynamic_resolution.enabled, animation != "none", ocean, stars,
-fourier_textures, sky_model="preetham", load_camera_at_init.
+animation != "none", ocean, stars, fourier_textures, sky_model="preetham".
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import math
+import os
 import time
 
+import numpy as np
 import torch
 
 from ..bvh.packet import overflow_counter, pack_tables
 from ..bvh.sah import build_scene_tables_sah, bvh4_nodes
-from ..core.camera import make_camera
-from ..denoise.pipeline import init_history
+from ..core.camera import Camera
+from ..denoise.pipeline import DenoiseHistory, init_history
 from ..post.exposure import init_exposure_state
 from ..render.integrator import SceneData
 from ..render.sky import (bake_sky_maps, finalize_sky_maps, make_sky_params,
                           sun_direction_from_time)
 from ..utils.config import (FeatureFlags, GlobalSettings, RenderParams,
                             default_params)
+from ..utils.timer import FpsLog, Timer
 from .frame import (FrameState, FrameStatic, check_flags, make_frame_consts,
                     render_frame)
 from .scene import (HostScene, build_demo_scene, build_mesh_scene,
                     build_terrain_scene, padded_arrays)
 
 SAH_LEAF = 8  # row-aligned leaf width of the static SAH tree
+
+_BUCKET_HEIGHTS = (270, 360, 540, 720, 1080, 1440, 2160)
+
+
+def _bucket_for(height: int):
+    for h in _BUCKET_HEIGHTS:
+        if h >= height:
+            return h
+    return _BUCKET_HEIGHTS[-1]
+
+
+def _res_for_height(h: int):
+    """16:9, width snapped to a multiple of 16 (reference: kernel.cu:96-98)."""
+    w = (h * 16 // 9) // 16 * 16
+    return w, h
 
 
 def _unsupported(what: str):
@@ -48,6 +75,9 @@ class Engine:
     """Public API: `Engine(settings, flags, device="cuda").render_frame()
     -> (H, W, 3) uint8`."""
 
+    MOVE_SPEED = 8.0
+    LOOK_SPEED = 0.003
+
     def __init__(self, settings: GlobalSettings | None = None,
                  flags: FeatureFlags | None = None,
                  scene: HostScene | None = None,
@@ -58,17 +88,10 @@ class Engine:
         self.params = params or default_params()
         s = self.settings
         check_flags(self.flags)
-        if s.interlace:
-            _unsupported("GlobalSettings.interlace=True")
-        if s.dynamic_resolution.enabled:
-            _unsupported("GlobalSettings.dynamic_resolution.enabled=True")
         if animation != "none":
             _unsupported(f"animation={animation!r}")
         if s.sky_model != "physical":
             _unsupported(f"sky_model={s.sky_model!r}")
-        if s.load_camera_at_init:
-            _unsupported("GlobalSettings.load_camera_at_init=True (camera "
-                         "persistence)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine(device='cuda'): no CUDA device")
@@ -108,26 +131,74 @@ class Engine:
         self._maybe_regen_sky()
         self.init_seconds["sky"] = time.perf_counter() - t0
 
-        self.camera = make_camera(pos=(0.0, 8.0, -18.0), yaw=0.0,
-                                  pitch=-0.25, fov_y=1.1, device=self.device)
+        self._set_camera(pos=(0.0, 8.0, -18.0), yaw=0.0, pitch=-0.25,
+                         fov_y=1.1, aperture=0.0, focal_dist=5.0)
         self.prev_camera = self.camera
-        history = None
-        if self.flags.denoise:
-            history = init_history(s.render_height, s.render_width,
-                                   half=self.flags.half_history,
-                                   device=self.device)
-        self.state = FrameState(exposure=init_exposure_state(self.device),
-                                history=history)
-        self.static = FrameStatic(render_w=s.render_width,
-                                  render_h=s.render_height,
-                                  screen_w=s.render_width,
-                                  screen_h=s.render_height, flags=self.flags)
-        self.consts = make_frame_consts(self.static, self.device)
+        if s.load_camera_at_init and os.path.exists(s.camera_path):
+            self.load_camera(s.camera_path)
+
+        self.state = FrameState(exposure=init_exposure_state(self.device))
+        # bucket height -> (FrameStatic, FrameConsts), built at the first
+        # switch to it.  The JAX Engine also compiles the neighbouring
+        # buckets' frame programs in the background; the port runs
+        # eagerly and has nothing to compile ahead.
+        self._frames = {}
+        self._cur_bucket = None
+        self.render_w = self.render_h = 0
+        self._set_bucket(_bucket_for(s.render_height))
+
         self.overflow = overflow_counter(self.device)
         # the deepest traversal stack of any frame (entries)
         self.stack_depth = overflow_counter(self.device)
+        # the traced G-buffer of the last frame (with interlace, the
+        # field's h/2 rows; the frame denoises the reconstructed planes)
         self.last_gbuffer = None
-        self._last_time = None
+        self.timer = Timer()
+        self.fps_log = FpsLog()
+        self._input = dict(keys=set(), last_cursor=None)
+
+    # ------------------------------------------------------------------
+    # resolution buckets / dynamic resolution
+    # ------------------------------------------------------------------
+
+    def _set_bucket(self, bucket_h: int):
+        """Render at bucket `bucket_h` from the next frame on: its frame
+        configuration and constants, and an empty history of its size
+        (the exposure state carries over)."""
+        if bucket_h == self._cur_bucket:
+            return
+        self._cur_bucket = bucket_h
+        self.render_w, self.render_h = _res_for_height(bucket_h)
+        if bucket_h not in self._frames:
+            s = self.settings
+            static = FrameStatic(render_w=self.render_w,
+                                 render_h=self.render_h,
+                                 screen_w=s.render_width,
+                                 screen_h=s.render_height, flags=self.flags,
+                                 interlace=s.interlace)
+            self._frames[bucket_h] = (static,
+                                      make_frame_consts(static, self.device))
+        self.static, self.consts = self._frames[bucket_h]
+        if self.flags.denoise:
+            self.state = dataclasses.replace(self.state, history=init_history(
+                self.render_h, self.render_w, half=self.flags.half_history,
+                device=self.device))
+
+    def _dynamic_resolution_step(self, frame_time: float):
+        """Move one bucket to hold the target frame rate (reference
+        controller: kernel.cu:78-114, here bucket-snapped)."""
+        dr = self.settings.dynamic_resolution
+        if not dr.enabled or frame_time <= 0.0:
+            return
+        fps = 1.0 / frame_time
+        idx = _BUCKET_HEIGHTS.index(self._cur_bucket)
+        if fps < dr.target_fps - dr.deadband_fps and idx > 0:
+            self._set_bucket(_BUCKET_HEIGHTS[idx - 1])
+        elif fps > dr.target_fps + dr.deadband_fps * 4 and \
+                idx < len(_BUCKET_HEIGHTS) - 1:
+            nh = _BUCKET_HEIGHTS[idx + 1]
+            if nh <= self.settings.render_height:
+                self._set_bucket(nh)
 
     def _maybe_regen_sky(self):
         """Re-bake the sky when its parameters changed."""
@@ -146,22 +217,174 @@ class Engine:
             mie_scale=sp.mie, mie_g=sp.mie_g, device=self.device)
         self.scene_data.sky = finalize_sky_maps(bake_sky_maps(sky_params))
 
+    # ------------------------------------------------------------------
+    # per-frame
+    # ------------------------------------------------------------------
+
     def render_frame_device(self, dt: float | None = None) -> torch.Tensor:
-        """Render one frame; returns the (H, W, 3) uint8 image on the device
-        (enqueued, not synchronised)."""
-        now = time.perf_counter()
+        """Render one frame; returns the (screen_h, screen_w, 3) uint8 image
+        on the device (enqueued, not synchronised).  dt: the frame time in
+        seconds; None takes the interval since the last call
+        (`Timer.update`), which is also what the dynamic-resolution
+        controller then sees."""
         if dt is None:
-            dt = 1.0 / 60.0 if self._last_time is None \
-                else now - self._last_time
-        self._last_time = now
+            dt = self.timer.update()
+        self._update_camera_from_input(dt)
         self._maybe_regen_sky()
         image, self.state, self.last_gbuffer = render_frame(
             self.static, self.scene_data, self.state, self.camera,
             self.prev_camera, self.params, max(dt, 1e-4), self.consts,
             self.overflow, self.stack_depth)
         self.prev_camera = self.camera
+        self._dynamic_resolution_step(dt)
+        self.fps_log.maybe_log(self.timer.fps, self.render_w, self.render_h)
         return image
 
     def render_frame(self, dt: float | None = None):
         """Render one frame; returns the (H, W, 3) uint8 image as numpy."""
         return self.render_frame_device(dt).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # camera: the device tensors the frame reads, and a host copy of
+    # their float32 values that input and persistence read and write
+    # ------------------------------------------------------------------
+
+    @property
+    def camera(self) -> Camera:
+        return self._camera
+
+    @camera.setter
+    def camera(self, cam: Camera):
+        """A camera set from outside: its host copy is read from the device
+        when input or persistence next needs it."""
+        self._camera = cam
+        self._cam_host = None
+
+    def _set_camera(self, pos, yaw, pitch, fov_y, aperture, focal_dist):
+        """Camera from host values, in one copy to the device that does not
+        synchronise the stream."""
+        v = np.array([*pos, yaw, pitch, fov_y, aperture, focal_dist],
+                     np.float32)
+        t = torch.from_numpy(v).to(self.device, non_blocking=True)
+        self._camera = Camera(t[0:3], t[3], t[4], t[5], t[6], t[7])
+        self._cam_host = v
+
+    def _camera_host(self) -> np.ndarray:
+        """[pos x, y, z, yaw, pitch, fov_y, aperture, focal_dist] float32."""
+        if self._cam_host is None:
+            c = self._camera
+            self._cam_host = torch.cat(
+                [c.pos.reshape(3)] + [x.reshape(1) for x in (
+                    c.yaw, c.pitch, c.fov_y, c.aperture, c.focal_dist)]
+            ).to(torch.float32).cpu().numpy()
+        return self._cam_host
+
+    # ------------------------------------------------------------------
+    # input control (reference: src/inputControl.cu:29-113)
+    # ------------------------------------------------------------------
+
+    def key_event(self, key: str, down: bool):
+        key = key.lower()
+        if down:
+            self._input["keys"].add(key)
+        else:
+            self._input["keys"].discard(key)
+
+    def cursor_event(self, x: float, y: float):
+        last = self._input["last_cursor"]
+        self._input["last_cursor"] = (x, y)
+        if last is None:
+            return
+        dx, dy = x - last[0], y - last[1]
+        v = self._camera_host().copy()
+        v[3] = v[3] + np.float32(dx * self.LOOK_SPEED)
+        v[4] = np.clip(v[4] - np.float32(dy * self.LOOK_SPEED), -1.5, 1.5)
+        self._set_camera(v[0:3], *v[3:])
+
+    def _update_camera_from_input(self, dt: float):
+        keys = self._input["keys"]
+        if not keys:
+            return
+        v = self._camera_host()
+        cy, sy = math.cos(float(v[3])), math.sin(float(v[3]))
+        fwd = np.array([sy, 0.0, cy])
+        right = np.array([cy, 0.0, -sy])
+        move = np.zeros(3)
+        if "w" in keys:
+            move += fwd
+        if "s" in keys:
+            move -= fwd
+        if "d" in keys:
+            move += right
+        if "a" in keys:
+            move -= right
+        if "c" in keys:
+            move += np.array([0.0, 1.0, 0.0])
+        if "x" in keys:
+            move -= np.array([0.0, 1.0, 0.0])
+        if np.any(move):
+            pos = v[0:3].astype(np.float64) + move * (self.MOVE_SPEED * dt)
+            self._set_camera(pos, *v[3:])
+
+    # ------------------------------------------------------------------
+    # camera persistence (reference: inputControl.cu:115-150, camera.bin);
+    # the JSON of rtrt_tpu's Engine, so either package loads the other's
+    # ------------------------------------------------------------------
+
+    def save_camera(self, path: str | None = None):
+        path = path or self.settings.camera_path
+        v = [float(x) for x in self._camera_host()]
+        data = dict(pos=v[0:3], yaw=v[3], pitch=v[4], fov_y=v[5],
+                    aperture=v[6], focal_dist=v[7])
+        with open(path, "w") as f:
+            json.dump(data, f, indent=2)
+
+    def load_camera(self, path: str | None = None):
+        path = path or self.settings.camera_path
+        with open(path) as f:
+            d = json.load(f)
+        self._set_camera(pos=d["pos"], yaw=d["yaw"], pitch=d["pitch"],
+                         fov_y=d["fov_y"], aperture=d["aperture"],
+                         focal_dist=d["focal_dist"])
+
+    # ------------------------------------------------------------------
+    # full-state checkpoint / resume: bucket, exposure, frame counter and
+    # time, denoiser history and camera, one npz key per field
+    # ------------------------------------------------------------------
+
+    def save_state(self, path: str):
+        st = self.state
+        arrays = dict(bucket=np.int64(self._cur_bucket),
+                      exposure=st.exposure.cpu().numpy(),
+                      frame_idx=np.int64(st.frame_idx),
+                      time=np.float64(st.time), camera=self._camera_host())
+        if st.history is not None:
+            for f in DenoiseHistory._fields:
+                x = getattr(st.history, f)
+                arrays[f"history_{f}"] = (np.bool_(x) if f == "valid"
+                                          else x.cpu().float().numpy()
+                                          if x.is_floating_point()
+                                          else x.cpu().numpy())
+        np.savez_compressed(path, **arrays)
+
+    def load_state(self, path: str):
+        d = np.load(path)
+        self._set_bucket(int(d["bucket"]))
+        hdt = torch.bfloat16 if self.flags.half_history else torch.float32
+
+        def plane(f):
+            x = torch.from_numpy(d[f"history_{f}"]).to(self.device)
+            return x.to(hdt) if x.is_floating_point() else x
+
+        history = None
+        if "history_valid" in d:
+            history = DenoiseHistory(**{
+                f: bool(d["history_valid"]) if f == "valid" else plane(f)
+                for f in DenoiseHistory._fields})
+        self.state = FrameState(
+            exposure=torch.from_numpy(d["exposure"]).to(self.device),
+            history=history, frame_idx=int(d["frame_idx"]),
+            time=float(d["time"]))
+        cam = d["camera"]
+        self._set_camera(cam[0:3], *cam[3:])
+        self.prev_camera = self.camera

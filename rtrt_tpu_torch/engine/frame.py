@@ -1,12 +1,19 @@
 """One frame of the static-scene product path (port of the static branch of
-rtrt_tpu/engine/frame.py::render_frame with prebuilt SAH tables, the
-megakernel and no interlace):
+rtrt_tpu/engine/frame.py::render_frame with prebuilt SAH tables and the
+megakernel):
 
   raygen (blue-noise jitter + thin lens) -> path_trace_mega (K2, with K1's
-  traversal inside) -> finish_gbuffer -> SVGF denoise (K5 history
-  reprojection, K4 a-trous passes; or color * albedo with the denoiser
-  off) -> sun screen position and visibility -> postprocess (exposure
-  pyramid, bloom, lens flare, the fused tail K3) -> uint8.
+  traversal inside) -> finish_gbuffer -> [interlace: full-height
+  reconstruction] -> SVGF denoise (K5 history reprojection, K4 a-trous
+  passes; or color * albedo with the denoiser off) -> sun screen position
+  and visibility -> postprocess (exposure pyramid, bloom, lens flare, the
+  fused tail K3; below the screen size the Catmull-Rom upscale and K3's
+  pre-mapped instantiation) -> uint8.
+
+Interlace (FrameStatic.interlace, even render heights): a frame traces the
+h/2 rows y = 2i + (frame & 1) — K2 takes pixel ids as data, so the field's
+ids and blue-noise rows are all it needs — and fills the other rows from
+their traced neighbours before the denoiser.
 
 The port runs eagerly: each frame is a sequence of torch ops and kernel
 launches (K2, K5, four K4, K3 with the default flags), with every tensor
@@ -21,6 +28,7 @@ import torch
 
 from ..core.camera import Camera, camera_basis, world_to_screen
 from ..denoise.pipeline import DenoiseHistory, denoise
+from ..ops.resize import upscale_catmull_rom
 from ..post.pipeline import dither_mask, postprocess
 from ..render.integrator import GBuffer, SceneData
 from ..render.megakernel import path_trace_mega
@@ -48,6 +56,7 @@ class FrameStatic:
     screen_w: int
     screen_h: int
     flags: FeatureFlags
+    interlace: bool = False  # trace half the rows a frame (even heights)
 
 
 @dataclasses.dataclass
@@ -57,6 +66,9 @@ class FrameConsts:
     pixel_ids: torch.Tensor   # (h, w) int32
     bn: torch.Tensor          # (h, w, 2) blue-noise offsets, or None
     mask: torch.Tensor        # (64, 64) dither mask
+    # interlaced frames: per field parity p, the traced rows' (pixel ids,
+    # blue-noise offsets): rows p, p + 2, ... of the two above; else None
+    fields: tuple = None
 
 
 def check_flags(flags: FeatureFlags):
@@ -68,6 +80,11 @@ def check_flags(flags: FeatureFlags):
                 f"yet (see ROADMAP.md); set {name}=False")
 
 
+def interlaced(static: FrameStatic) -> bool:
+    """Whether frames of `static` trace half their rows."""
+    return static.interlace and static.render_h % 2 == 0
+
+
 def make_frame_consts(static: FrameStatic, device) -> FrameConsts:
     w, h = static.render_w, static.render_h
     ys = torch.arange(h, dtype=torch.int32, device=device)
@@ -77,7 +94,40 @@ def make_frame_consts(static: FrameStatic, device) -> FrameConsts:
     if static.flags.blue_noise:
         bn = torch.from_numpy(blue_offsets_flat(w, h, w * h).reshape(
             h, w, 2)).to(device)
-    return FrameConsts(pixel_ids, bn, dither_mask(device))
+    fields = None
+    if interlaced(static):
+        fields = tuple(
+            (pixel_ids[p::2].contiguous(),
+             None if bn is None else bn[p::2].contiguous()) for p in (0, 1))
+    return FrameConsts(pixel_ids, bn, dither_mask(device), fields)
+
+
+def interleave_rows(a, b):
+    """Row-interleave two (h2, w, ...) tensors into (2*h2, w, ...):
+    out[0::2] = a, out[1::2] = b (any dtype)."""
+    out = torch.empty((2 * a.shape[0],) + tuple(a.shape[1:]), dtype=a.dtype,
+                      device=a.device)
+    out[0::2] = a
+    out[1::2] = b
+    return out
+
+
+def fill_linear(c, parity: int):
+    """Full-height plane from the traced field c (rows y = 2i + parity):
+    each missing row is the mean of its traced neighbours (the edge row
+    repeats its one neighbour).  For radiance and albedo."""
+    if parity:
+        prv = torch.cat([c[:1], c[:-1]], dim=0)
+        return interleave_rows((prv + c) * 0.5, c)
+    nxt = torch.cat([c[1:], c[-1:]], dim=0)
+    return interleave_rows(c, (c + nxt) * 0.5)
+
+
+def fill_nearest(c):
+    """Full-height plane from a traced field: rows 2i and 2i + 1 both take
+    traced row i (either parity).  For geometry planes, where a mean
+    across a silhouette would invent a surface."""
+    return interleave_rows(c, c)
 
 
 def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
@@ -85,44 +135,58 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
                  dt: float, consts: FrameConsts = None, overflow=None,
                  stack_depth=None):
     """One full frame.  Returns (u8 image (screen_h, screen_w, 3),
-    new FrameState, GBuffer).  overflow: optional (1,) int32 counter of
-    dropped traversal-stack pushes; stack_depth: optional (1,) int32
-    counter raised to the deepest traversal stack."""
+    new FrameState, GBuffer).  The G-buffer is the traced one: with
+    interlace, the field's (h/2, w) planes.  overflow: optional (1,) int32
+    counter of dropped traversal-stack pushes; stack_depth: optional (1,)
+    int32 counter raised to the deepest traversal stack."""
     check_flags(static.flags)
     w, h = static.render_w, static.render_h
     dev = scene.tables.nodes.device
     if consts is None:
         consts = make_frame_consts(static, dev)
     frame = state.frame_idx
+    parity = frame & 1
+    if interlaced(static):
+        pixel_ids, bn = consts.fields[parity]
+    else:
+        pixel_ids, bn = consts.pixel_ids, consts.bn
 
     cam = dataclasses.replace(
         camera, aperture=torch.full((), params.sample.aperture, device=dev),
         focal_dist=torch.full((), params.sample.focal_dist, device=dev))
     basis = camera_basis(cam)
     prev_basis = camera_basis(prev_camera)
-    if consts.bn is not None:
-        jitter = rand2_bn(consts.bn, frame, 0)
-        lens = rand2_bn(consts.bn, frame, 256)
+    if bn is not None:
+        jitter = rand2_bn(bn, frame, 0)
+        lens = rand2_bn(bn, frame, 256)
     else:
-        jitter = rand2(consts.pixel_ids, frame, 0)
-        lens = rand2(consts.pixel_ids, frame, 256)
-    rays = generate_rays_padded(basis, w, h, consts.pixel_ids, jitter, lens)
+        jitter = rand2(pixel_ids, frame, 0)
+        lens = rand2(pixel_ids, frame, 256)
+    rays = generate_rays_padded(basis, w, h, pixel_ids, jitter, lens)
 
     gbuf: GBuffer = path_trace_mega(
-        scene, rays, consts.pixel_ids, frame, prev_basis, w / h,
-        use_proctex=static.flags.procedural_textures, bn=consts.bn,
+        scene, rays, pixel_ids, frame, prev_basis, w / h,
+        use_proctex=static.flags.procedural_textures, bn=bn,
         overflow=overflow, stack_depth=stack_depth)
+    full = gbuf
+    if interlaced(static):
+        full = GBuffer(color=fill_linear(gbuf.color, parity),
+                       albedo=fill_linear(gbuf.albedo, parity),
+                       normal=fill_nearest(gbuf.normal),
+                       depth=fill_nearest(gbuf.depth),
+                       motion=fill_nearest(gbuf.motion),
+                       mat_id=fill_nearest(gbuf.mat_id))
 
     if static.flags.denoise:
         if state.history is None:
             raise ValueError("FeatureFlags.denoise needs FrameState.history "
                              "(denoise.pipeline.init_history)")
         final, new_history = denoise(
-            gbuf.color, gbuf.albedo, gbuf.normal, gbuf.depth, gbuf.mat_id,
-            gbuf.motion, state.history, params.denoise, static.flags,
-            frame_parity=frame & 1)
+            full.color, full.albedo, full.normal, full.depth, full.mat_id,
+            full.motion, state.history, params.denoise, static.flags,
+            frame_parity=parity)
     else:
-        final = gbuf.color * gbuf.albedo
+        final = full.color * full.albedo
         new_history = state.history
 
     # sun screen position; visible where the depth at its pixel is sky
@@ -133,7 +197,7 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
         torch.int64), 0, w - 1)
     sy = torch.clamp(torch.clamp(sun_uv[1] * h, -1.0, float(h)).to(
         torch.int64), 0, h - 1)
-    d_sun = gbuf.depth.reshape(-1).index_select(0, (sy * w + sx).reshape(1))
+    d_sun = full.depth.reshape(-1).index_select(0, (sy * w + sx).reshape(1))
     sun_visible = ((sun_z > 0) & ~torch.isfinite(d_sun[0])).to(torch.float32)
 
     sw, sh = static.screen_w, static.screen_h
@@ -142,10 +206,9 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
             final, state.exposure, dt, sun_uv, sun_visible, params.post,
             static.flags, sh, sw, frame, mask=consts.mask)
     else:
-        if (sh, sw) != (h, w):
-            raise NotImplementedError(
-                "output upscale is not ported yet (see ROADMAP.md)")
         ldr = torch.clamp(final, 0.0, 1.0) ** (1.0 / 2.2)
+        if (sh, sw) != (h, w):
+            ldr = torch.clamp(upscale_catmull_rom(ldr, sh, sw), 0.0, 1.0)
         image = (ldr * 255.0 + 0.5).to(torch.uint8)
         new_exposure = state.exposure
 

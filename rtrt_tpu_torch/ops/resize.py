@@ -1,9 +1,12 @@
-"""Image resampling (port of rtrt_tpu/ops/resize.py::box_pool, downsample4,
-upsample_linear)."""
+"""Image resampling (port of rtrt_tpu/ops/resize.py::box_pool, downsample2,
+downsample4, upsample_linear, upscale_catmull_rom)."""
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
+
+from .stencil import _catmull_rom_w
 
 
 def box_pool(img, k: int):
@@ -11,6 +14,11 @@ def box_pool(img, k: int):
     h, w = (img.shape[0] // k) * k, (img.shape[1] // k) * k
     x = img[:h, :w].reshape(h // k, k, w // k, k, *img.shape[2:])
     return x.sum(dim=(1, 3)) / (k * k)
+
+
+def downsample2(img):
+    """2x2 box average; (H,W,C)->(H/2,W/2,C) (truncates odd edges)."""
+    return box_pool(img, 2)
 
 
 def downsample4(img):
@@ -27,3 +35,39 @@ def upsample_linear(img, out_h: int, out_w: int):
     y = F.interpolate(x, size=(out_h, out_w), mode="bilinear",
                       align_corners=False)
     return y[0].permute(1, 2, 0)
+
+
+def _cr_axis(n_in: int, n_out: int, device):
+    """Per output pixel of one axis: the 4 clamped tap indices and their
+    Catmull-Rom weights, at pixel centres (i + 0.5) / n_out."""
+    u = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) \
+        / n_out
+    t = torch.clamp(u * n_in - 0.5, 0.0, n_in - 1.0)
+    t0 = torch.floor(t)
+    i0 = t0.to(torch.int64)
+    idx = [torch.clamp(i0 + (k - 1), 0, n_in - 1) for k in range(4)]
+    return idx, _catmull_rom_w(t - t0)
+
+
+def upscale_catmull_rom(img, out_h: int, out_w: int):
+    """Catmull-Rom bicubic resample of an (H, W, ...) image to (out_h,
+    out_w) — the reference's render-res -> screen-res BicubicScale.
+
+    The function of ops/stencil.py::bicubic_catmull_rom_sample on the
+    output grid's pixel centres (the JAX module's form), computed
+    separably: the four x taps of every input row first, then four of
+    those rows.  Each output value takes the same products and sums in
+    the same order as the 16-tap form."""
+    h, w = img.shape[0], img.shape[1]
+    tail = (1,) * (img.ndim - 2)
+    xi, wx = _cr_axis(w, out_w, img.device)
+    yi, wy = _cr_axis(h, out_h, img.device)
+    rows = 0.0
+    for i in range(4):
+        rows = rows + img.index_select(1, xi[i]) * wx[i].reshape(
+            (1, out_w) + tail)
+    acc = 0.0
+    for j in range(4):
+        acc = acc + rows.index_select(0, yi[j]) * wy[j].reshape(
+            (out_h, 1) + tail)
+    return acc

@@ -1,22 +1,25 @@
 """Post-processing chain: pyramid -> exposure -> bloom -> lens flare ->
 tail (port of rtrt_tpu/post/pipeline.py::postprocess).
 
-The tail (tone map, sharpen, dither, u8) is the fused kernel K3.  The
-render-to-screen upscale is not ported yet (ROADMAP.md): it raises
-NotImplementedError rather than being skipped.
+At the screen size the tail (tone map, sharpen, dither, u8) is the fused
+kernel K3.  Below it, as in the JAX module, the tone map runs at render
+size and a Catmull-Rom upscale takes the LDR image to the screen (torch
+ops); K3's pre-mapped instantiation then sharpens, dithers and quantizes
+at screen size.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.resize import downsample4
+from ..ops.resize import downsample4, upscale_catmull_rom
 from ..render.sampling import _to_unit_float, blue_noise_mask, hash_pcg, u32
 from ..utils.config import FeatureFlags, PostParams
 from .bloom import bloom
 from .exposure import auto_exposure
 from .lensflare import lens_flare
 from .tail import post_tail, tail_params
+from .tonemap import tonemap
 
 
 def dither_mask(device) -> torch.Tensor:
@@ -51,16 +54,20 @@ def postprocess(color, exposure_state, dt, sun_uv, sun_visible,
         color = color + lens_flare(h, w, sun_uv, sun_visible,
                                    p.flare_strength) \
             / torch.clamp(ev, min=1e-6)
-    if (out_h, out_w) != (h, w):
-        raise NotImplementedError(
-            f"output upscale {w}x{h} -> {out_w}x{out_h} is not ported yet "
-            "(see ROADMAP.md); render at the output size")
 
     fshift = float(_to_unit_float(hash_pcg(u32(frame_idx))))
     if mask is None:
         mask = dither_mask(color.device)
     params = tail_params(ev, p.tone_map, p.gamma, p.sharpen_amount, fshift,
                          color.device)
+    mapped = (out_h, out_w) != (h, w)
+    if mapped:
+        # tone map and gamma at render size from the device-side params
+        # (no host copy), then the upscale to the screen, clamped
+        ldr = tonemap(color * params[0], params[1], params[2])
+        color = torch.clamp(upscale_catmull_rom(ldr, out_h, out_w), 0.0,
+                            1.0)
     u8 = post_tail(color.contiguous(), params, mask,
-                   do_sharpen=flags.sharpen, do_dither=flags.dither)
+                   do_sharpen=flags.sharpen, do_dither=flags.dither,
+                   mapped=mapped)
     return u8, exposure_state

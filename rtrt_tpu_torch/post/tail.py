@@ -6,6 +6,11 @@ blue-noise dither (the 64x64 mask tiled and shifted by hash_pcg(frame)),
 u8 quantize.  `post_tail` launches K3 (csrc/post_tail.cu) for CUDA tensors
 and runs `post_tail_plain` — the XLA ops of rtrt_tpu/post/pipeline.py:70-95
 — for CPU tensors.
+
+mapped=True takes an image that is tone-mapped already (the Catmull-Rom
+upscale's output, clamped to [0, 1]): no exposure, no tone map; sharpen,
+dither and quantize as above (rtrt_tpu/post/pipeline.py:78-95).  K3 has
+an instantiation for it, counted apart (launch_counts["post_tail_mapped"]).
 """
 
 from __future__ import annotations
@@ -29,11 +34,11 @@ def tail_params(ev, tone_map, gamma, sharpen_amount, fshift, device):
 
 
 def post_tail_plain(color, params, mask, *, do_sharpen: bool,
-                    do_dither: bool):
+                    do_dither: bool, mapped: bool = False):
     """color (H,W,3) f32, params (5,), mask (64,64) -> (H,W,3) uint8."""
     h, w = color.shape[0], color.shape[1]
     ev, tone, gamma, amount, fshift = params.unbind(0)
-    ldr = tonemap(color * ev, tone, gamma)
+    ldr = color if mapped else tonemap(color * ev, tone, gamma)
     if do_sharpen:
         ldr = sharpen(ldr, amount)
     if do_dither:
@@ -46,13 +51,13 @@ def post_tail_plain(color, params, mask, *, do_sharpen: bool,
 
 
 def post_tail(color, params, mask, *, do_sharpen: bool, do_dither: bool,
-              out=None):
+              mapped: bool = False, out=None):
     """Fused tail on an (H,W,3) float32 frame; see module docstring.  out:
     for CUDA tensors, an optional (H,W,3) uint8 buffer that receives the
     image (and is returned)."""
     if color.device.type == "cpu":
         return post_tail_plain(color, params, mask, do_sharpen=do_sharpen,
-                               do_dither=do_dither)
+                               do_dither=do_dither, mapped=mapped)
     dev = color.device
     h, w = color.shape[0], color.shape[1]
     if out is None:
@@ -61,8 +66,9 @@ def post_tail(color, params, mask, *, do_sharpen: bool, do_dither: bool,
                        params=(params, torch.float32, (5,)),
                        mask=(mask, torch.float32, (64, 64)),
                        out=(out, torch.uint8, (h, w, 3)))
-    cuda.launch(cuda.library().rtrt_post_tail, "post_tail", dev, color,
+    cuda.launch(cuda.library().rtrt_post_tail,
+                "post_tail_mapped" if mapped else "post_tail", dev, color,
                 ctypes.c_int(h), ctypes.c_int(w), params, mask,
                 ctypes.c_int(int(do_sharpen)), ctypes.c_int(int(do_dither)),
-                out)
+                ctypes.c_int(int(mapped)), out)
     return out

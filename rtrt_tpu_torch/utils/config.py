@@ -1,15 +1,18 @@
-"""Configuration: launch settings, feature flags and runtime parameters.
+"""Configuration: TOML launch settings, feature flags and runtime
+parameters.
 
 Port of rtrt_tpu/utils/config.py.  Field names and defaults are identical
 (tests/test_torch_config.py pins them against the JAX dataclasses).  The
 runtime-tunable parameter groups are plain dataclasses of Python floats
 instead of NamedTuple pytrees of traced scalars: the port runs eagerly, so
-a parameter change never recompiles anything.
+a parameter change never recompiles anything.  `get_param` / `set_param`
+address them by dotted path ("post.bloom_strength"), as the JAX ones do.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import tomllib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +43,20 @@ class GlobalSettings:
     frame_cap_fps: float = 75.0
     dynamic_resolution: DynamicResolution = dataclasses.field(
         default_factory=DynamicResolution)
+
+
+def load_config(path: str | None) -> GlobalSettings:
+    """TOML file -> GlobalSettings; missing keys take the defaults."""
+    if path is None:
+        return GlobalSettings()
+    with open(path, "rb") as f:
+        t = tomllib.load(f)
+    top = {f.name: t[f.name] for f in dataclasses.fields(GlobalSettings)
+           if f.name != "dynamic_resolution" and f.name in t}
+    dr = t.get("dynamic_resolution", {})
+    return GlobalSettings(**top, dynamic_resolution=DynamicResolution(
+        **{f.name: dr[f.name] for f in dataclasses.fields(DynamicResolution)
+           if f.name in dr}))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,3 +143,19 @@ def default_params() -> RenderParams:
                       sun_intensity=20.0, rayleigh=1.0, mie=1.0,
                       mie_g=0.76),
     )
+
+
+def get_param(params: RenderParams, path: str):
+    obj = params
+    for part in path.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def set_param(params: RenderParams, path: str, value) -> RenderParams:
+    """A copy of params with the leaf at the dotted path set to float(value)
+    (params itself is not changed)."""
+    head, _, rest = path.partition(".")
+    child = getattr(params, head)
+    new = set_param(child, rest, value) if rest else float(value)
+    return dataclasses.replace(params, **{head: new})

@@ -33,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launch_counts = {"packet_intersect": 0, "megakernel_trace": 0,
-                 "post_tail": 0, "denoise_wide": 0, "reproject": 0,
+                 "post_tail": 0, "post_tail_mapped": 0, "denoise_wide": 0, "reproject": 0,
                  "probe_step": 0, "probe_leaf": 0, "probe_cores": 0,
                  "probe_cores_grid": 0, "probe_cond": 0,
                  "probe_smem_alloc": 0, "probe_smem_consume": 0,
@@ -53,7 +53,7 @@ _SIGNATURES = {
     "rtrt_traverse_stack": [ctypes.POINTER(_I), _I],
     "rtrt_megakernel": [_P] * 6 + [_I, _P, _I, _P] + [_F] * 4 + [_U]
     + [_P] * 5 + [_I, _I, _I] + [_P] * 4 + [_I, _I] + [_P],
-    "rtrt_post_tail": [_P, _I, _I, _P, _P, _I, _I, _P] + [_P],
+    "rtrt_post_tail": [_P, _I, _I, _P, _P, _I, _I, _I, _P] + [_P],
     "rtrt_denoise_wide": [_P] * 4 + [_I, _I, _P] + [_I] * 4 + [_F] * 3
     + [_P] + [_P],
     "rtrt_reproject": [_P] * 6 + [_I, _I, _I] + [_P] * 6 + [_P],

@@ -52,17 +52,19 @@ W, H = 32, 16
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _render_both(jflags, tflags, cams):
+def _render_both(jflags, tflags, cams, screen=(W, H)):
     """Render len(cams) - 1 frames of the demo scene in both packages, frame
-    k from camera cams[k + 1] with cams[k] as the previous camera.
+    k from camera cams[k + 1] with cams[k] as the previous camera, at
+    W x H, out at `screen` (width, height).
     Returns (JAX images, port images, the port's last G-buffer)."""
+    sw, sh = screen
     host = build_demo_scene()
     pad = padded_arrays(host)
     prebuilt = jbuild(host.num_batches, pad["indices"], pad["tri_mat"],
                       pad["valid"], host.vertices, host.normals, leaf_max=8)
     sky = finalize_sky_maps(jax.jit(lambda p: bake_sky_maps(
         p, sky_res=(16, 32), sun_res=(4, 4)))(make_sky_params()))
-    static = JF.FrameStatic(render_w=W, render_h=H, screen_w=W, screen_h=H,
+    static = JF.FrameStatic(render_w=W, render_h=H, screen_w=sw, screen_h=sh,
                             num_batches=host.num_batches, flags=jflags,
                             use_packets=False, use_megakernel=False,
                             sah_leaf=8)
@@ -89,8 +91,8 @@ def _render_both(jflags, tflags, cams):
     scene = SceneData(tables=pack_tables(bvh, nrm, mat, bvh4_nodes(bvh)),
                       materials=th.materials,
                       sky=interop.sky_from_jax(sky, "cpu"), lights=th.lights)
-    tstatic = TF.FrameStatic(render_w=W, render_h=H, screen_w=W, screen_h=H,
-                             flags=tflags)
+    tstatic = TF.FrameStatic(render_w=W, render_h=H, screen_w=sw,
+                             screen_h=sh, flags=tflags)
     history = (tinit_history(H, W, half=tflags.half_history, device="cpu")
                if tflags.denoise else None)
     tstate = TF.FrameState(exposure=interop.exposure_from_jax(
@@ -152,19 +154,16 @@ def test_gbuffer_sane(frames):
 
 
 def test_engine_refuses_unported_settings():
+    """Interlace, dynamic resolution and load_camera_at_init are ported
+    (tests/test_torch_interlace.py, test_torch_engine_shell.py and
+    test_engine_dynamic_resolution_renders below); these are not."""
     flags = TFlags(denoise=False, bloom=False, lens_flare=False)
     dr = DynamicResolution(enabled=False)
     for kw in (dict(flags=TFlags(stars=True)),
                dict(flags=TFlags(fourier_textures=True)),
                dict(flags=TFlags(denoise=False, bloom=False,
                                  lens_flare=False, ocean=True)),
-               dict(settings=GlobalSettings(scene="demo", interlace=True,
-                                            dynamic_resolution=dr)),
-               dict(settings=GlobalSettings(scene="demo")),
                dict(settings=GlobalSettings(scene="demo", sky_model="preetham",
-                                            dynamic_resolution=dr)),
-               dict(settings=GlobalSettings(scene="demo",
-                                            load_camera_at_init=True,
                                             dynamic_resolution=dr)),
                dict(animation="wave")):
         kw.setdefault("flags", flags)
@@ -172,6 +171,27 @@ def test_engine_refuses_unported_settings():
                                                  dynamic_resolution=dr))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(device="cpu", **kw)
+
+
+def test_engine_dynamic_resolution_renders():
+    """The default settings' dynamic resolution on the demo scene: a slow
+    frame (dt 1/20 s, below target_fps - deadband) drops the bucket from
+    360 to 270 rows, a fast one (1/200 s) climbs back; every image comes
+    out at the settings' 640x360, the history follows the bucket."""
+    eng = Engine(GlobalSettings(scene="demo", render_width=640,
+                                render_height=360),
+                 flags=TFlags(), device="cpu")
+    assert eng.settings.dynamic_resolution.enabled
+    seen = [(eng.render_w, eng.render_h)]
+    for dt in (1 / 20, 1 / 200):
+        img = eng.render_frame(dt=dt)
+        assert img.shape == (360, 640, 3) and img.dtype == np.uint8
+        seen.append((eng.render_w, eng.render_h))
+        hist = eng.state.history
+        assert hist.color.shape == (eng.render_h, eng.render_w, 3)
+        assert not hist.valid  # a switch starts an empty history
+    assert seen == [(640, 360), (480, 270), (640, 360)]
+    assert int(eng.overflow) == 0
 
 
 _NO_JAX = r"""

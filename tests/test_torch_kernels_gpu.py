@@ -33,6 +33,10 @@ Tolerances:
     tile, a colour buffer that is not 16-byte aligned) every byte of the
     output is written: two launches into buffers pre-filled with 0 and 255
     agree.
+  * K3 on pre-mapped input (the instantiation that follows the
+    Catmull-Rom upscale): the same bound, at ragged shapes (1x1, 37x5,
+    480x270, 1920x1080, an unaligned buffer), into outputs pre-filled
+    with 0 and 255.
   * K2 as persistent lanes: a launch over any subset of a frame's pixels
     (1, 37, 4,099 or all of them; the output pre-filled with NaN) writes
     every pixel, bit-equal to the same pixels of the full frame's launch:
@@ -145,11 +149,12 @@ def test_traverse_kernel_matches_plain(engine, cuda_device, any_hit):
 @pytest.mark.parametrize("use_bn", [False, True])
 def test_megakernel_matches_plain(engine, cuda_device, use_bn):
     sc, consts = engine.scene_data, engine.consts
+    rw, rh = engine.render_w, engine.render_h  # the bucket's size
     bn = consts.bn if use_bn else None
     pix = consts.pixel_ids
     jitter = rand2_bn(consts.bn, 3, 0)
     lens = rand2_bn(consts.bn, 3, 256)
-    rays = generate_rays_padded(camera_basis(engine.camera), W, H, pix,
+    rays = generate_rays_padded(camera_basis(engine.camera), rw, rh, pix,
                                 jitter, lens)
     args = (sc.tables, pack_materials_rows(sc.materials).to(cuda_device),
             M.pack_light_rows(sc.lights, cuda_device),
@@ -169,7 +174,7 @@ def test_megakernel_matches_plain(engine, cuda_device, use_bn):
     for f in ("normal", "albedo", "esc_dir", "esc_beta", "esc_pdf"):
         a, b = getattr(got, f), getattr(ref, f)
         rtol = 1e-2 if f == "esc_beta" else 0.0
-        ok = ((a - b).abs() - rtol * b.abs()).reshape(H, W, -1).amax(-1) \
+        ok = ((a - b).abs() - rtol * b.abs()).reshape(rh, rw, -1).amax(-1) \
             <= 5e-3
         assert ok[~miss].float().mean() >= 0.99, f
         if f.startswith("esc"):
@@ -229,15 +234,53 @@ def test_post_tail_kernel_ragged_shapes(cuda_device, shape, tone):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 1), (37, 5), (270, 480), (1080, 1920),
+                                   "unaligned"])
+def test_post_tail_mapped_kernel_ragged_shapes(cuda_device, shape):
+    h, w = (37, 256) if shape == "unaligned" else shape
+    rng = np.random.default_rng(h * 131 + w)
+    c = np.clip(rng.uniform(-0.1, 1.1, size=(h, w, 3)), 0.0, 1.0)
+    c = torch.from_numpy(c.astype(np.float32)).to(cuda_device)
+    if shape == "unaligned":  # a contiguous view 4 bytes into its buffer
+        buf = torch.empty(h * w * 3 + 1, device=cuda_device)
+        buf[1:].copy_(c.reshape(-1))
+        c = buf[1:].view(h, w, 3)
+        assert c.is_contiguous() and c.data_ptr() % 16
+    mask = dither_mask(cuda_device)
+    # ev and the tone map must not apply to a pre-mapped image
+    par = tail_params(torch.tensor(3.0), 0.0, 1.0, 0.5, 0.37, cuda_device)
+    cuda.reset_launch_counts()
+    for sh, di in ((True, True), (False, False), (True, False)):
+        outs = [post_tail(c, par, mask, do_sharpen=sh, do_dither=di,
+                          mapped=True,
+                          out=torch.full((h, w, 3), v, dtype=torch.uint8,
+                                         device=cuda_device))
+                for v in (0, 255)]
+        ref = post_tail_plain(c, par, mask, do_sharpen=sh, do_dither=di,
+                              mapped=True)
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1])  # every byte written
+        d = (outs[0].int() - ref.int()).abs()
+        assert int(d.max()) <= 1
+        assert (d.amax(-1) == 0).float().mean() >= 0.999
+    assert cuda.launch_counts["post_tail_mapped"] == 6
+    assert cuda.launch_counts["post_tail"] == 0
+
+
+@pytest.mark.gpu
 def test_engine_frames_launch_the_kernels(engine):
+    """The Engine renders its 480x270 bucket, out at the settings' 128x72:
+    K2, then K3's pre-mapped instantiation after the resample."""
     cuda.reset_launch_counts()
     engine.overflow.zero_()
     for _ in range(2):
         img = engine.render_frame_device(1 / 60)
     torch.cuda.synchronize()
+    assert (engine.render_w, engine.render_h) == (480, 270)
     assert img.shape == (H, W, 3) and img.dtype == torch.uint8
     assert cuda.launch_counts["megakernel_trace"] == 2
-    assert cuda.launch_counts["post_tail"] == 2
+    assert cuda.launch_counts["post_tail_mapped"] == 2
+    assert cuda.launch_counts["post_tail"] == 0
     assert int(engine.overflow) == 0
     for f in ("color", "albedo", "normal", "motion"):
         assert torch.isfinite(getattr(engine.last_gbuffer, f)).all(), f
@@ -303,6 +346,58 @@ def test_denoise_wide_kernel_ragged_shapes(cuda_device, h, w, radius, stride,
     err = (got - ref).abs() - 1e-4 * ref.abs()
     assert (err.amax(-1) <= 1e-5).float().mean() >= 0.999
     assert bool((err <= 1e-4 + 9e-4 * ref.abs()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bucket", [270, 360, 540, 720])
+def test_bucket_sizes_kernels_match_plain(cuda_device, bucket):
+    """The dynamic-resolution buckets (480x270 ... 1280x720; no height a
+    multiple of 16): K4's five passes of a frame, K5 and both K3
+    instantiations against their plain versions at the bucket's size, with
+    the tolerances above."""
+    h, w = bucket, bucket * 16 // 9 // 16 * 16
+    c, n, d, mat = (torch.from_numpy(x).to(cuda_device)
+                    for x in _gbuffer_np(h, w, seed=bucket))
+    p = default_params().denoise
+    for radius, stride, half, parity in ((3, 1, True, 0), (3, 1, True, 1),
+                                         (2, 3, False, 0), (2, 6, False, 0),
+                                         (2, 12, False, 0)):
+        kw = dict(radius=radius, stride=stride, half_taps=half,
+                  parity=parity)
+        got = edge_aware_pass(c, n, d, mat, p, **kw)
+        ref = edge_aware_pass_plain(c, n, d, mat, p, **kw)
+        torch.cuda.synchronize()
+        err = (got - ref).abs() - 1e-4 * ref.abs()
+        assert (err.amax(-1) <= 1e-5).float().mean() >= 0.999, kw
+        assert bool((err <= 1e-4 + 9e-4 * ref.abs()).all()), kw
+    rng = np.random.default_rng(bucket)
+    bf = lambda x: x.to(torch.bfloat16)
+    count = torch.from_numpy(rng.integers(0, 9, (h, w)).astype(
+        np.float32)).to(cuda_device)
+    motion = torch.from_numpy((rng.uniform(-4, 4, (h, w, 2)) / [w, h]).astype(
+        np.float32)).to(cuda_device)
+    got = reproject(bf(c), bf(c * 0.5), bf(d), mat, bf(count), motion)
+    wide = lambda x: bf(x).to(torch.float32)
+    ref = reproject_plain(wide(c), wide(c * 0.5), wide(d), mat, wide(count),
+                          motion)
+    torch.cuda.synchronize()
+    for fld in ("color", "color2"):
+        a, b = getattr(got, fld), getattr(ref, fld)
+        close = ((a - b).abs() <= 1e-6 + 1e-5 * b.abs()).all(-1)
+        assert close.float().mean() >= 0.9999, fld
+    for fld in ("depth", "count", "mat_id", "ok"):
+        assert torch.equal(getattr(got, fld), getattr(ref, fld)), fld
+    mask = dither_mask(cuda_device)
+    par = tail_params(torch.tensor(0.8), 1.0, 2.2, 0.5, 0.37, cuda_device)
+    for mapped, img in ((False, c), (True, torch.clamp(c, 0.0, 1.0))):
+        got = post_tail(img, par, mask, do_sharpen=True, do_dither=True,
+                        mapped=mapped)
+        ref = post_tail_plain(img, par, mask, do_sharpen=True, do_dither=True,
+                              mapped=mapped)
+        torch.cuda.synchronize()
+        du = (got.int() - ref.int()).abs()
+        assert int(du.max()) <= 1 and (du.amax(-1) == 0).float().mean() \
+            >= 0.999, mapped
 
 
 @pytest.fixture(scope="module")
@@ -464,12 +559,70 @@ def test_engine_default_flags_launch_every_kernel(cuda_device):
     torch.cuda.synchronize()
     assert img.shape == (H, W, 3) and img.dtype == torch.uint8
     counts = cuda.launch_counts
-    assert counts["megakernel_trace"] == 3 and counts["post_tail"] == 3
+    # the 480x270 bucket out at 128x72: K3's pre-mapped instantiation
+    assert counts["megakernel_trace"] == 3 and counts["post_tail_mapped"] == 3
     assert counts["denoise_wide"] == 12 and counts["reproject"] == 3
     assert int(eng.overflow) == 0
     for fld in ("color", "color2", "depth", "count"):
         x = getattr(eng.state.history, fld).float()
         assert not torch.isnan(x).any(), fld
+
+
+@pytest.mark.gpu
+def test_engine_default_settings_render(cuda_device):
+    """Engine(GlobalSettings(scene="terrain")), the defaults: 1080p, dynamic
+    resolution on.  A slow frame drops to the 720 bucket, whose frames go
+    through K3's pre-mapped instantiation; a fast one climbs back."""
+    eng = Engine(GlobalSettings(scene="terrain"), device=cuda_device)
+    cuda.reset_launch_counts()
+    buckets = []
+    for dt in (1 / 20, 1 / 60, 1 / 200, 1 / 60):
+        img = eng.render_frame_device(dt)
+        buckets.append(eng.render_h)
+        assert eng.state.history.color.shape == (eng.render_h, eng.render_w,
+                                                 3)
+    torch.cuda.synchronize()
+    assert img.shape == (1080, 1920, 3) and img.dtype == torch.uint8
+    assert buckets == [720, 720, 1080, 1080]
+    counts = cuda.launch_counts
+    assert counts["megakernel_trace"] == 4 and counts["reproject"] == 4
+    assert counts["post_tail"] == 2 and counts["post_tail_mapped"] == 2
+    assert int(eng.overflow) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frame", [4, 7])
+def test_interlaced_frame_traces_full_rate_rows(engine, cuda_device, frame):
+    """At 640x360 on the demo scene, an interlaced frame's traced G-buffer
+    rows equal the full-rate frame's rows frame & 1, frame & 1 + 2, ...
+    bit for bit, from the same state (K2 keys each pixel by its id)."""
+    import dataclasses
+    from rtrt_tpu_torch.denoise.pipeline import init_history
+    from rtrt_tpu_torch.engine import frame as F
+    from rtrt_tpu_torch.post.exposure import init_exposure_state
+    full = F.FrameStatic(render_w=640, render_h=360, screen_w=640,
+                         screen_h=360, flags=FeatureFlags())
+    il = dataclasses.replace(full, interlace=True)
+    cam = engine.camera
+    prev = dataclasses.replace(cam, yaw=cam.yaw - 0.01)
+    out = {}
+    cuda.reset_launch_counts()
+    for static in (full, il):
+        state = F.FrameState(exposure=init_exposure_state(cuda_device),
+                             history=init_history(360, 640,
+                                                  device=cuda_device),
+                             frame_idx=frame)
+        img, _, gb = F.render_frame(static, engine.scene_data, state, cam,
+                                    prev, default_params(), 1 / 60)
+        assert img.shape == (360, 640, 3)
+        out[static.interlace] = gb
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["megakernel_trace"] == 2
+    p = frame & 1
+    for name in ("color", "albedo", "normal", "depth", "motion", "mat_id"):
+        traced, ref = getattr(out[True], name), getattr(out[False], name)
+        assert traced.shape[0] == 180, name
+        assert torch.equal(traced, ref[p::2]), name
 
 
 def _random_rays(cuda_device, n=8192, seed=21):

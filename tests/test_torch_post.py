@@ -81,11 +81,22 @@ def test_postprocess_matches(tone, sharpen, dither):
 
 
 def test_unported_passes_raise():
-    """The render-to-screen upscale is the one pass of the chain not
-    ported; bloom and lens flare run (test_torch_bloom_flare.py)."""
-    c = torch.from_numpy(_frame(3))
-    st = TE.init_exposure_state("cpu")
-    for oh, ow in ((2 * H, 2 * W), (H, 2 * W)):
-        with pytest.raises(NotImplementedError):
-            tpost(c, st, 1 / 60, torch.zeros(2), torch.tensor(0.0),
-                  tparams().post, TFlags(), oh, ow, 0)
+    """The render-to-screen upscale, the last pass of the chain to be
+    ported, runs now: with the default flags (bloom, lens flare with a
+    visible sun) at output sizes other than the render size, the port's
+    chain (tone map, Catmull-Rom upscale, plain tail on pre-mapped input)
+    matches the JAX postprocess within the u8 bound above.  Nothing of
+    the chain raises."""
+    c = _frame(3)
+    jst, tst = JE.init_exposure_state(), TE.init_exposure_state("cpu")
+    sun = np.array([0.3, 0.2], np.float32)
+    for oh, ow in ((2 * H, 2 * W), (H, 2 * W), (H // 2, W // 3)):
+        ju8, jst = jpost(jnp.asarray(c), jst, jnp.float32(1 / 60),
+                         jnp.asarray(sun), jnp.float32(1.0), jparams().post,
+                         JFlags(), oh, ow, jnp.uint32(3), use_pallas=False)
+        tu8, tst = tpost(torch.from_numpy(c), tst, 1 / 60,
+                         torch.from_numpy(sun), torch.tensor(1.0),
+                         tparams().post, TFlags(), oh, ow, 3)
+        assert tu8.shape == (oh, ow, 3) and tu8.dtype == torch.uint8
+        _u8_close(np.asarray(ju8), tu8.numpy())
+        np.testing.assert_allclose(np.asarray(jst), tst.numpy(), rtol=1e-5)
