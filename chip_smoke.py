@@ -87,7 +87,27 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      plane (both rendered from the same state);
  11. headless: `python -m rtrt_tpu_torch.app.headless --scene terrain
      --frames 3 --out <tmp>.png` in a subprocess exits 0 and writes a
-     1920x1080 PNG.
+     1920x1080 PNG;
+ 12. the animated terrain: Engine(terrain, 1920x1080, dynamic resolution
+     off, animation="wave"), default FeatureFlags(), 3 warm-up and 10
+     timed frames of the slow pan under sync debug "error", launch
+     counters reset just before: K2 13, K3 13, K4 52, K5 13; 0 dropped
+     pushes (the deepest stack printed); then on the last frame's tables:
+     every child box holds its subtree (the leaf rows' displaced
+     triangles, the child node's boxes), nodes / tris / nrm / ng equal
+     the plain refit of the same clock on the CPU (nodes, tris, nrm
+     within 2e-5; ng within 1e-3 on >= 99.9% of slots: sliver triangles
+     turn their normals), K1 and K2 against their plain versions at phase
+     3's bounds, levels, stack and the tensors' storage unchanged; ms/
+     frame, and device busy and launches per frame (torch.profiler) of
+     the animated frame, of phase 5's static frame and of the refit stage
+     alone;
+ 13. ocean + stars: Engine(terrain, 1920x1080, FeatureFlags(ocean=True,
+     stars=True)) at night (sky.time_of_day 0.0), 3 warm-up and 5 timed
+     frames (sync debug "error" on the timed ones): each image (1080,
+     1920, 3) uint8, the G-buffer finite, the
+     traced colour differs from the same frame without the ocean on > 1%
+     of pixels; ms/frame, device busy and launches per frame.
   --profile adds 6: torch.profiler over 5 frames each of the main path,
      the north star's Engine at the 720 bucket and the interlaced Engine
      (device busy time, launches and synchronising calls per frame, top
@@ -104,6 +124,7 @@ import json
 import os
 import sys
 import time
+import types
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 W, H = 1920, 1080
@@ -211,6 +232,62 @@ def _check_k1(name, tables, o, d, a, b):
         f"K1 {name}: t beyond rtol 1e-5 on {n_flat} rays"
     assert worst <= 1.0, f"K1 {name}: t error beyond bound ({worst})"
     return err
+
+
+def _check_k2(label, sky, rays, a, b, prev_basis):
+    """Assert K2's planes `a` against the plain version's `b` on image-shaped
+    rays; return the two finished G-buffers and the max abs error of the
+    normal and albedo where the materials agree.
+
+    Per pixel on >= 99%: depth rtol 1e-4, mat id equal, normal, albedo,
+    esc_dir and esc_pdf atol 5e-3, esc_beta atol 5e-3 + rtol 1e-2 (nvcc's
+    FMA contraction moves a few bounce directions by an ulp, and a path
+    that crosses a decision boundary diverges; beyond that, esc_beta
+    carries 1 / (1 - q) of the shadow-or-scatter choice, whose q holds the
+    sun-disk limb term: one rounding of the sun sample's cosine moves it by
+    ~0.25%); the escape planes exactly where the primary ray misses; mean
+    radiance and finished colour per channel within 1%."""
+    import torch
+    from rtrt_tpu_torch.render import megakernel as M
+
+    h, w = a.depth.shape
+    miss = (a.mat_id == -1) & (b.mat_id == -1)
+    close = lambda x, y, rtol=0.0: (
+        ((x - y).abs() - rtol * y.abs()).reshape(h, w, -1).amax(-1) <= 5e-3)
+    oks = dict(
+        depth=torch.isclose(a.depth, b.depth, rtol=1e-4, atol=0) | (
+            torch.isinf(a.depth) & torch.isinf(b.depth)),
+        mat_id=a.mat_id == b.mat_id,
+        **{f: close(getattr(a, f), getattr(b, f))
+           for f in ("normal", "albedo", "esc_dir", "esc_pdf")},
+        esc_beta=close(a.esc_beta, b.esc_beta, 1e-2))
+    fracs = {f: ok[~miss].float().mean().item() for f, ok in oks.items()
+             if f.startswith("esc")}
+    fracs.update({f: ok.float().mean().item() for f, ok in oks.items()
+                  if not f.startswith("esc")})
+    miss_exact = all(torch.equal(getattr(a, f)[miss], getattr(b, f)[miss])
+                     for f in ("esc_dir", "esc_beta", "esc_pdf"))
+    gba = M.finish_gbuffer(sky, rays, a, prev_basis, w / h)
+    gbb = M.finish_gbuffer(sky, rays, b, prev_basis, w / h)
+    rel = lambda x, y: ((x.mean((0, 1)) - y.mean((0, 1))).abs()
+                        / y.mean((0, 1)).abs().clamp(min=1e-6)).max().item()
+    rad_rel, col_rel = rel(a.radiance, b.radiance), rel(gba.color, gbb.color)
+    m_ok = oks["mat_id"]
+    err = max((getattr(a, f) - getattr(b, f)).abs()[m_ok].max().item()
+              for f in ("normal", "albedo"))
+    print(f"K2 {label}: share of pixels within bounds "
+          f"{ {f: round(v, 6) for f, v in fracs.items()} } (escape planes "
+          f"over the {(~miss).sum().item()} primary hits); escape planes "
+          f"exact on the {miss.sum().item()} primary misses: {miss_exact}; "
+          f"mean radiance rel err {rad_rel:.3e}, mean finished colour rel "
+          f"err {col_rel:.3e}")
+    for f, v in fracs.items():
+        assert v >= 0.99, f"K2 {label}: {f} agrees on only {v}"
+    assert miss_exact, f"K2 {label}: escape planes differ on primary misses"
+    assert rad_rel <= 0.01, f"K2 {label}: mean radiance differs by {rad_rel}"
+    assert col_rel <= 0.01, \
+        f"K2 {label}: mean finished colour differs by {col_rel}"
+    return gba, gbb, err
 
 
 def main() -> int:
@@ -364,49 +441,8 @@ def main() -> int:
           f"{k2_hits[2] / px:.3f} sampled hits; operations "
           f"{ {k: f'{v / 1e9:.3f} G' for k, v in k2_ops.items()} }; bound "
           f"{k2_bound[0]:.4f} ms ({k2_bound[1]}) {card}")
-    # per pixel on >= 99%: depth rtol 1e-4, mat id equal, normal, albedo,
-    # esc_dir and esc_pdf atol 5e-3, esc_beta atol 5e-3 + rtol 1e-2 (nvcc's
-    # FMA contraction moves a few bounce directions by an ulp, and a path
-    # that crosses a decision boundary diverges; beyond that, esc_beta
-    # carries 1 / (1 - q) of the shadow-or-scatter choice, whose q holds
-    # the sun-disk limb term: one rounding of the sun sample's cosine moves
-    # it by ~0.25%); the escape planes exactly where the primary ray
-    # misses; mean radiance and finished colour per channel within 1%
-    miss = (a.mat_id == -1) & (b.mat_id == -1)
-    close = lambda x, y, rtol=0.0: (
-        ((x - y).abs() - rtol * y.abs()).reshape(H, W, -1).amax(-1) <= 5e-3)
-    oks = dict(
-        depth=torch.isclose(a.depth, b.depth, rtol=1e-4, atol=0) | (
-            torch.isinf(a.depth) & torch.isinf(b.depth)),
-        mat_id=a.mat_id == b.mat_id,
-        **{f: close(getattr(a, f), getattr(b, f))
-           for f in ("normal", "albedo", "esc_dir", "esc_pdf")},
-        esc_beta=close(a.esc_beta, b.esc_beta, 1e-2))
-    fracs = {f: ok[~miss].float().mean().item() for f, ok in oks.items()
-             if f.startswith("esc")}
-    fracs.update({f: ok.float().mean().item() for f, ok in oks.items()
-                  if not f.startswith("esc")})
-    miss_exact = all(torch.equal(getattr(a, f)[miss], getattr(b, f)[miss])
-                     for f in ("esc_dir", "esc_beta", "esc_pdf"))
-    gba = M.finish_gbuffer(sc.sky, rays, a, camera_basis(eng.camera), W / H)
-    gbb = M.finish_gbuffer(sc.sky, rays, b, camera_basis(eng.camera), W / H)
-    rel = lambda x, y: ((x.mean((0, 1)) - y.mean((0, 1))).abs()
-                        / y.mean((0, 1)).abs().clamp(min=1e-6)).max().item()
-    rad_rel, col_rel = rel(a.radiance, b.radiance), rel(gba.color, gbb.color)
-    m_ok = oks["mat_id"]
-    k2_err = max((getattr(a, f) - getattr(b, f)).abs()[m_ok].max().item()
-                 for f in ("normal", "albedo"))
-    print(f"K2 {W}x{H}: share of pixels within bounds "
-          f"{ {f: round(v, 6) for f, v in fracs.items()} } (escape planes "
-          f"over the {(~miss).sum().item()} primary hits); escape planes "
-          f"exact on the {miss.sum().item()} primary misses: {miss_exact}; "
-          f"mean radiance rel err {rad_rel:.3e}, mean finished colour rel "
-          f"err {col_rel:.3e}")
-    for f, v in fracs.items():
-        assert v >= 0.99, f"K2 {f} agrees on only {v}"
-    assert miss_exact, "K2 escape planes differ on primary misses"
-    assert rad_rel <= 0.01, f"K2 mean radiance differs by {rad_rel}"
-    assert col_rel <= 0.01, f"K2 mean finished colour differs by {col_rel}"
+    gba, gbb, k2_err = _check_k2(f"{W}x{H}", sc.sky, rays, a, b,
+                                 camera_basis(eng.camera))
     assert int(ovf) == 0, f"K2 stack overflow count {int(ovf)}"
 
     # ---- 3c. K3 post tail: the full frame of a real render ----
@@ -630,10 +666,17 @@ def main() -> int:
     # ---- 11. the headless entry point ----
     _headless(card)
 
+    def main_step(k):
+        pan(100 + k)
+        main.render_frame_device(dt=1 / 60)
+
+    # ---- 12. the animated terrain: per-frame BVH4 refit ----
+    _animated(card, settings, main.scene, cam0, frame_ms, main_step)
+
+    # ---- 13. ocean + stars at night ----
+    _ocean_stars(card, settings, main.scene)
+
     if "--profile" in sys.argv[1:]:
-        def main_step(k):
-            pan(100 + k)
-            main.render_frame_device(dt=1 / 60)
 
         def il_step(k):
             il_pan(100 + k)
@@ -897,6 +940,273 @@ def _interlace(card, settings, scene, cam0, full_ms):
               f"from the full-rate frame's, per plane: {diff}")
         assert not any(diff.values()), f"interlace parity {p}: {diff}"
     return eng, pan
+
+
+def _busy(step, frames):
+    """torch.profiler over `frames` calls of step(k) after one warm call:
+    (device busy ms per frame, kernel launches per frame, the device-side
+    events)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step(-1)  # warm: a first call allocates its buffers
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for k in range(frames):
+            step(k)
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    # device-side events (kernels, memcpy, memset) only: the CPU-side op
+    # rows carry the same device time again
+    kern = [e for e in avg if e.device_type == DeviceType.CUDA]
+    busy = sum(_dev_t(e) for e in kern) / frames / 1e3
+    launches = sum(e.count for e in avg
+                   if "LaunchKernel" in e.key) / frames
+    return busy, launches, avg, kern
+
+
+def _dev_t(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def _top(kern, frames, n=4):
+    """The n device ops of most time: [(name, ms per frame)]."""
+    top = sorted(kern, key=_dev_t, reverse=True)[:n]
+    return [(e.key[:40], round(_dev_t(e) / frames / 1e3, 4)) for e in top]
+
+
+def _animated(card, settings, scene, cam0, static_ms, static_step):
+    """Phase 12: Engine(..., animation="wave") on the 1080p terrain — the
+    frame's launches and time beside phase 5's static frame, the refit
+    stage's own device time and launches, then on the last frame's tables:
+    containment of every subtree, equality with the plain refit of the
+    same clock on the CPU, K1 and K2 against their plain versions, and the
+    frozen topology."""
+    import torch
+    from rtrt_tpu_torch.bvh import packet as P
+    from rtrt_tpu_torch.bvh.refit import leaf_bounds, refit_nodes4
+    from rtrt_tpu_torch.bvh.types import _LEAF_BIT, entry_slot
+    from rtrt_tpu_torch.core.camera import camera_basis
+    from rtrt_tpu_torch.engine import frame as F
+    from rtrt_tpu_torch.engine.engine import Engine
+    from rtrt_tpu_torch.render import megakernel as M
+    from rtrt_tpu_torch.render.kshade import pack_materials_rows
+    from rtrt_tpu_torch.render.raygen import generate_rays_padded
+    from rtrt_tpu_torch.render.sampling import rand2_bn
+    from rtrt_tpu_torch.utils import cuda
+    from rtrt_tpu_torch.utils.config import FeatureFlags
+
+    eng = Engine(settings, flags=FeatureFlags(), scene=scene,
+                 animation="wave", device="cuda")
+    dev = eng.device
+    sc, rest = eng.scene_data, eng.rest
+    tables = sc.tables
+    frozen = (tables.levels, tables.stack)
+    ptrs = {f: getattr(tables, f).data_ptr()
+            for f in ("nodes", "tris", "nrm", "ng")}
+    plan = rest.refit.plan
+    print(f"animated terrain: Engine(terrain, {W}x{H}, animation='wave') "
+          f"init SAH+BVH4+refit plan {eng.init_seconds['sah']:.2f} s; "
+          f"{tables.nodes.shape[0]} BVH4 nodes in {len(plan.levels)} refit "
+          f"levels, {plan.n_leaves} leaves; rest pose "
+          f"{2 * rest.tris_t.numel() * 4 / 1e6:.2f} MB on the card")
+
+    def pan(k):
+        eng.camera = dataclasses.replace(cam0, yaw=cam0.yaw + 0.002 * k)
+
+    cuda.reset_launch_counts()
+    eng.overflow.zero_()
+    eng.stack_depth.zero_()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for k in range(WARMUP):
+            pan(k)
+            eng.render_frame_device(dt=1 / 60)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(WARMUP, WARMUP + TIMED):
+            pan(k)
+            t_last = eng.state.time  # the clock of the frame's refit
+            img = eng.render_frame_device(dt=1 / 60)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    anim_ms = (time.perf_counter() - t0) / TIMED * 1e3
+    counts = dict(cuda.launch_counts)
+    n = WARMUP + TIMED
+    print(f"animated terrain: {anim_ms:.2f} ms/frame over {TIMED} frames "
+          f"(host clock around synchronize, sync debug 'error' on all {n} "
+          f"frames), static main path {static_ms:.2f} ms/frame in this run "
+          f"{card}")
+    print(f"animated terrain launch counts over {n} frames: {counts}")
+    want = dict(megakernel_trace=n, post_tail=n, denoise_wide=4 * n,
+                reproject=n, packet_intersect=0)
+    for k, v in want.items():
+        assert counts[k] == v, f"animated: {k} launched {counts[k]}, not {v}"
+    print(f"animated terrain: deepest traversal stack "
+          f"{int(eng.stack_depth)} entries of {tables.stack}, dropped "
+          f"pushes {int(eng.overflow)}")
+    assert int(eng.overflow) == 0, f"animated: overflow {int(eng.overflow)}"
+    assert tuple(img.shape) == (settings.render_height,
+                                settings.render_width, 3)
+    assert img.dtype == torch.uint8
+    assert (tables.levels, tables.stack) == frozen, "topology changed"
+    assert all(getattr(tables, f).data_ptr() == p for f, p in ptrs.items())
+
+    # the last frame's tables: every child box holds its subtree (leaf
+    # children: the displaced triangles of the leaf row; internal children:
+    # the union of the child node's boxes, so by induction the subtree)
+    tt = F.displace_wave_rows(rest.tris_t, t_last)
+    llo, lhi = leaf_bounds(tt, plan.n_leaves)
+    nodes = tables.nodes
+    ent = nodes[:, 24:28].long()
+    box = nodes[:, :24].reshape(-1, 4, 6)
+    leaf = (ent >= 0) & ((ent & _LEAF_BIT) != 0)
+    inner = (ent >= 0) & ~leaf
+    li = entry_slot(ent[leaf]) // P.LEAF_WIDTH
+    ci = ent[inner] & 0x3FFFFF
+    sub_lo = box[ci][:, :, 0:3].amin(1)
+    sub_hi = box[ci][:, :, 3:6].amax(1)
+    holds = bool((box[leaf][:, 0:3] <= llo[li]).all()
+                 & (box[leaf][:, 3:6] >= lhi[li]).all()
+                 & (box[inner][:, 0:3] <= sub_lo).all()
+                 & (box[inner][:, 3:6] >= sub_hi).all())
+    print(f"animated terrain: {int(leaf.sum())} leaf and {int(inner.sum())} "
+          f"internal child boxes hold their subtrees: {holds}")
+    assert holds, "a refitted box does not hold its subtree"
+
+    # the plain refit of the same clock on the CPU (the JAX module's form):
+    # the displacement's sin / cos round differently there, so nodes,
+    # tris and nrm within 2e-5 (terrain coordinates < 64: 5 ulps), ng
+    # within 1e-3 on >= 99.9% of slots (a sliver's normal turns with an
+    # ulp of its vertices); the sentinels, entry and zero lanes exactly
+    tc = F.displace_wave_rows(rest.tris_t.cpu(), t_last)
+    nc = F.wave_normal_rows(rest.nrm_t.cpu(), rest.tris_t.cpu(), t_last)
+    ref_nodes = refit_nodes4(plan, *leaf_bounds(tc, plan.n_leaves))
+    ref = P.pack_tables(types.SimpleNamespace(tris_t=tc), nc,
+                        tables.mat.cpu(), ref_nodes)
+    errs = {}
+    for f in ("nodes", "tris", "nrm", "ng"):
+        a, b = getattr(tables, f).cpu(), getattr(ref, f)
+        fin = torch.isfinite(b)
+        assert torch.equal(torch.isfinite(a), fin), f
+        assert torch.equal(a[~fin], b[~fin]), f
+        errs[f] = (a[fin] - b[fin]).abs().max().item()
+    ng_err = (tables.ng.cpu() - ref.ng).abs().amax(-1)
+    bad_ng = {e: (ng_err > e).float().mean().item() for e in (1e-5, 1e-3)}
+    print(f"animated terrain: tables vs the plain refit of clock {t_last!r} "
+          f"on the CPU, max abs err {errs}; share of slots whose ng differs "
+          f"by more than 1e-5 / 1e-3: {bad_ng}")
+    for f in ("nodes", "tris", "nrm"):
+        assert errs[f] <= 2e-5, f"animated: {f} differs by {errs[f]}"
+    assert bad_ng[1e-3] <= 1e-3, f"animated: ng {bad_ng}"
+
+    # K1 and K2 on the refitted tables, at phase 3's bounds
+    consts = eng.consts
+    rays = generate_rays_padded(camera_basis(eng.camera), eng.render_w,
+                                eng.render_h, consts.pixel_ids,
+                                rand2_bn(consts.bn, 7, 0),
+                                rand2_bn(consts.bn, 7, 256))
+    org = rays.org.reshape(-1, 3).contiguous()
+    dirs = rays.dir.reshape(-1, 3).contiguous()
+    ovf = P.overflow_counter(dev)
+    g = P.packet_intersect(tables, org, dirs, overflow=ovf)
+    r = P.packet_intersect_plain(tables, org, dirs)
+    torch.cuda.synchronize()
+    _check_k1("refitted terrain, primary", tables, org, dirs, g, r)
+    args = (tables, pack_materials_rows(sc.materials).to(dev),
+            M.pack_light_rows(sc.lights, dev), M.pack_sun_params(sc.sky),
+            7, rays.org, rays.dir, rays.cone_width, consts.pixel_ids)
+    a = M.megakernel_trace(*args, n_lights=0, bn=consts.bn, overflow=ovf)
+    b = M.megakernel_trace_plain(*args, n_lights=0, bn=consts.bn)
+    torch.cuda.synchronize()
+    _check_k2(f"refitted terrain {eng.render_w}x{eng.render_h}", sc.sky,
+              rays, a, b,
+              camera_basis(eng.camera))
+    assert int(ovf) == 0, f"animated: K1/K2 overflow {int(ovf)}"
+
+    # device busy and launches: the animated frame beside the static one,
+    # and the refit stage alone
+    def anim_step(k):
+        pan(100 + k)
+        eng.render_frame_device(dt=1 / 60)
+
+    frames = 5
+    res = {"static frame": _busy(static_step, frames),
+           "animated frame": _busy(anim_step, frames),
+           "refit stage": _busy(lambda k: F.animate_tables(
+               tables, rest, t_last + 0.01 * k), frames)}
+    for label, (busy, launches, _, kern) in res.items():
+        print(f"animated terrain, {label}: device busy {busy:.3f} ms/frame, "
+              f"{launches:.1f} kernel launches/frame (torch.profiler over "
+              f"{frames} frames); top {_top(kern, frames)} {card}")
+
+
+def _ocean_stars(card, settings, scene):
+    """Phase 13: the ocean and the star field on the 1080p terrain at night
+    (sky.time_of_day 0.0: the sun below the horizon): finite uint8 images,
+    the traced colour of the frame against the same frame without the
+    ocean, and the frame's time, device busy and launches."""
+    import torch
+    from rtrt_tpu_torch.engine import frame as F
+    from rtrt_tpu_torch.engine.engine import Engine
+    from rtrt_tpu_torch.render.environment import night_visibility
+    from rtrt_tpu_torch.utils.config import (FeatureFlags, default_params,
+                                             set_param)
+
+    params = set_param(default_params(), "sky.time_of_day", 0.0)
+    flags = FeatureFlags(ocean=True, stars=True)
+    eng = Engine(settings, flags=flags, scene=scene, params=params,
+                 device="cuda")
+    vis = float(night_visibility(eng.scene_data.sky))
+    print(f"ocean + stars: sun direction "
+          f"{[round(v, 4) for v in eng.scene_data.sky.sun_dir.tolist()]}, "
+          f"star visibility {vis:.3f}")
+    assert vis > 0.5, f"the sun is not below the horizon ({vis})"
+    n_warm, n_timed = 3, 5
+    for _ in range(n_warm):
+        img = eng.render_frame_device(dt=1 / 60)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(n_timed):
+            img = eng.render_frame_device(dt=1 / 60)
+            assert tuple(img.shape) == (settings.render_height,
+                                        settings.render_width, 3)
+            assert img.dtype == torch.uint8
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ms = (time.perf_counter() - t0) / n_timed * 1e3
+    gb = eng.last_gbuffer
+    for f in ("color", "albedo", "normal", "motion"):
+        assert torch.isfinite(getattr(gb, f)).all(), f"ocean: {f} not finite"
+    # the same frame (state, camera) without the ocean: its pixels differ
+    state = eng.state
+    out = {}
+    for fl in (flags, FeatureFlags(stars=True)):
+        static = dataclasses.replace(eng.static, flags=fl)
+        _, _, out[fl.ocean] = F.render_frame(
+            static, eng.scene_data, state, eng.camera, eng.prev_camera,
+            eng.params, 1 / 60, eng.consts)
+    diff = (out[True].color - out[False].color).abs().amax(-1) > 1e-3
+    sky_px = torch.isinf(out[True].depth)
+    share, sky_share = diff.float().mean().item(), sky_px.float().mean()
+    print(f"ocean + stars: {ms:.2f} ms/frame over {n_timed} frames (host "
+          f"clock around synchronize, no host sync inside a frame), "
+          f"{eng.render_w}x{eng.render_h} terrain; traced colour differs "
+          f"from the same frame without the ocean on {share:.4f} of pixels "
+          f"(primary misses {sky_share.item():.4f}) {card}")
+    assert share > 0.01, f"the ocean changes only {share} of pixels"
+    busy, launches, _, kern = _busy(
+        lambda k: eng.render_frame_device(dt=1 / 60), 3)
+    print(f"ocean + stars: device busy {busy:.3f} ms/frame, {launches:.1f} "
+          f"kernel launches/frame (torch.profiler over 3 frames); top "
+          f"{_top(kern, 3)} {card}")
 
 
 def _headless(card):
@@ -1292,32 +1602,17 @@ def _profile(card, runs, frames=5):
     (step(k) renders frame k): device busy time, kernel launches and
     synchronising calls per frame, the top device ops."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    dev_t = lambda e: getattr(e, "self_device_time_total",
-                              getattr(e, "self_cuda_time_total", 0.0))
     sync_calls = lambda avg: {e.key: e.count for e in avg
                               if "ynchroniz" in e.key}
-    with profile(activities=acts) as prof:  # a window without frames
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()  # a window without frames
     print(f"profile of an empty window (one synchronize): synchronising "
           f"calls {sync_calls(prof.key_averages())}")
     for label, step in runs:
-        step(-1)  # warm: a bucket's first frame allocates its buffers
-        torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
-            for k in range(frames):
-                step(k)
-            torch.cuda.synchronize()
-        avg = prof.key_averages()
-        # device-side events (kernels, memcpy, memset) only: the CPU-side
-        # op rows carry the same device time again
-        kern = [e for e in avg if e.device_type == DeviceType.CUDA]
-        busy = sum(dev_t(e) for e in kern) / frames / 1e3
-        launches = sum(e.count for e in avg
-                       if "LaunchKernel" in e.key) / frames
+        busy, launches, avg, kern = _busy(step, frames)
         # the runtime's synchronising calls by name, to hold against the
         # empty window's
         syncs = sync_calls(avg)
@@ -1327,10 +1622,10 @@ def _profile(card, runs, frames=5):
               f"{busy:.3f} ms/frame, {launches:.1f} kernel launches/frame, "
               f"synchronising calls in the window {syncs}, {items:.1f} "
               f"device-to-host scalar reads/frame {card}")
-        top = sorted(kern, key=dev_t, reverse=True)[:15]
+        top = sorted(kern, key=_dev_t, reverse=True)[:15]
         for e in top:
             calls = e.count // frames
-            print(f"  {dev_t(e) / frames / 1e3:8.3f} ms/frame  {calls:5d} "
+            print(f"  {_dev_t(e) / frames / 1e3:8.3f} ms/frame  {calls:5d} "
                   f"calls/frame  {e.key[:90]}")
 
 

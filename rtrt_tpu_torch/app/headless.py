@@ -36,9 +36,10 @@ def main(argv=None):
     p.add_argument("--no-denoise", action="store_true")
     p.add_argument("--no-post", action="store_true")
     p.add_argument("--ocean", action="store_true",
-                   help="raymarched environment ocean (not ported: raises)")
+                   help="ray-marched ocean (plain torch, render/water.py)")
     p.add_argument("--stars", action="store_true",
-                   help="night star field (not ported: raises)")
+                   help="night star field (render/stars.py); pair with "
+                        "--time-of-day near 0.0")
     p.add_argument("--time-of-day", type=float, default=None)
     p.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu (plain versions)")

@@ -121,20 +121,40 @@ def pack_tables(bvh, tri_nrm_t, tri_mat, nodes4) -> TraceTables:
     """SceneBvh + sorted normals/materials + (q, 32) BVH4 records ->
     TraceTables (on the device of bvh.tris_t)."""
     tt = bvh.tris_t.to(torch.float32)
+    tris, ng = _tri_rows(tt)
+    dev = tt.device
+    return TraceTables(
+        nodes=torch.as_tensor(nodes4, dtype=torch.float32,
+                              device=dev).contiguous(),
+        tris=tris.T.contiguous(),
+        nrm=tri_nrm_t.to(dev, torch.float32).T.contiguous(),
+        ng=ng.contiguous(),
+        mat=tri_mat.to(dev, torch.int32).contiguous())
+
+
+def _tri_rows(tt):
+    """Sorted (9, P) vertex rows -> ((9, P) [v0 | v1 - v0 | v2 - v0] rows,
+    (P, 3) unit geometric normals)."""
     e1 = tt[3:6] - tt[0:3]
     e2 = tt[6:9] - tt[0:3]
     gx = e1[1] * e2[2] - e1[2] * e2[1]
     gy = e1[2] * e2[0] - e1[0] * e2[2]
     gz = e1[0] * e2[1] - e1[1] * e2[0]
     gl = torch.rsqrt(torch.clamp(gx * gx + gy * gy + gz * gz, min=1e-20))
-    dev = tt.device
-    return TraceTables(
-        nodes=torch.as_tensor(nodes4, dtype=torch.float32,
-                              device=dev).contiguous(),
-        tris=torch.cat([tt[0:3], e1, e2], dim=0).T.contiguous(),
-        nrm=tri_nrm_t.to(dev, torch.float32).T.contiguous(),
-        ng=torch.stack([gx * gl, gy * gl, gz * gl], dim=1).contiguous(),
-        mat=tri_mat.to(dev, torch.int32).contiguous())
+    return (torch.cat([tt[0:3], e1, e2], dim=0),
+            torch.stack([gx * gl, gy * gl, gz * gl], dim=1))
+
+
+def refresh_tables(tables: TraceTables, tris_t, nrm_t):
+    """Write the triangles of the sorted (9, P) vertex rows `tris_t` and
+    the sorted (9, P) vertex normals `nrm_t` into `tables` in place (tris,
+    ng by pack_tables' math, nrm).  The tensors keep their storage, and
+    the tree's levels and stack depth stay those of its frozen topology:
+    no host sync (a new TraceTables would walk the nodes on the host)."""
+    tris, ng = _tri_rows(tris_t)
+    tables.tris.copy_(tris.T)
+    tables.ng.copy_(ng)
+    tables.nrm.copy_(nrm_t.T)
 
 
 @dataclasses.dataclass

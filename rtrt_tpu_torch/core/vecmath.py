@@ -34,6 +34,11 @@ def normalize(a, eps: float = 1e-20):
     return a * inv
 
 
+def reflect(d, n):
+    """Reflect direction d about normal n (both (..., 3); d points in)."""
+    return d - 2.0 * dotk(d, n) * n
+
+
 def orthonormal_basis(n):
     """Branchless Frisvad/Duff tangent frame for unit n: returns (t, b)."""
     s = torch.where(n[..., 2] >= 0.0, 1.0, -1.0)

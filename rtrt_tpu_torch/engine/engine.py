@@ -16,9 +16,14 @@ controller moves one bucket down or up after each frame from that frame's
 dt; a switch resets the denoiser history to the new size.
 
 With the default FeatureFlags() a frame is denoised (K5, K4), bloomed,
-lens-flared and tone-mapped (K3).  Settings whose pass is not ported raise
-NotImplementedError naming the setting (ROADMAP.md lists the queue):
-animation != "none", ocean, stars, fourier_textures, sky_model="preetham".
+lens-flared and tone-mapped (K3); FeatureFlags(ocean=True, stars=True)
+add the ocean and the star field to the environment of escaped rays.
+``animation="wave"`` animates the scene with a travelling wave: the SAH
+tables' topology is frozen at init and every frame refits its boxes
+(engine/frame.py::animate_tables, bvh/refit.py).  Settings whose pass is
+not ported raise NotImplementedError naming the setting (ROADMAP.md lists
+the queue): another animation than "none" or "wave", fourier_textures,
+sky_model="preetham".
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 
 from ..bvh.packet import overflow_counter, pack_tables
+from ..bvh.refit import DeviceRefit, plan_refit4
 from ..bvh.sah import build_scene_tables_sah, bvh4_nodes
 from ..core.camera import Camera
 from ..denoise.pipeline import DenoiseHistory, init_history
@@ -43,8 +49,8 @@ from ..render.sky import (bake_sky_maps, finalize_sky_maps, make_sky_params,
 from ..utils.config import (FeatureFlags, GlobalSettings, RenderParams,
                             default_params)
 from ..utils.timer import FpsLog, Timer
-from .frame import (FrameState, FrameStatic, check_flags, make_frame_consts,
-                    render_frame)
+from .frame import (FrameState, FrameStatic, RestPose, check_flags,
+                    make_frame_consts, render_frame)
 from .scene import (HostScene, build_demo_scene, build_mesh_scene,
                     build_terrain_scene, padded_arrays)
 
@@ -88,7 +94,7 @@ class Engine:
         self.params = params or default_params()
         s = self.settings
         check_flags(self.flags)
-        if animation != "none":
+        if animation not in ("none", "wave"):
             _unsupported(f"animation={animation!r}")
         if s.sky_model != "physical":
             _unsupported(f"sky_model={s.sky_model!r}")
@@ -117,8 +123,16 @@ class Engine:
             self.scene.num_batches, pad["indices"], pad["tri_mat"],
             pad["valid"], self.scene.vertices, self.scene.normals,
             leaf_max=SAH_LEAF)
-        tables = pack_tables(bvh, nrm_t, mat_s, bvh4_nodes(bvh)).to(
-            self.device)
+        raw4 = bvh4_nodes(bvh)
+        tables = pack_tables(bvh, nrm_t, mat_s, raw4).to(self.device)
+        # animated scenes keep the rest pose (the sorted (9, P) vertex rows
+        # and normals) and the frozen tree's refit schedule on the device
+        self.rest = None
+        if animation == "wave":
+            self.rest = RestPose(
+                tris_t=bvh.tris_t.to(self.device).contiguous(),
+                nrm_t=nrm_t.to(self.device).contiguous(),
+                refit=DeviceRefit(plan_refit4(raw4), self.device))
         self.init_seconds["sah"] = time.perf_counter() - t0
         lights = self.scene.lights
         self.scene_data = SceneData(
@@ -234,7 +248,7 @@ class Engine:
         image, self.state, self.last_gbuffer = render_frame(
             self.static, self.scene_data, self.state, self.camera,
             self.prev_camera, self.params, max(dt, 1e-4), self.consts,
-            self.overflow, self.stack_depth)
+            self.overflow, self.stack_depth, self.rest)
         self.prev_camera = self.camera
         self._dynamic_resolution_step(dt)
         self.fps_log.maybe_log(self.timer.fps, self.render_w, self.render_h)

@@ -15,6 +15,15 @@ h/2 rows y = 2i + (frame & 1) — K2 takes pixel ids as data, so the field's
 ids and blue-noise rows are all it needs — and fills the other rows from
 their traced neighbours before the denoiser.
 
+Animation (render_frame's `rest`, a RestPose: the refit branch of the JAX
+frame with animation="wave"): before raygen the frame displaces the rest-pose sorted triangle
+rows with a travelling wave, transforms their normals, refits the frozen
+BVH4 (bvh/refit.py) and writes the tables in place (`animate_tables`).
+With FeatureFlags ocean / stars, escaped rays take their radiance from
+render/environment.py instead of the sky fit alone.  Both read the
+animation clock, FrameState.time, which accumulates in float32 as the JAX
+frame's does (`advance_clock`).
+
 The port runs eagerly: each frame is a sequence of torch ops and kernel
 launches (K2, K5, four K4, K3 with the default flags), with every tensor
 on the scene's device and no host sync.
@@ -24,12 +33,16 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from ..bvh.packet import refresh_tables
+from ..bvh.refit import DeviceRefit
 from ..core.camera import Camera, camera_basis, world_to_screen
 from ..denoise.pipeline import DenoiseHistory, denoise
 from ..ops.resize import upscale_catmull_rom
 from ..post.pipeline import dither_mask, postprocess
+from ..render.environment import env_radiance_scene
 from ..render.integrator import GBuffer, SceneData
 from ..render.megakernel import path_trace_mega
 from ..render.raygen import generate_rays_padded
@@ -44,7 +57,8 @@ class FrameState:
     exposure: torch.Tensor  # (4,) auto-exposure state (on the device)
     history: DenoiseHistory = None  # denoiser history (flags.denoise)
     frame_idx: int = 0      # uint32 frame counter
-    time: float = 0.0       # accumulated time (s)
+    time: float = 0.0       # accumulated time (s): a float32 value
+    #   (advance_clock), held on the host so that reading it never syncs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,13 +85,87 @@ class FrameConsts:
     fields: tuple = None
 
 
+@dataclasses.dataclass
+class RestPose:
+    """The animated scene's rest pose and refit schedule (on the device):
+    the sorted (9, P) vertex rows and vertex normals of the init-time SAH
+    tables, and the frozen BVH4's DeviceRefit."""
+
+    tris_t: torch.Tensor
+    nrm_t: torch.Tensor
+    refit: DeviceRefit
+
+
+# the travelling wave of animation="wave": y += WAVE_AMP * sin(WAVE_FREQ x +
+# WAVE_SPEED t) * cos(0.8 WAVE_FREQ z + 1.1 t)
+WAVE_AMP = 0.35
+WAVE_FREQ = 0.5
+WAVE_SPEED = 1.5
+
+
+def advance_clock(time: float, dt: float) -> float:
+    """The animation clock after a frame of dt seconds, accumulated in
+    float32 as the JAX frame's jnp.float32 clock is."""
+    return float(np.float32(time) + np.float32(dt))
+
+
+def _f32(x):
+    """A Python float rounded to float32: scalars that the JAX frame forms
+    in float32 (the clock times a constant) enter torch ops exactly."""
+    return float(np.float32(x))
+
+
+def displace_wave_rows(tris_t, time: float):
+    """Travelling wave along y applied to the sorted (9, P) triangle rows
+    (rows 0-2/3-5/6-8 = v0/v1/v2): a function of (x, z) only, so no gather.
+    The three vertices go through each op as one (3, P) stack."""
+    v = tris_t.reshape(3, 3, -1)
+    x, z = v[:, 0], v[:, 2]
+    t = np.float32(time)
+    dy = WAVE_AMP * torch.sin(x * WAVE_FREQ
+                              + _f32(t * np.float32(WAVE_SPEED))) \
+        * torch.cos(z * (WAVE_FREQ * 0.8) + _f32(t * np.float32(1.1)))
+    out = v.clone()
+    out[:, 1] += dy
+    return out.reshape(tris_t.shape)
+
+
+def wave_normal_rows(nrm_t, tris_t, time: float):
+    """Exact shading-normal transform under p' = p + d(x, z) y: n'_x = n_x -
+    dd/dx n_y, n'_z = n_z - dd/dz n_y, normalised.  nrm_t / tris_t: (9, P)
+    sorted rows at the rest pose."""
+    v = tris_t.reshape(3, 3, -1)
+    n = nrm_t.reshape(3, 3, -1)
+    t = np.float32(time)
+    pa = v[:, 0] * WAVE_FREQ + _f32(t * np.float32(WAVE_SPEED))
+    pb = v[:, 2] * (WAVE_FREQ * 0.8) + _f32(t * np.float32(1.1))
+    ddx = WAVE_AMP * WAVE_FREQ * torch.cos(pa) * torch.cos(pb)
+    ddz = -WAVE_AMP * WAVE_FREQ * 0.8 * torch.sin(pa) * torch.sin(pb)
+    ny = n[:, 1]
+    nx = n[:, 0] - ddx * ny
+    nz = n[:, 2] - ddz * ny
+    il = torch.rsqrt(torch.clamp(nx * nx + ny * ny + nz * nz, min=1e-20))
+    return torch.stack([nx * il, ny * il, nz * il], dim=1).reshape(
+        nrm_t.shape)
+
+
+def animate_tables(tables, rest: RestPose, time: float):
+    """The refit stage of an animated frame: displace the rest pose at
+    `time`, transform its normals, refit the BVH4 records and write the
+    frame's nodes, triangles, normals and geometric normals into `tables`
+    in place."""
+    tt = displace_wave_rows(rest.tris_t, time)
+    rest.refit.refit(tables.nodes, tt)
+    refresh_tables(tables, tt, wave_normal_rows(rest.nrm_t, rest.tris_t,
+                                                time))
+
+
 def check_flags(flags: FeatureFlags):
     """Raise NotImplementedError for a flag whose pass is not ported."""
-    for name in ("ocean", "stars", "fourier_textures"):
-        if getattr(flags, name):
-            raise NotImplementedError(
-                f"FeatureFlags.{name}=True is not ported to rtrt_tpu_torch "
-                f"yet (see ROADMAP.md); set {name}=False")
+    if flags.fourier_textures:
+        raise NotImplementedError(
+            "FeatureFlags.fourier_textures=True is not ported to "
+            "rtrt_tpu_torch yet (see ROADMAP.md); set fourier_textures=False")
 
 
 def interlaced(static: FrameStatic) -> bool:
@@ -133,15 +221,19 @@ def fill_nearest(c):
 def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
                  camera: Camera, prev_camera: Camera, params: RenderParams,
                  dt: float, consts: FrameConsts = None, overflow=None,
-                 stack_depth=None):
+                 stack_depth=None, rest: RestPose = None):
     """One full frame.  Returns (u8 image (screen_h, screen_w, 3),
     new FrameState, GBuffer).  The G-buffer is the traced one: with
     interlace, the field's (h/2, w) planes.  overflow: optional (1,) int32
     counter of dropped traversal-stack pushes; stack_depth: optional (1,)
-    int32 counter raised to the deepest traversal stack."""
+    int32 counter raised to the deepest traversal stack; rest: the
+    RestPose of a scene animated by the travelling wave, whose frame
+    writes scene.tables in place (None: a static scene)."""
     check_flags(static.flags)
     w, h = static.render_w, static.render_h
     dev = scene.tables.nodes.device
+    if rest is not None:
+        animate_tables(scene.tables, rest, state.time)
     if consts is None:
         consts = make_frame_consts(static, dev)
     frame = state.frame_idx
@@ -164,10 +256,19 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
         lens = rand2(pixel_ids, frame, 256)
     rays = generate_rays_padded(basis, w, h, pixel_ids, jitter, lens)
 
+    # sky + ocean + stars for escaped rays, from the primary rays' origins
+    # (render/environment.py)
+    env_fn = None
+    flags = static.flags
+    if flags.ocean or flags.stars:
+        env_fn = lambda o, d: env_radiance_scene(
+            scene.sky, o, d, state.time, ocean=flags.ocean,
+            stars=flags.stars)
+
     gbuf: GBuffer = path_trace_mega(
         scene, rays, pixel_ids, frame, prev_basis, w / h,
         use_proctex=static.flags.procedural_textures, bn=bn,
-        overflow=overflow, stack_depth=stack_depth)
+        overflow=overflow, stack_depth=stack_depth, env_fn=env_fn)
     full = gbuf
     if interlaced(static):
         full = GBuffer(color=fill_linear(gbuf.color, parity),
@@ -214,5 +315,5 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
 
     new_state = FrameState(exposure=new_exposure, history=new_history,
                            frame_idx=(frame + 1) & 0xFFFFFFFF,
-                           time=state.time + dt)
+                           time=advance_clock(state.time, dt))
     return image, new_state, gbuf

@@ -413,10 +413,14 @@ def megakernel_trace(tables, mat_rows, light_rows, sun_vec, frame_idx, org,
                    esc_beta=s3(14), esc_pdf=p[17])
 
 
-def finish_gbuffer(sky, rays, out: MegaOut, prev_basis, aspect) -> GBuffer:
+def finish_gbuffer(sky, rays, out: MegaOut, prev_basis, aspect,
+                   env_fn=None) -> GBuffer:
     """Deferred environment resolve + MIS weight + albedo demodulation +
-    motion vectors."""
-    env = env_radiance_fit(sky, out.esc_dir)
+    motion vectors.  env_fn: optional (org, dir) -> (..., 3) environment
+    of the escaped rays in place of the sky fit (render/environment.py:
+    sky + ocean + stars), given the primary rays' origins."""
+    env = (env_fn(rays.org, out.esc_dir) if env_fn is not None
+           else env_radiance_fit(sky, out.esc_dir))
     lpdf = sun_pdf_dir(sky, out.esc_dir)
     w_env = _w(out.esc_pdf < 0.0, 1.0,
                power_heuristic(1.0, out.esc_pdf, 1.0, lpdf))
@@ -432,9 +436,10 @@ def finish_gbuffer(sky, rays, out: MegaOut, prev_basis, aspect) -> GBuffer:
 
 def path_trace_mega(scene, rays, pixel_ids, frame_idx, prev_basis, aspect,
                     use_proctex: bool = True, bn=None, overflow=None,
-                    stack_depth=None) -> GBuffer:
+                    stack_depth=None, env_fn=None) -> GBuffer:
     """Path-trace image-shaped rays through the megakernel and finish the
-    G-buffer.  scene: render.integrator.SceneData."""
+    G-buffer.  scene: render.integrator.SceneData; env_fn as in
+    finish_gbuffer."""
     dev = rays.org.device
     mat_rows = pack_materials_rows(scene.materials).to(dev)
     light_rows = pack_light_rows(scene.lights, dev)
@@ -446,4 +451,5 @@ def path_trace_mega(scene, rays, pixel_ids, frame_idx, prev_basis, aspect,
         n_lights=n_lights, use_proctex=use_proctex,
         bn=None if bn is None else bn.contiguous(), overflow=overflow,
         stack_depth=stack_depth)
-    return finish_gbuffer(scene.sky, rays, out, prev_basis, aspect)
+    return finish_gbuffer(scene.sky, rays, out, prev_basis, aspect,
+                          env_fn=env_fn)

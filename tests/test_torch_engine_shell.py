@@ -237,9 +237,27 @@ def test_headless_cli_writes_the_engine_image(shell_frames, tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--ocean", "--stars"])
-def test_headless_unported_flags_reach_the_engine(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_headless_unported_flags_reach_the_engine(flag, monkeypatch):
+    """--ocean / --stars reach the Engine's FeatureFlags (both are ported
+    now; tests/test_torch_environment.py renders them).  The name dates
+    from when the Engine refused both flags and is kept, so the test
+    keeps its identity."""
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def engine(settings, flags, device):
+        seen.update(flags=flags, device=device)
+        raise Stop
+
+    monkeypatch.setattr(TE, "Engine", engine)
+    with pytest.raises(Stop):
         headless.main(["--device", "cpu", "--scene", "demo", flag])
+    name = flag[2:]
+    assert getattr(seen["flags"], name) and seen["device"] == "cpu"
+    other = {"ocean": "stars", "stars": "ocean"}[name]
+    assert not getattr(seen["flags"], other)
 
 
 @pytest.mark.parametrize("which", ["resources", "custom", "none"])

@@ -154,18 +154,17 @@ def test_gbuffer_sane(frames):
 
 
 def test_engine_refuses_unported_settings():
-    """Interlace, dynamic resolution and load_camera_at_init are ported
-    (tests/test_torch_interlace.py, test_torch_engine_shell.py and
-    test_engine_dynamic_resolution_renders below); these are not."""
+    """Interlace, dynamic resolution, load_camera_at_init, animation="wave"
+    and the ocean and star flags are ported (tests/test_torch_interlace.py,
+    test_torch_engine_shell.py, test_engine_dynamic_resolution_renders
+    below, test_torch_frame_wave.py, test_torch_environment.py); these are
+    not."""
     flags = TFlags(denoise=False, bloom=False, lens_flare=False)
     dr = DynamicResolution(enabled=False)
-    for kw in (dict(flags=TFlags(stars=True)),
-               dict(flags=TFlags(fourier_textures=True)),
-               dict(flags=TFlags(denoise=False, bloom=False,
-                                 lens_flare=False, ocean=True)),
+    for kw in (dict(flags=TFlags(fourier_textures=True)),
                dict(settings=GlobalSettings(scene="demo", sky_model="preetham",
                                             dynamic_resolution=dr)),
-               dict(animation="wave")):
+               dict(animation="spin")):
         kw.setdefault("flags", flags)
         kw.setdefault("settings", GlobalSettings(scene="demo",
                                                  dynamic_resolution=dr))
