@@ -107,13 +107,28 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      frames (sync debug "error" on the timed ones): each image (1080,
      1920, 3) uint8, the G-buffer finite, the
      traced colour differs from the same frame without the ocean on > 1%
-     of pixels; ms/frame, device busy and launches per frame.
+     of pixels; ms/frame, device busy and launches per frame;
+ 14. the two-level LBVH (Engine(..., bvh="lbvh")): the terrain's build on
+     the card against the CPU build of the same arrays (integer tables
+     equal; the float tables' largest difference in ulps printed, and 0);
+     K1's binary instantiation against its plain version on the 1080p
+     primaries and the any-hit rays toward a low sun (phase 3's bounds),
+     then under probe_traverse's step caps (its launches); K2's binary
+     instantiation against its plain version (`_check_k2`), its deepest
+     stack within the static bound and 0 dropped pushes, its time beside
+     the BVH4 instantiation's on the same view; Engine(terrain, 1920x1080,
+     bvh="lbvh") static and with animation="wave", 3 warm-up and 10 timed
+     frames of the slow pan under sync debug "error", launch counters
+     reset just before: K2's binary instantiation 13, K3 13, K4 52, K5 13;
+     device busy and launches per frame of both and of the rebuild stage
+     alone (torch.profiler).
   --profile adds 6: torch.profiler over 5 frames each of the main path,
      the north star's Engine at the 720 bucket and the interlaced Engine
      (device busy time, launches and synchronising calls per frame, top
      device ops).
-Prints the card's name and power limit, the per-kernel JSON line (K1-K16
-and K3's pre-mapped instantiation), then as its last line
+Prints the card's name and power limit, the per-kernel JSON line (K1-K16,
+K3's pre-mapped instantiation and K1's and K2's binary instantiations),
+then as its last line
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX nor of the JAX package.  Exits 1 when CUDA is not
 available.
@@ -141,6 +156,10 @@ SLICE_WARMUP, SLICE_TIMED = 2, 5
 # 16 taps x 6 channels multiply-add, nearest and ok).  pow / exp count as
 # one operation each, so each count is a lower bound.
 NODE_OPS, LEAF_OPS, TAIL_OPS_PX = 86, 8 * 59, 160
+# the binary two-level LBVH (traverse2): a node visit is 2 slab tests of 20
+# plus the near / far choice and the prune test (4); a leaf visit is one
+# Moller-Trumbore test of 59
+NODE2_OPS, LEAF2_OPS = 2 * 20 + 4, 59
 # K3's pre-mapped instantiation: the sharpen's sums, minima, maxima and
 # clamp ~29 a channel, dither and quantize ~6 (csrc/post_tail.cu)
 TAIL_MAPPED_OPS_PX = 110
@@ -197,6 +216,22 @@ def _t_rounding_bound(tables, tri, o, d):
     s_t = (e2.abs() * cross_abs(o.abs() + v0.abs(), e1)).sum(1)
     s_d = (e1.abs() * cross_abs(d, e2)).sum(1)
     return 16 * 2.0 ** -24 * (s_t + t * s_d) / det
+
+
+def _shadow_rays(org, dirs, hit, sun_dir):
+    """Any-hit rays from the hits of the primaries (org, dirs) toward a low
+    sun (6 degrees above the horizon, the sun's azimuth), so that the dunes
+    occlude a share of them: (origins, directions) of the hit rays."""
+    import torch
+    h = hit.tri >= 0
+    sh_org = (org + dirs * torch.where(h, hit.t, 0.0)[:, None] + hit.ng
+              * 1e-3 * torch.sign((hit.ng * -dirs).sum(-1, True)))[h]
+    sd = sun_dir
+    low = torch.stack([sd[0], torch.linalg.vector_norm(sd[0::2]) * 0.105,
+                       sd[2]])
+    sh_dir = (low / torch.linalg.vector_norm(low)).expand_as(
+        sh_org).contiguous()
+    return sh_org.contiguous(), sh_dir
 
 
 def _check_k1(name, tables, o, d, a, b):
@@ -356,7 +391,7 @@ def main() -> int:
     s = eng.init_seconds
     sc, consts = eng.scene_data, eng.consts
     tables = sc.tables
-    print(f"init: scene {s['scene']:.2f} s, SAH+BVH4 {s['sah']:.2f} s, "
+    print(f"init: scene {s['scene']:.2f} s, SAH+BVH4 {s['sah4']:.2f} s, "
           f"sky {s['sky']:.2f} s; {eng.scene.num_tris} tris, "
           f"{tables.nodes.shape[0]} BVH4 nodes, {tables.levels} levels: "
           f"traversal stack {tables.stack} entries {card}")
@@ -368,22 +403,14 @@ def main() -> int:
                                 rand2_bn(consts.bn, 0, 256))
 
     # ---- 3a. K1 traversal: the frame's primaries + a shadow-ray batch ----
+    print(f"-- phase 3a at {time.perf_counter() - t_start:.1f} s")
     org = rays.org.reshape(-1, 3).contiguous()
     dirs = rays.dir.reshape(-1, 3).contiguous()
     ovf = P.overflow_counter(dev)
     g = P.packet_intersect(tables, org, dirs, overflow=ovf)
     k1_visits = [0, 0]
     r = P.packet_intersect_plain(tables, org, dirs, visits=k1_visits)
-    h = r.tri >= 0
-    sh_org = (org + dirs * torch.where(h, r.t, 0.0)[:, None]
-              + r.ng * 1e-3 * torch.sign((r.ng * -dirs).sum(-1, True)))[h]
-    # any-hit rays toward a low sun (6 degrees above the horizon, the
-    # sun's azimuth), so that the dunes occlude a share of them
-    sd = sc.sky.sun_dir
-    low = torch.stack([sd[0], torch.linalg.vector_norm(sd[0::2]) * 0.105,
-                       sd[2]])
-    sh_dir = (low / torch.linalg.vector_norm(low)).expand_as(
-        sh_org).contiguous()
+    sh_org, sh_dir = _shadow_rays(org, dirs, r, sc.sky.sun_dir)
     gs = P.packet_intersect(tables, sh_org, sh_dir, any_hit=True,
                             overflow=ovf)
     rs = P.packet_intersect_plain(tables, sh_org, sh_dir, any_hit=True)
@@ -563,9 +590,11 @@ def main() -> int:
           f"{k5_bound[0] / k5_graph:.0%} of it {card}")
 
     # ---- 3f. K1 and K2 on a tree that needs the deep stack ----
+    print(f"-- phase 3f at {time.perf_counter() - t_start:.1f} s")
     _deep_tree(dev, card)
 
     # ---- 4. the first slice's path (denoiser, bloom, lens flare off) ----
+    print(f"-- phase 4 at {time.perf_counter() - t_start:.1f} s")
     cuda.reset_launch_counts()
     eng.overflow.zero_()
     for _ in range(SLICE_WARMUP):
@@ -587,6 +616,7 @@ def main() -> int:
     del eng
 
     # ---- 5. the main path: default FeatureFlags(), a slow yaw pan ----
+    print(f"-- phase 5 at {time.perf_counter() - t_start:.1f} s")
     main = Engine(settings, flags=FeatureFlags(), device="cuda")
     cam0 = main.camera
 
@@ -652,18 +682,23 @@ def main() -> int:
     assert v_den < v_raw, "the denoised frame is not smoother than the raw"
 
     # ---- 7. the traversal-step probes and K1's step cap ----
+    print(f"-- phase 7 at {time.perf_counter() - t_start:.1f} s")
     probes, probe_counts, k1_cap_err = _probes(card, tables, org, dirs)
 
     # ---- 8. the hardware probes ----
+    print(f"-- phase 8 at {time.perf_counter() - t_start:.1f} s")
     hw_probes = _hw_probes(card)
 
     # ---- 9. the north star's call: the default settings ----
+    print(f"-- phase 9 at {time.perf_counter() - t_start:.1f} s")
     ns = _north_star(card)
 
     # ---- 10. interlace ----
+    print(f"-- phase 10 at {time.perf_counter() - t_start:.1f} s")
     il, il_pan = _interlace(card, settings, main.scene, cam0, frame_ms)
 
     # ---- 11. the headless entry point ----
+    print(f"-- phase 11 at {time.perf_counter() - t_start:.1f} s")
     _headless(card)
 
     def main_step(k):
@@ -671,10 +706,16 @@ def main() -> int:
         main.render_frame_device(dt=1 / 60)
 
     # ---- 12. the animated terrain: per-frame BVH4 refit ----
+    print(f"-- phase 12 at {time.perf_counter() - t_start:.1f} s")
     _animated(card, settings, main.scene, cam0, frame_ms, main_step)
 
     # ---- 13. ocean + stars at night ----
+    print(f"-- phase 13 at {time.perf_counter() - t_start:.1f} s")
     _ocean_stars(card, settings, main.scene)
+
+    # ---- 14. the two-level LBVH, rebuilt on the card ----
+    print(f"-- phase 14 at {time.perf_counter() - t_start:.1f} s")
+    lbvh = _lbvh(card, settings, main.scene, cam0, tables, k1_visits)
 
     if "--profile" in sys.argv[1:]:
 
@@ -744,7 +785,7 @@ def main() -> int:
              launches=counts["reproject"], max_abs_err=k5_err,
              ms=k5_ms, graph_ms=k5_graph, plain_ms=k5_plain,
              bound_ms=k5_bound[0], bound_by=k5_bound[1], library_ms=None),
-    ] + probes + hw_probes
+    ] + lbvh + probes + hw_probes
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -776,7 +817,7 @@ def _north_star(card):
         W, H)
     s = eng.init_seconds
     print(f"north star: Engine(GlobalSettings(scene='terrain')) init: scene "
-          f"{s['scene']:.2f} s, SAH+BVH4 {s['sah']:.2f} s, sky "
+          f"{s['scene']:.2f} s, SAH+BVH4 {s['sah4']:.2f} s, sky "
           f"{s['sky']:.2f} s; dynamic resolution on, bucket {eng.render_h}")
     buckets = []
 
@@ -1009,7 +1050,7 @@ def _animated(card, settings, scene, cam0, static_ms, static_step):
             for f in ("nodes", "tris", "nrm", "ng")}
     plan = rest.refit.plan
     print(f"animated terrain: Engine(terrain, {W}x{H}, animation='wave') "
-          f"init SAH+BVH4+refit plan {eng.init_seconds['sah']:.2f} s; "
+          f"init SAH+BVH4+refit plan {eng.init_seconds['sah4']:.2f} s; "
           f"{tables.nodes.shape[0]} BVH4 nodes in {len(plan.levels)} refit "
           f"levels, {plan.n_leaves} leaves; rest pose "
           f"{2 * rest.tris_t.numel() * 4 / 1e6:.2f} MB on the card")
@@ -1143,6 +1184,262 @@ def _animated(card, settings, scene, cam0, static_ms, static_step):
         print(f"animated terrain, {label}: device busy {busy:.3f} ms/frame, "
               f"{launches:.1f} kernel launches/frame (torch.profiler over "
               f"{frames} frames); top {_top(kern, frames)} {card}")
+
+
+def _ulps(a, b):
+    """The largest difference of two float32 tensors in units in the last
+    place (0 where they are equal, infinities included)."""
+    import torch
+    order = lambda x: torch.where(x < 0, -(x & 0x7FFFFFFF), x)
+    ia = order(a.contiguous().view(torch.int32).long())
+    ib = order(b.contiguous().view(torch.int32).long())
+    return int((ia - ib).abs().max()) if ia.numel() else 0
+
+
+def _once(fn):
+    """(fn(), its milliseconds by CUDA events): one call, for the plain
+    versions, whose host-driven loops take seconds."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _lbvh(card, settings, scene, cam0, bvh4_tables, bvh4_visits):
+    """Phase 14: the two-level LBVH built on the card (Engine(...,
+    bvh="lbvh")): (a) the device build against the CPU build of the same
+    arrays; (b) K1's binary instantiation against its plain version on the
+    1080p primaries and the any-hit rays toward a low sun, and
+    probe_traverse's step caps on it; (c) K2's binary instantiation against
+    its plain version, its deepest stack against the static bound, and its
+    time beside the BVH4 instantiation's on the same view; (d) the static
+    and the animated LBVH Engine, 3 warm-up and 10 timed frames of the slow
+    pan under sync debug "error", launch counters reset just before; (e)
+    device busy and launches of both frames and of the rebuild stage
+    alone.  Returns the kernels-line entries of K1's and K2's binary
+    instantiations."""
+    import torch
+    from rtrt_tpu_torch.bvh import packet as P
+    from rtrt_tpu_torch.core.camera import camera_basis
+    from rtrt_tpu_torch.engine import frame as F
+    from rtrt_tpu_torch.engine.engine import Engine
+    from rtrt_tpu_torch.engine.scene import padded_arrays
+    from rtrt_tpu_torch.render import megakernel as M
+    from rtrt_tpu_torch.render.kshade import pack_materials_rows
+    from rtrt_tpu_torch.render.raygen import generate_rays_padded
+    from rtrt_tpu_torch.render.sampling import rand2_bn
+    from rtrt_tpu_torch.tools import probe_traverse as PT
+    from rtrt_tpu_torch.utils import cuda
+    from rtrt_tpu_torch.utils.config import FeatureFlags
+    from rtrt_tpu_torch.utils.timing import bound_ms, time_ms
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda:0")
+
+    # (a) the build on the card and on the CPU, from the same arrays
+    pad = padded_arrays(scene)
+    src = dict(indices=torch.from_numpy(pad["indices"]).long(),
+               tri_mat=torch.from_numpy(pad["tri_mat"]),
+               valid=torch.from_numpy(pad["valid"]),
+               verts=torch.from_numpy(scene.vertices),
+               nrm=torch.from_numpy(scene.normals))
+    builds = {}
+    for where in ("cuda", "cpu"):
+        a = {k: v.to(where) for k, v in src.items()}
+        builds[where] = F.build_scene_tables(
+            scene.num_batches, a["indices"], a["tri_mat"], a["valid"],
+            a["verts"], a["nrm"])
+    torch.cuda.synchronize()
+    (g, gn, gm), (c, cn, cm) = builds["cuda"], builds["cpu"]
+    ints = {f: torch.equal(getattr(g, f).cpu(), getattr(c, f))
+            for f in ("children_t", "sorted_tri_index")}
+    ints["sorted_mat"] = torch.equal(gm.cpu(), cm)
+    ulps = {f: _ulps(getattr(g, f).cpu(), getattr(c, f))
+            for f in ("boxes_t", "tris_t", "root_lo", "root_hi")}
+    ulps["nrm_t"] = _ulps(gn.cpu(), cn)
+    print(f"LBVH build, {scene.num_batches} batches, "
+          f"{g.boxes_t.shape[1]} nodes: device vs CPU build of the same "
+          f"arrays, integer tables equal {ints}; float tables' largest "
+          f"difference in ulps {ulps}")
+    assert all(ints.values()), f"LBVH device build: integer tables {ints}"
+    assert not any(ulps.values()), f"LBVH device build: floats {ulps}"
+
+    # (b) K1's binary instantiation on the static LBVH Engine's tables
+    eng = Engine(settings, flags=FeatureFlags(), scene=scene, bvh="lbvh",
+                 device="cuda")
+    sc, consts = eng.scene_data, eng.consts
+    tables = sc.tables
+    print(f"LBVH Engine init {eng.init_seconds['lbvh']:.2f} s (the build "
+          f"on the card, the first call included); {tables.nodes.shape[0]} "
+          f"64-byte records, {tables.tlas_internal} TLAS rows; static "
+          f"stack bound {tables.levels} entries: stack {tables.stack}")
+    assert (tables.arity, tables.stack) == (2, 256)
+    assert cuda.traverse_stacks(2) == (256,)
+    rays = generate_rays_padded(camera_basis(cam0), W, H, consts.pixel_ids,
+                                rand2_bn(consts.bn, 0, 0),
+                                rand2_bn(consts.bn, 0, 256))
+    org = rays.org.reshape(-1, 3).contiguous()
+    dirs = rays.dir.reshape(-1, 3).contiguous()
+    n = org.shape[0]
+    ovf = P.overflow_counter(dev)
+    gk = P.packet_intersect(tables, org, dirs, overflow=ovf)
+    visits = [0, 0]
+    rk, k1_plain = _once(lambda: P.packet_intersect_plain(
+        tables, org, dirs, visits=visits))
+    sh_org, sh_dir = _shadow_rays(org, dirs, rk, sc.sky.sun_dir)
+    gs = P.packet_intersect(tables, sh_org, sh_dir, any_hit=True,
+                            overflow=ovf)
+    rs = P.packet_intersect_plain(tables, sh_org, sh_dir, any_hit=True)
+    torch.cuda.synchronize()
+    k1_err = max(_check_k1(name, tables, o, d, a, b)
+                 for name, o, d, a, b in (
+                     ("LBVH primary", org, dirs, gk, rk),
+                     ("LBVH shadow", sh_org, sh_dir, gs, rs)))
+    assert int(ovf) == 0, f"K1 binary: dropped pushes {int(ovf)}"
+    k1_ms = time_ms(lambda: P.packet_intersect(tables, org, dirs), 10)
+    k1_bound = bound_ms(n * (28 + 44) + _table_bytes(tables),
+                        visits[0] * NODE2_OPS + visits[1] * LEAF2_OPS)
+    print(f"K1 binary time, {W}x{H} primary rays: kernel {k1_ms:.3f} ms, "
+          f"plain {k1_plain:.1f} ms; {visits[0] / n:.2f} node and "
+          f"{visits[1] / n:.2f} leaf visits per primary (BVH4: "
+          f"{bvh4_visits[0] / n:.2f} and {bvh4_visits[1] / n:.2f}); bound "
+          f"{k1_bound[0]:.4f} ms ({k1_bound[1]}, 64-byte records) {card}")
+    # the tool's step caps on the binary tables (K1's launcher entry point)
+    cuda.reset_launch_counts()
+    caps = PT.measure(tables, org, dirs, CAPS, 3)
+    k1_launches = cuda.launch_counts["packet_intersect_binary"]
+    print("K1 binary under step caps (probe_traverse.measure): "
+          + ", ".join(f"cap {c}: {sec * 1e3:.3f} ms, {st} visits"
+                      for c, sec, st in caps) + f"; {k1_launches} launches "
+          f"{card}")
+    assert k1_launches > 0 and cuda.launch_counts["packet_intersect"] == 0
+
+    # (c) K2's binary instantiation, and the BVH4 one on the same view
+    k2_args = lambda tb: (tb, pack_materials_rows(sc.materials).to(dev),
+                          M.pack_light_rows(sc.lights, dev),
+                          M.pack_sun_params(sc.sky), 0, rays.org, rays.dir,
+                          rays.cone_width, consts.pixel_ids)
+    args = k2_args(tables)
+    ovf.zero_()
+    depth, pdepth = P.overflow_counter(dev), P.overflow_counter(dev)
+    a = M.megakernel_trace(*args, n_lights=0, bn=consts.bn, overflow=ovf,
+                           stack_depth=depth)
+    k2_visits, k2_hits = [0, 0], [0, 0, 0]
+    b, k2_plain = _once(lambda: M.megakernel_trace_plain(
+        *args, n_lights=0, bn=consts.bn, visits=k2_visits, hits=k2_hits,
+        stack_depth=pdepth))
+    _, _, k2_err = _check_k2(f"binary {W}x{H}", sc.sky, rays, a, b,
+                             camera_basis(cam0))
+    print(f"K2 binary deepest traversal stack {int(depth)} entries (plain "
+          f"version {int(pdepth)}; static bound {tables.levels}, stack "
+          f"{tables.stack}); dropped pushes {int(ovf)}")
+    assert int(ovf) == 0, f"K2 binary: dropped pushes {int(ovf)}"
+    assert 0 < int(depth) <= tables.levels, f"K2 binary deepest {int(depth)}"
+    b4 = k2_args(bvh4_tables)
+    run4 = lambda: M.megakernel_trace(*b4, n_lights=0, bn=consts.bn)
+    run2 = lambda: M.megakernel_trace(*args, n_lights=0, bn=consts.bn)
+    t4a, t2a, t2b, t4b = (time_ms(f, 5) for f in (run4, run2, run2, run4))
+    k2_ms, k2_bvh4 = (t2a + t2b) / 2, (t4a + t4b) / 2
+    px = W * H
+    k2_ops = (k2_visits[0] * NODE2_OPS + k2_visits[1] * LEAF2_OPS
+              + k2_hits[0] * SURF_OPS + k2_hits[1] * SOIL_OPS
+              + k2_hits[2] * BSDF_OPS)
+    k2_bound = bound_ms(px * (40 + 72) + _table_bytes(tables), k2_ops)
+    print(f"K2 time, {W}x{H}, the same view (BVH4, binary, binary, BVH4): "
+          f"binary {t2a:.3f} / {t2b:.3f} ms, BVH4 {t4a:.3f} / {t4b:.3f} ms; "
+          f"binary plain {k2_plain:.1f} ms; per pixel over the segments "
+          f"{k2_visits[0] / px:.2f} node and {k2_visits[1] / px:.2f} leaf "
+          f"visits; bound {k2_bound[0]:.4f} ms ({k2_bound[1]}, 64-byte "
+          f"records) {card}")
+
+    # (d) the static and the animated LBVH Engine
+    anim = Engine(settings, flags=FeatureFlags(), scene=scene,
+                  animation="wave", bvh="lbvh", device="cuda")
+    assert isinstance(anim.rest, F.MeshPose)
+    runs, launches = {}, 0
+    for label, e in (("static", eng), ("animated", anim)):
+        def pan(k, e=e):
+            e.camera = dataclasses.replace(cam0, yaw=cam0.yaw + 0.002 * k)
+
+        cuda.reset_launch_counts()
+        e.overflow.zero_()
+        e.stack_depth.zero_()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for k in range(WARMUP):
+                pan(k)
+                e.render_frame_device(dt=1 / 60)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for k in range(WARMUP, WARMUP + TIMED):
+                pan(k)
+                t_last = e.state.time
+                img = e.render_frame_device(dt=1 / 60)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ms = (time.perf_counter() - t0) / TIMED * 1e3
+        counts = dict(cuda.launch_counts)
+        nf = WARMUP + TIMED
+        print(f"LBVH {label} frame: {ms:.2f} ms/frame over {TIMED} frames "
+              f"(host clock around synchronize, sync debug 'error' on all "
+              f"{nf} frames); deepest stack {int(e.stack_depth)} entries, "
+              f"dropped pushes {int(e.overflow)} {card}")
+        print(f"LBVH {label} launch counts over {nf} frames: {counts}")
+        want = dict(megakernel_trace_binary=nf, post_tail=nf,
+                    denoise_wide=4 * nf, reproject=nf, megakernel_trace=0,
+                    packet_intersect=0, packet_intersect_binary=0)
+        for k, v in want.items():
+            assert counts[k] == v, f"LBVH {label}: {k} launched {counts[k]}"
+        assert int(e.overflow) == 0, f"LBVH {label}: overflow"
+        assert int(e.stack_depth) <= e.scene_data.tables.levels
+        assert tuple(img.shape) == (H, W, 3) and img.dtype == torch.uint8
+        gb = e.last_gbuffer
+        assert all(torch.isfinite(getattr(gb, f)).all()
+                   for f in ("color", "albedo", "normal")), label
+        runs[label] = (e, pan, t_last)
+        launches += counts["megakernel_trace_binary"]
+
+    # (e) device busy and launches: both frames and the rebuild stage
+    frames = 5
+    res = {}
+    for label, (e, pan, _) in runs.items():
+        def step(k, e=e, pan=pan):
+            pan(100 + k)
+            e.render_frame_device(dt=1 / 60)
+
+        res[f"{label} LBVH frame"] = _busy(step, frames)
+    e, _, t_last = runs["animated"]
+    res["rebuild stage"] = _busy(lambda k: F.rebuild_tables(
+        e.scene_data.tables, e.rest, t_last + 0.01 * k), frames)
+    for label, (busy, nl, _, kern) in res.items():
+        print(f"LBVH, {label}: device busy {busy:.3f} ms/frame, {nl:.1f} "
+              f"kernel launches/frame (torch.profiler over {frames} "
+              f"frames); top {_top(kern, frames)} {card}")
+    print(f"phase 14 took {time.perf_counter() - t_phase:.1f} s {card}")
+
+    return [
+        dict(name="K1 traverse, binary two-level LBVH instantiation "
+             "(traverse2; in the LBVH frame its traversal runs inside K2's "
+             "binary instantiation: launches are probe_traverse.measure's "
+             "under the step caps, phase 14)", route="cuda",
+             source="rtrt_tpu_torch/csrc/traverse.cu",
+             replaces="rtrt_tpu/bvh/packet.py:1104", launches=k1_launches,
+             max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
+             bound_ms=k1_bound[0], bound_by=k1_bound[1], library_ms=None),
+        dict(name="K2 megakernel, binary two-level LBVH instantiation "
+             "(launches: the static and the animated LBVH Engine's 13 "
+             "frames each, phase 14)", route="cuda",
+             source="rtrt_tpu_torch/csrc/megakernel.cu",
+             replaces="rtrt_tpu/render/megakernel.py:707",
+             launches=launches, max_abs_err=float(k2_err), ms=k2_ms,
+             bvh4_ms_same_view=k2_bvh4, plain_ms=k2_plain,
+             bound_ms=k2_bound[0], bound_by=k2_bound[1], library_ms=None),
+    ]
 
 
 def _ocean_stars(card, settings, scene):

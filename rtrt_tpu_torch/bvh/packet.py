@@ -1,5 +1,7 @@
-"""Ray-scene traversal over the 4-wide SAH tree: kernel K1 and its plain twin
-(port of rtrt_tpu/bvh/packet.py::packet_intersect / traverse_tile).
+"""Ray-scene traversal: kernel K1 and its plain twin (port of
+rtrt_tpu/bvh/packet.py::packet_intersect / traverse_tile), over either
+tree the JAX kernel takes: the 4-wide SAH tree of a static scene
+(arity 4) or the two-level LBVH that bvh/build.py rebuilds (arity 2).
 
 The TPU kernel shares ONE scalar stack across a 32x128 ray tile and steps
 the tile through the union of its rays' node visits.  On Hopper the natural
@@ -30,6 +32,15 @@ depth: the kernels have one instantiation per entry of STACK_DEPTHS
 (csrc/traverse.cuh), and a tree deeper than the deepest is refused when
 its tables are built, before anything is traced.
 
+The binary two-level tables (`pack_tables_binary`) hold one 64-byte record
+a row: both child boxes and both child entries, the JAX kernel's 16 lanes
+and the reference's BVHNode.  A BLAS node's row is tlas_internal +
+batch * 1023 + idx, a TLAS node's its 22-bit field, and a leaf is one
+triangle.  A node visit slab-tests both children, continues with the
+nearer (the left one on a tie) and pushes the other.  Their tree is rebuilt
+every frame of an animated scene, so its depth cannot be walked on the host
+(a sync): the stack comes from the static bound of `binary_stack_bound`.
+
 The hit id is the sorted slot; shading attributes come from the sorted
 normal / geometric-normal / material tables at that slot.
 """
@@ -43,7 +54,8 @@ import math
 import torch
 
 from ..utils import cuda
-from .types import _LEAF_BIT, entry_slot
+from .types import _BLAS_BIT, _LEAF_BIT, BATCH_SIZE, BLAS_NODES, \
+    entry_batch, entry_idx, entry_slot
 
 # the traversal stack depths (entries) of the kernels' instantiations
 # (csrc/traverse.cuh STACK_SMALL, STACK_DEEP).  256 holds every tree that
@@ -51,7 +63,7 @@ from .types import _LEAF_BIT, entry_slot
 # splits below leave at most log2(2^21 / 8) = 18 more internal levels, and
 # a BVH4 level consumes at least one binary level, so L <= 82, 3 L <= 246.
 STACK_DEPTHS = (32, 256)
-LEAF_WIDTH = 8       # triangle slots per leaf row
+LEAF_WIDTH = 8       # triangle slots per leaf row of the BVH4
 RAY_TMIN = 1e-4
 FAR_SCALE = 1.0 + 3.6e-7
 _TINY = 1e-20
@@ -61,13 +73,18 @@ _TINY = 1e-20
 class TraceTables:
     """Device-side scene tables of the traversal (GPU layout).
 
-    nodes (q, 32) f32: 128-byte BVH4 records from bvh/sah.py::bvh4_nodes —
-      4 child AABBs (lo xyz, hi xyz) then 4 child entries as exact floats
-      (leaf bit 23, -1 = empty slot), 4 pad floats.
+    nodes: the BVH4's (q, 32) f32 128-byte records from
+      bvh/sah.py::bvh4_nodes — 4 child AABBs (lo xyz, hi xyz) then 4 child
+      entries as exact floats (leaf bit 23, -1 = empty slot), 4 pad floats;
+      or the two-level LBVH's (M, 16) f32 64-byte records — 2 child AABBs,
+      then the 2 child entries as exact floats, 2 pad floats.
     tris (P, 9) f32: sorted triangles as [v0 | v1 - v0 | v2 - v0].
     nrm (P, 9) f32: sorted vertex normals [n0 | n1 | n2].
     ng (P, 3) f32: unit geometric normal per slot.
     mat (P,) i32: material id per slot.
+    tlas_internal (an init argument, kept as an attribute; the fields are
+      the five tensors): the TLAS rows of two-level tables (B - 1); None
+      for a BVH4.
     """
 
     nodes: torch.Tensor
@@ -75,17 +92,35 @@ class TraceTables:
     nrm: torch.Tensor
     ng: torch.Tensor
     mat: torch.Tensor
+    tlas_internal: dataclasses.InitVar[int | None] = None
 
-    def __post_init__(self):
-        # not fields: derived from nodes (levels: the BVH4's internal
-        # levels; stack: the traversal stack depth of every traversal of
-        # these tables)
-        self.levels = tree_levels(self.nodes)
-        self.stack = stack_depth(self.levels)
+    def __post_init__(self, tlas_internal):
+        # not fields: the tree's layout and what derives from it (levels:
+        # its internal levels, counted for a BVH4, the static bound for
+        # two-level tables; stack: the traversal stack depth of every
+        # traversal of these tables)
+        self.tlas_internal = tlas_internal
+        if tlas_internal is None:
+            self.levels = tree_levels(self.nodes)
+            self.stack = stack_depth(self.levels)
+        else:
+            self.levels = binary_stack_bound(self.tris.shape[0]
+                                             // BATCH_SIZE)
+            self.stack = binary_stack_depth(self.levels)
+
+    @property
+    def arity(self) -> int:
+        return 2 if self.tlas_internal is not None else 4
+
+    @property
+    def leaf_width(self) -> int:
+        """Triangle slots a leaf entry tests."""
+        return 1 if self.tlas_internal is not None else LEAF_WIDTH
 
     def to(self, device) -> "TraceTables":
         return TraceTables(*(getattr(self, f.name).to(device).contiguous()
-                             for f in dataclasses.fields(self)))
+                             for f in dataclasses.fields(self)),
+                           tlas_internal=self.tlas_internal)
 
 
 def tree_levels(nodes) -> int:
@@ -117,6 +152,36 @@ def stack_depth(levels: int) -> int:
         f"{max(STACK_DEPTHS)} entries ({max(STACK_DEPTHS) // 3} levels)")
 
 
+def binary_stack_bound(num_batches: int) -> int:
+    """The most entries the near-first traversal of a two-level LBVH over
+    `num_batches` 1024-triangle batches holds, from shapes alone.
+
+    A Karras tree's internal node has a larger split delta (the common
+    prefix of its range, bvh/build.py::lbvh_topology) than its parent, so a
+    path from the root meets at most as many internal nodes as there are
+    distinct deltas: 32 values of clz(code_a ^ code_b) for 32-bit keys, and
+    for equal codes the index tiebreak 32 + clz((i ^ (i + 1)) | 1), whose
+    i ^ (i + 1) over n leaves takes bit_length(n - 1) values (10 for a
+    BLAS of 1024 leaves, up to 10 for a TLAS of B <= 1024 batches).  A
+    node visit pushes at most one entry (its far child), and the entries
+    on the stack belong to distinct nodes of the current path, so the
+    stack holds at most the internal depth of the TLAS plus that of a
+    BLAS: at most 84 entries."""
+    return (32 + (BATCH_SIZE - 1).bit_length()) \
+        + (32 + (max(num_batches, 2) - 1).bit_length())
+
+
+def binary_stack_depth(bound: int) -> int:
+    """The smallest traversal stack of STACK_DEPTHS that holds `bound`
+    entries of a two-level LBVH; ValueError when the deepest does not."""
+    for depth in STACK_DEPTHS:
+        if depth >= bound:
+            return depth
+    raise ValueError(
+        f"the two-level LBVH may need a {bound}-entry traversal stack; the "
+        f"deepest the kernels hold is {max(STACK_DEPTHS)} entries")
+
+
 def pack_tables(bvh, tri_nrm_t, tri_mat, nodes4) -> TraceTables:
     """SceneBvh + sorted normals/materials + (q, 32) BVH4 records ->
     TraceTables (on the device of bvh.tris_t)."""
@@ -130,6 +195,39 @@ def pack_tables(bvh, tri_nrm_t, tri_mat, nodes4) -> TraceTables:
         nrm=tri_nrm_t.to(dev, torch.float32).T.contiguous(),
         ng=ng.contiguous(),
         mat=tri_mat.to(dev, torch.int32).contiguous())
+
+
+def binary_nodes(bvh):
+    """(M, 16) f32 64-byte records of a two-level SceneBvh: the 12 child-box
+    floats, the two child entries as exact floats (bits 0..23 < 2^24), two
+    zeros."""
+    m = bvh.boxes_t.shape[1]
+    dev = bvh.boxes_t.device
+    return torch.cat([bvh.boxes_t.T, bvh.children_t.T.to(torch.float32),
+                      torch.zeros((m, 2), device=dev)], dim=1).contiguous()
+
+
+def pack_tables_binary(bvh, tri_nrm_t, tri_mat) -> TraceTables:
+    """Two-level SceneBvh (bvh/build.py) + sorted normals / materials ->
+    binary TraceTables (on the device of bvh.tris_t)."""
+    tt = bvh.tris_t.to(torch.float32)
+    tris, ng = _tri_rows(tt)
+    return TraceTables(
+        nodes=binary_nodes(bvh), tris=tris.T.contiguous(),
+        nrm=tri_nrm_t.to(tt.device, torch.float32).T.contiguous(),
+        ng=ng.contiguous(),
+        mat=tri_mat.to(tt.device, torch.int32).contiguous(),
+        tlas_internal=bvh.tlas_internal)
+
+
+def write_tables_binary(tables: TraceTables, bvh, tri_nrm_t, tri_mat):
+    """Write a rebuilt two-level SceneBvh of the same scene into binary
+    `tables` in place (records, triangles, normals, geometric normals,
+    materials): the tensors keep their storage and the tables their
+    static stack depth, so a rebuild reads nothing back to the host."""
+    tables.nodes.copy_(binary_nodes(bvh))
+    refresh_tables(tables, bvh.tris_t, tri_nrm_t)
+    tables.mat.copy_(tri_mat)
 
 
 def _tri_rows(tt):
@@ -248,11 +346,10 @@ def traverse_plain(tables: TraceTables, org, dir, t_cap, first_hit,
     inv = torch.stack([_safe_inv(dir[:, k]) for k in range(3)], dim=1)
     inf = torch.full((n,), math.inf, device=dev)
 
-    root = tables.nodes[0]
-    lo4 = root[0:24].reshape(4, 6)[:, 0:3]
-    hi4 = root[0:24].reshape(4, 6)[:, 3:6]
-    rlo = lo4.min(dim=0).values.expand(n, 3)
-    rhi = hi4.max(dim=0).values.expand(n, 3)
+    # the root's child boxes (row 0: the BVH4 root, or the TLAS root)
+    kids = tables.nodes[0, 0:6 * tables.arity].reshape(tables.arity, 6)
+    rlo = kids[:, 0:3].min(dim=0).values.expand(n, 3)
+    rhi = kids[:, 3:6].max(dim=0).values.expand(n, 3)
     neg = inv < 0
     tn_ = (torch.where(neg, rhi, rlo) - org) * inv
     tf_ = (torch.where(neg, rlo, rhi) - org) * inv
@@ -275,7 +372,7 @@ def traverse_plain(tables: TraceTables, org, dir, t_cap, first_hit,
     curt = torch.full((n,), -math.inf, device=dev)
     drops = torch.zeros((), dtype=torch.int64, device=dev)
     lanes = torch.arange(n, device=dev)
-    slots = torch.arange(LEAF_WIDTH, device=dev)
+    slots = torch.arange(tables.leaf_width, device=dev)
     counting = max_steps is not None or steps is not None
     cap = math.inf if max_steps is None else max_steps
     nsteps = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -321,8 +418,9 @@ def traverse_plain(tables: TraceTables, org, dir, t_cap, first_hit,
 
 def _leaf_visit(tables, idx, ent, org, dir, best, tri, hu, hv, sp, first_hit,
                 slots):
-    """Test the 8 slots of each visited leaf; updates the hit state of the
-    lanes idx in place (any-hit lanes that accept stop: sp = 0)."""
+    """Test the slots of each visited leaf (8 in a BVH4 leaf row, 1 in a
+    binary tree's leaf); updates the hit state of the lanes idx in place
+    (any-hit lanes that accept stop: sp = 0)."""
     base = entry_slot(ent)
     ids = base[:, None] + slots
     k = slots.numel()
@@ -350,29 +448,46 @@ def _leaf_visit(tables, idx, ent, org, dir, best, tri, hu, hv, sp, first_hit,
     sp[idx] = torch.where(better & first_hit[idx], 0, sp[idx])
 
 
+def node_row(tables: TraceTables, ent):
+    """Row of the node record of internal entries `ent`: a BLAS node of
+    two-level tables sits at tlas_internal + batch * 1023 + idx, any other
+    node at its 22-bit field (a TLAS node, a BVH4 node)."""
+    row = ent & (_BLAS_BIT - 1)
+    if tables.tlas_internal is None:
+        return row
+    return torch.where((ent & _BLAS_BIT) != 0, tables.tlas_internal
+                       + entry_batch(ent) * BLAS_NODES + entry_idx(ent), row)
+
+
 def _node_visit(tables, idx, ent, org, inv, best, st_e, st_t, sp, cur, curt,
                 stack):
-    """Slab-test the 4 children of each visited node, continue with the
-    nearest and push the rest far-to-near onto the `stack`-deep stacks;
-    returns the dropped pushes."""
+    """Slab-test the children of each visited node (4 in a BVH4, 2 in a
+    binary tree), continue with the nearest and push the rest far-to-near
+    onto the `stack`-deep stacks; returns the dropped pushes."""
     inf = math.inf
-    rec = tables.nodes[ent & 0x3FFFFF]
+    rec = tables.nodes[node_row(tables, ent)]
     o, iv, b = org[idx], inv[idx], best[idx]
+    arity = tables.arity
     pairs = []
-    for c in range(4):
+    for c in range(arity):
         h, tn = _slab(rec[:, 6 * c:6 * c + 3], rec[:, 6 * c + 3:6 * c + 6],
                       o, iv, b)
         pairs.append((torch.where(h, tn, torch.full_like(tn, inf)),
-                      rec[:, 24 + c].to(torch.int64)))
-    p0, p1, p2, p3 = pairs
-    p0, p1 = _cswap(p0, p1)
-    p2, p3 = _cswap(p2, p3)
-    p0, p2 = _cswap(p0, p2)
-    p1, p3 = _cswap(p1, p3)
-    p1, p2 = _cswap(p1, p2)
+                      rec[:, 6 * arity + c].to(torch.int64)))
+    if arity == 4:
+        p0, p1, p2, p3 = pairs
+        p0, p1 = _cswap(p0, p1)
+        p2, p3 = _cswap(p2, p3)
+        p0, p2 = _cswap(p0, p2)
+        p1, p3 = _cswap(p1, p3)
+        p1, p2 = _cswap(p1, p2)
+        far = (p3, p2, p1)
+    else:  # the left child first on a tie
+        p0, p1 = _cswap(*pairs)
+        far = (p1,)
     s = sp[idx]
     dropped = torch.zeros((), dtype=torch.int64, device=s.device)
-    for p in (p3, p2, p1):
+    for p in far:
         valid = p[0] < inf
         ok = valid & (s < stack)
         w = torch.where(ok, s, stack)   # column `stack` is a trash slot
@@ -464,20 +579,43 @@ def packet_intersect(tables: TraceTables, org, dir, t_max=None, *,
     out = PacketHit(t=f32(n), tri=i32(n), u=f32(n), v=f32(n), mat=i32(n),
                     ns=f32(n, 3), ng=f32(n, 3))
     lib = cuda.library()
-    cuda.launch(lib.rtrt_traverse, "packet_intersect", dev,
-                tables.nodes, tables.tris, tables.nrm, tables.ng, tables.mat,
-                org, dir, t_max, ctypes.c_int(n), ctypes.c_int(int(any_hit)),
-                out.t, out.tri, out.u, out.v, out.mat, out.ns, out.ng,
-                ctypes.c_int(cap), steps, overflow, ctypes.c_int(tables.stack))
+    cuda.launch(lib.rtrt_traverse, kernel_name("packet_intersect", tables),
+                dev, tables.nodes, tables.tris, tables.nrm, tables.ng,
+                tables.mat, org, dir, t_max, ctypes.c_int(n),
+                ctypes.c_int(int(any_hit)), out.t, out.tri, out.u, out.v,
+                out.mat, out.ns, out.ng, ctypes.c_int(cap), steps, overflow,
+                *layout_args(tables))
     if count_steps:
         out.steps = steps
     return out
 
 
+def kernel_name(name: str, tables: TraceTables) -> str:
+    """The launch counter of a traversal kernel's instantiation for these
+    tables: `name` for a BVH4, `name`_binary for two-level tables."""
+    return name if tables.arity == 4 else f"{name}_binary"
+
+
+def layout_args(tables: TraceTables):
+    """The tables' (arity, tlas_internal, stack) C arguments, by which the
+    kernels' C entries pick their instantiation (and refuse any other)."""
+    return (ctypes.c_int(tables.arity),
+            ctypes.c_int(tables.tlas_internal or 0),
+            ctypes.c_int(tables.stack))
+
+
 def _check_tables(tables: TraceTables, dev):
     p = tables.tris.shape[0]
+    if tables.arity == 4:
+        nodes = (tables.nodes.shape[0], 32)
+    else:  # the TLAS rows, then 1023 rows per batch of 1024 slots
+        nodes = (tables.tlas_internal + p // BATCH_SIZE * BLAS_NODES, 16)
+        if p % BATCH_SIZE or tables.tlas_internal != p // BATCH_SIZE - 1:
+            raise ValueError(f"binary tables: {p} triangle slots and "
+                             f"{tables.tlas_internal} TLAS rows do not "
+                             f"make a two-level LBVH")
     cuda.check_tensors(
-        dev, nodes=(tables.nodes, torch.float32, (tables.nodes.shape[0], 32)),
+        dev, nodes=(tables.nodes, torch.float32, nodes),
         tris=(tables.tris, torch.float32, (p, 9)),
         nrm=(tables.nrm, torch.float32, (p, 9)),
         ng=(tables.ng, torch.float32, (p, 3)),

@@ -50,8 +50,10 @@
 //   * The traversal is K1's device function (traverse.cuh, any-hit for
 //     shadow rays); it raises a per-lane deepest-stack count, reduced to
 //     one atomicMax a warp at the end.  The kernel is instantiated for
-//     each traversal stack depth (STACK_SMALL, STACK_DEEP), and the C
-//     entry launches the one the tables' tree needs.
+//     each traversal stack depth of the BVH4 (STACK_SMALL, STACK_DEEP)
+//     and, as a separate instantiation whose BVH4 code is untouched, for
+//     the binary two-level LBVH (traverse2, STACK_DEEP); the C entry
+//     launches the one the tables' layout needs.
 // The TPU kernel's VMEM table staging, state parking, 32-row strips,
 // per-tile segment skips and i1/i32 mask round trips are TPU artifacts and
 // are not carried over.
@@ -97,6 +99,7 @@ struct MegaParams {
   int* work;
   int width;           // the pixel grid's row length
   int tile_w, tiles;   // warp tiles of tile_w x 32 / tile_w pixels
+  int tlas_internal;   // TLAS rows of binary two-level tables
 };
 
 // the sun's direction, basis, transmittance and intensity (pack_sun_params'
@@ -346,7 +349,9 @@ __device__ __forceinline__ void write_planes(const PathState& st,
   for (int k = 0; k < COLD; ++k) p.out[(3 + k) * n + i] = cold.get(k);
 }
 
-template <int STACK>
+// STACK: the traversal stack's depth; kBinary: the tables are the binary
+// two-level LBVH (traverse2), else the BVH4 (traverse)
+template <int STACK, bool kBinary>
 __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
     megakernel(const MegaParams p) {
   __shared__ float4 table[rtrt::SAMPLER_SLOTS];
@@ -389,10 +394,18 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
     }
     if (pix >= 0) {
       const float t_cap = st.is_shadow ? st.shadow_tmax : CUDART_INF_F;
-      const rtrt::TraceHit h = rtrt::traverse<STACK>(
-          p.nodes, p.tris, make_float3(st.org.x, st.org.y, st.org.z),
-          make_float3(st.dir.x, st.dir.y, st.dir.z), t_cap, st.is_shadow,
-          p.overflow, deepest);
+      rtrt::TraceHit h;
+      if constexpr (kBinary)
+        h = rtrt::traverse2<STACK>(
+            p.nodes, p.tris, p.tlas_internal,
+            make_float3(st.org.x, st.org.y, st.org.z),
+            make_float3(st.dir.x, st.dir.y, st.dir.z), t_cap, st.is_shadow,
+            p.overflow, deepest);
+      else
+        h = rtrt::traverse<STACK>(
+            p.nodes, p.tris, make_float3(st.org.x, st.org.y, st.org.z),
+            make_float3(st.dir.x, st.dir.y, st.dir.z), t_cap, st.is_shadow,
+            p.overflow, deepest);
       int hmat;
       float3 ns, ng;
       rtrt::hit_attrs(p.nrm, p.ng, p.mat, h, hmat, ns, ng);
@@ -411,14 +424,14 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
 }
 
 // one wave of persistent blocks: resident blocks a SM (from the kernel's
-// registers and shared memory, queried once per instantiation) times the
-// SMs, fewer for a small n
-template <int STACK>
+// registers and shared memory, queried once per instantiation: each
+// <STACK, kBinary> has its own per_sm) times the SMs, fewer for a small n
+template <int STACK, bool kBinary>
 int launch(const MegaParams& p, cudaStream_t s) {
   static int per_sm = 0;
   if (per_sm == 0) {
     cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, megakernel<STACK>, BLOCK, 0);
+        &per_sm, megakernel<STACK, kBinary>, BLOCK, 0);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   int dev = 0, sms = 0;
@@ -428,7 +441,7 @@ int launch(const MegaParams& p, cudaStream_t s) {
   if (e != cudaSuccess) return static_cast<int>(e);
   const int warps = BLOCK / 32;
   const int grid = min(per_sm * sms, (p.tiles + warps - 1) / warps);
-  megakernel<STACK><<<grid, BLOCK, 0, s>>>(p);
+  megakernel<STACK, kBinary><<<grid, BLOCK, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -436,9 +449,11 @@ int launch(const MegaParams& p, cudaStream_t s) {
 
 // work: (1,) int32 scratch (zeroed here, on the stream); depth: (1,) int32
 // counter of the deepest traversal stack, or nullptr; width: the pixels'
-// row length (n for a flat batch); stack: the traversal stack's depth (the
-// tables' TraceTables.stack), STACK_SMALL or STACK_DEEP, else refused
-// (cudaErrorInvalidValue) before anything is enqueued
+// row length (n for a flat batch); arity, tlas_internal, stack: the tables'
+// layout (bvh/packet.py::layout_args): arity 4 is the BVH4 at a stack of
+// STACK_SMALL or STACK_DEEP entries, arity 2 the two-level LBVH at
+// STACK_DEEP; any other pair is refused (cudaErrorInvalidValue) before
+// anything is enqueued
 extern "C" int rtrt_megakernel(
     const float* nodes, const float* tris, const float* nrm, const float* ng,
     const int* mat, const float* mat_rows, int n_mat, const float* light_rows,
@@ -446,15 +461,19 @@ extern "C" int rtrt_megakernel(
     float disk_omega, float disk_pdf, unsigned frame, const float* org,
     const float* dir, const float* cone, const int* pix, const float* bn,
     int use_bn, int use_proctex, int n, float* out, int* overflow,
-    int* depth, int* work, int width, int stack, void* stream) {
+    int* depth, int* work, int width, int arity, int tlas_internal,
+    int stack, void* stream) {
   MegaParams p{nodes,    tris,     nrm,        ng,       mat,
                mat_rows, n_mat,    light_rows, n_lights,
                cos_max,  sin2_max, disk_omega, disk_pdf, frame,
                org,      dir,      cone,       pix,      bn,
                use_bn,   use_proctex, n,       out,      overflow,
                depth,    work,     width};
-  if (stack != rtrt::STACK_SMALL && stack != rtrt::STACK_DEEP)
-    return static_cast<int>(cudaErrorInvalidValue);
+  const bool bvh4 = arity == 4 && (stack == rtrt::STACK_SMALL ||
+                                   stack == rtrt::STACK_DEEP);
+  const bool binary = arity == 2 && stack == rtrt::STACK_DEEP;
+  if (!bvh4 && !binary) return static_cast<int>(cudaErrorInvalidValue);
+  p.tlas_internal = tlas_internal;
   if (n <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
   // 8x4 tiles where the grid has 4 rows or more, else runs of 32 pixels
   const int rows = (n + width - 1) / width;
@@ -468,6 +487,7 @@ extern "C" int rtrt_megakernel(
     e = cudaMemcpyToSymbolAsync(c_sun, sun_vec, sizeof(c_sun), 0,
                                 cudaMemcpyDeviceToDevice, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return stack == rtrt::STACK_SMALL ? launch<rtrt::STACK_SMALL>(p, s)
-                                    : launch<rtrt::STACK_DEEP>(p, s);
+  if (binary) return launch<rtrt::STACK_DEEP, true>(p, s);
+  return stack == rtrt::STACK_SMALL ? launch<rtrt::STACK_SMALL, false>(p, s)
+                                    : launch<rtrt::STACK_DEEP, false>(p, s);
 }

@@ -1,4 +1,5 @@
-// K1 launcher: standalone ray-scene intersection (one thread per ray).
+// K1 launcher: standalone ray-scene intersection (one thread per ray), over
+// the BVH4 or the binary two-level LBVH.
 //
 // Replaces: rtrt_tpu/bvh/packet.py::packet_intersect -> _kernel ->
 // traverse_tile.  The traversal itself and its cost notes live in
@@ -18,8 +19,9 @@
 namespace {
 
 // kCount: cap each ray at max_steps visits and write its visits to steps;
-// STACK: the traversal stack's depth
-template <int STACK, bool kCount>
+// STACK: the traversal stack's depth; kBinary: the binary two-level LBVH
+// (traverse2, tlas_internal TLAS rows), else the BVH4 (traverse)
+template <int STACK, bool kCount, bool kBinary>
 __global__ void traverse_kernel(
     const float* __restrict__ nodes, const float* __restrict__ tris,
     const float* __restrict__ nrm, const float* __restrict__ ng,
@@ -29,15 +31,21 @@ __global__ void traverse_kernel(
     float* __restrict__ u_out, float* __restrict__ v_out,
     int* __restrict__ mat_out, float* __restrict__ ns_out,
     float* __restrict__ ng_out, int max_steps, int* __restrict__ steps,
-    int* overflow) {
+    int* overflow, int tlas_internal) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float3 o = make_float3(org[3 * i], org[3 * i + 1], org[3 * i + 2]);
   float3 d = make_float3(dir[3 * i], dir[3 * i + 1], dir[3 * i + 2]);
   int visits, deepest = 0;
-  rtrt::TraceHit h = rtrt::traverse<STACK, kCount>(
-      nodes, tris, o, d, tmax[i], any_hit != 0, overflow, deepest, max_steps,
-      &visits);
+  rtrt::TraceHit h;
+  if constexpr (kBinary)
+    h = rtrt::traverse2<STACK, kCount>(nodes, tris, tlas_internal, o, d,
+                                       tmax[i], any_hit != 0, overflow,
+                                       deepest, max_steps, &visits);
+  else
+    h = rtrt::traverse<STACK, kCount>(nodes, tris, o, d, tmax[i],
+                                      any_hit != 0, overflow, deepest,
+                                      max_steps, &visits);
   if (kCount) steps[i] = visits;
   int m;
   float3 ns, g;
@@ -55,29 +63,31 @@ __global__ void traverse_kernel(
   ng_out[3 * i + 2] = g.z;
 }
 
-template <int STACK>
+template <int STACK, bool kBinary>
 void launch(int grid, int block, cudaStream_t s, const float* nodes,
             const float* tris, const float* nrm, const float* ng,
             const int* mat, const float* org, const float* dir,
             const float* tmax, int n, int any_hit, float* t, int* tri,
             float* u, float* v, int* mat_out, float* ns, float* ng_out,
-            int max_steps, int* steps, int* overflow) {
+            int max_steps, int* steps, int* overflow, int tlas_internal) {
   if (steps == nullptr)
-    traverse_kernel<STACK, false><<<grid, block, 0, s>>>(
+    traverse_kernel<STACK, false, kBinary><<<grid, block, 0, s>>>(
         nodes, tris, nrm, ng, mat, org, dir, tmax, n, any_hit, t, tri, u, v,
-        mat_out, ns, ng_out, max_steps, steps, overflow);
+        mat_out, ns, ng_out, max_steps, steps, overflow, tlas_internal);
   else
-    traverse_kernel<STACK, true><<<grid, block, 0, s>>>(
+    traverse_kernel<STACK, true, kBinary><<<grid, block, 0, s>>>(
         nodes, tris, nrm, ng, mat, org, dir, tmax, n, any_hit, t, tri, u, v,
-        mat_out, ns, ng_out, max_steps, steps, overflow);
+        mat_out, ns, ng_out, max_steps, steps, overflow, tlas_internal);
 }
 
 }  // namespace
 
 // steps: nullptr for the plain traversal; else (n,) visits per ray, each
-// ray capped at max_steps.  stack: the traversal stack's depth, one of
-// rtrt_traverse_stack's (the tables' TraceTables.stack); any other value is
-// refused (cudaErrorInvalidValue) and nothing launches.
+// ray capped at max_steps.  arity, tlas_internal, stack: the tables'
+// layout (bvh/packet.py::layout_args): arity 4 is the BVH4 at a stack of
+// STACK_SMALL or STACK_DEEP entries, arity 2 the two-level LBVH (with its
+// tlas_internal TLAS rows) at STACK_DEEP; any other pair is refused
+// (cudaErrorInvalidValue) and nothing launches.
 extern "C" int rtrt_traverse(const float* nodes, const float* tris,
                              const float* nrm, const float* ng,
                              const int* mat, const float* org,
@@ -85,33 +95,43 @@ extern "C" int rtrt_traverse(const float* nodes, const float* tris,
                              int any_hit, float* t, int* tri, float* u,
                              float* v, int* mat_out, float* ns,
                              float* ng_out, int max_steps, int* steps,
-                             int* overflow, int stack, void* stream) {
-  if (stack != rtrt::STACK_SMALL && stack != rtrt::STACK_DEEP)
-    return static_cast<int>(cudaErrorInvalidValue);
+                             int* overflow, int arity, int tlas_internal,
+                             int stack, void* stream) {
+  const bool bvh4 = arity == 4 && (stack == rtrt::STACK_SMALL ||
+                                   stack == rtrt::STACK_DEEP);
+  const bool binary = arity == 2 && stack == rtrt::STACK_DEEP;
+  if (!bvh4 && !binary) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
     const int block = 128;
     const int grid = (n + block - 1) / block;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (stack == rtrt::STACK_SMALL)
-      launch<rtrt::STACK_SMALL>(grid, block, s, nodes, tris, nrm, ng, mat,
-                                org, dir, tmax, n, any_hit, t, tri, u, v,
-                                mat_out, ns, ng_out, max_steps, steps,
-                                overflow);
+    if (binary)
+      launch<rtrt::STACK_DEEP, true>(grid, block, s, nodes, tris, nrm, ng,
+                                     mat, org, dir, tmax, n, any_hit, t, tri,
+                                     u, v, mat_out, ns, ng_out, max_steps,
+                                     steps, overflow, tlas_internal);
+    else if (stack == rtrt::STACK_SMALL)
+      launch<rtrt::STACK_SMALL, false>(grid, block, s, nodes, tris, nrm, ng,
+                                       mat, org, dir, tmax, n, any_hit, t,
+                                       tri, u, v, mat_out, ns, ng_out,
+                                       max_steps, steps, overflow, 0);
     else
-      launch<rtrt::STACK_DEEP>(grid, block, s, nodes, tris, nrm, ng, mat,
-                               org, dir, tmax, n, any_hit, t, tri, u, v,
-                               mat_out, ns, ng_out, max_steps, steps,
-                               overflow);
+      launch<rtrt::STACK_DEEP, false>(grid, block, s, nodes, tris, nrm, ng,
+                                      mat, org, dir, tmax, n, any_hit, t,
+                                      tri, u, v, mat_out, ns, ng_out,
+                                      max_steps, steps, overflow, 0);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// the traversal stack depths (entries) that have an instantiation, for the
-// callers' checks: writes up to cap of them to depths, returns how many
-// exist
-extern "C" int rtrt_traverse_stack(int* depths, int cap) {
-  const int all[] = {rtrt::STACK_SMALL, rtrt::STACK_DEEP};
-  const int n = sizeof(all) / sizeof(all[0]);
+// the traversal stack depths (entries) that have an instantiation for
+// trees of `arity` (4: the BVH4, 2: the two-level LBVH), for the callers'
+// checks: writes up to cap of them to depths, returns how many exist
+extern "C" int rtrt_traverse_stack(int* depths, int cap, int arity) {
+  const int bvh4[] = {rtrt::STACK_SMALL, rtrt::STACK_DEEP};
+  const int binary[] = {rtrt::STACK_DEEP};
+  const int* all = arity == 4 ? bvh4 : binary;
+  const int n = arity == 4 ? 2 : (arity == 2 ? 1 : 0);
   for (int k = 0; k < n && k < cap; ++k) depths[k] = all[k];
   return n;
 }

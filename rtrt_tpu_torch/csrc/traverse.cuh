@@ -1,4 +1,5 @@
-// K1 traversal: per-thread stack traversal of the 4-wide SAH BVH.
+// K1 traversal: per-thread stack traversal of the 4-wide SAH BVH
+// (traverse) and of the binary two-level LBVH (traverse2, below).
 //
 // Replaces: rtrt_tpu/bvh/packet.py::traverse_tile (launched alone by
 // packet.py::_kernel / packet_intersect, and inside the megakernel
@@ -262,6 +263,132 @@ static __device__ TraceHit traverse(const float* __restrict__ nodes,
       if (c[0].t < CUDART_INF_F) {
         cur = c[0].e;
         curt = c[0].t;
+      }
+    }
+  }
+  if (hit.tri >= 0) hit.t = best;
+  if (kCount) *steps = visits;
+  return hit;
+}
+
+// ---------------------------------------------------------------------------
+// The binary two-level LBVH (bvh/build.py; the JAX kernel's arity=2 branch)
+//
+// A record is 64 bytes, 4 float4: the left child's box [lo xyz | hi xyz],
+// the right child's, then the two child entries as exact floats and two
+// pad floats (bvh/packet.py::binary_nodes).  Rows: the TLAS nodes first
+// (a TLAS entry's row is its 22-bit field), then BLAS_NODES rows per batch
+// (a BLAS entry's row is tlas_internal + batch * BLAS_NODES + idx).  A leaf
+// is one triangle, slot batch * 1024 + idx; a TLAS leaf was resolved to its
+// batch's BLAS root when the tree was built.  A node visit slab-tests both
+// boxes, continues with the nearer child (the left on a tie) and pushes
+// the other with its entry distance.  The stack holds at most one entry a
+// level of the current path: STACK_DEEP holds the static bound of
+// bvh/packet.py::binary_stack_bound (<= 84 entries), the only depth this
+// traversal is instantiated for.  Everything else is traverse()'s: the
+// root-exit cap, pruned pops, any-hit, the counters.
+// ---------------------------------------------------------------------------
+constexpr int BLAS_BIT = 1 << 22;
+constexpr int BLAS_NODES = 1023;
+
+template <int STACK, bool kCount = false>
+static __device__ TraceHit traverse2(const float* __restrict__ nodes,
+                                     const float* __restrict__ tris,
+                                     int tlas_internal, float3 o, float3 d,
+                                     float t_cap, bool first_hit,
+                                     int* overflow, int& deepest,
+                                     int max_steps = 0,
+                                     int* steps = nullptr) {
+  TraceHit hit{CUDART_INF_F, -1, 0.0f, 0.0f};
+  int visits = 0;
+  if (kCount) *steps = 0;
+  if (!(t_cap > 0.0f)) return hit;
+  float3 inv = make_float3(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
+
+  // per-ray scene-exit cap: the union of the TLAS root's two child boxes
+  float best;
+  {
+    const float4* rec = reinterpret_cast<const float4*>(nodes);
+    const float4 q0 = __ldg(rec), q1 = __ldg(rec + 1), q2 = __ldg(rec + 2);
+    const float lx = fminf(q0.x, q1.z), ly = fminf(q0.y, q1.w),
+                lz = fminf(q0.z, q2.x);
+    const float hx = fmaxf(q0.w, q2.y), hy = fmaxf(q1.x, q2.z),
+                hz = fmaxf(q1.y, q2.w);
+    float n0 = ((inv.x < 0.0f ? hx : lx) - o.x) * inv.x;
+    float n1 = ((inv.y < 0.0f ? hy : ly) - o.y) * inv.y;
+    float n2 = ((inv.z < 0.0f ? hz : lz) - o.z) * inv.z;
+    float f0 = ((inv.x < 0.0f ? lx : hx) - o.x) * inv.x;
+    float f1 = ((inv.y < 0.0f ? ly : hy) - o.y) * inv.y;
+    float f2 = ((inv.z < 0.0f ? lz : hz) - o.z) * inv.z;
+    float r_tn = fmaxf(fmaxf(n0, n1), n2);
+    float r_tf = fminf(fminf(f0, f1), f2) * FAR_SCALE;
+    bool hit_root = (r_tn <= r_tf) && (r_tf > RAY_TMIN);
+    float exit_cap = hit_root ? r_tf * 1.001f + 1e-2f : 0.0f;
+    best = fminf(t_cap, exit_cap);
+  }
+
+  int2 stack[STACK];  // (entry, entry distance's bits)
+  int sp = 0;
+  int cur = 0;  // the TLAS root
+  float curt = -CUDART_INF_F;
+  while (true) {
+    if (kCount && visits >= max_steps) break;
+    if (cur < 0) {
+      if (sp == 0) break;
+      --sp;
+      cur = stack[sp].x;
+      curt = __int_as_float(stack[sp].y);
+    }
+    const int e = cur;
+    cur = -1;
+    if (!(curt < best)) continue;  // pruned: entry beyond the best hit
+    if (kCount) ++visits;
+    const int idx = e & 0x7FF, batch = (e >> 11) & 0x7FF;
+    if (e & LEAF_BIT) {
+      const int slot = batch * 1024 + idx;
+      const float* r = tris + (size_t)slot * 9;
+      float tt, tu, tv;
+      const bool ok = tri_test(__ldg(r), __ldg(r + 1), __ldg(r + 2),
+                               __ldg(r + 3), __ldg(r + 4), __ldg(r + 5),
+                               __ldg(r + 6), __ldg(r + 7), __ldg(r + 8), o,
+                               d, best, tt, tu, tv);
+      if (ok && tt < best) {
+        best = tt;
+        hit.tri = slot;
+        hit.u = tu;
+        hit.v = tv;
+        if (first_hit) break;
+      }
+    } else {
+      const int row = (e & BLAS_BIT)
+                          ? tlas_internal + batch * BLAS_NODES + idx
+                          : (e & (BLAS_BIT - 1));
+      const float4* rec =
+          reinterpret_cast<const float4*>(nodes + (size_t)row * 16);
+      const float4 q0 = __ldg(rec), q1 = __ldg(rec + 1);
+      const float tl =
+          child_t(q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, o, inv, best);
+      const float4 q2 = __ldg(rec + 2);
+      const float tr =
+          child_t(q1.z, q1.w, q2.x, q2.y, q2.z, q2.w, o, inv, best);
+      const float4 q3 = __ldg(rec + 3);
+      const bool left_first = tl <= tr;
+      const float near_t = left_first ? tl : tr;
+      const float far_t = left_first ? tr : tl;
+      const int near_e = (int)(left_first ? q3.x : q3.y);
+      const int far_e = (int)(left_first ? q3.y : q3.x);
+      if (far_t < CUDART_INF_F) {
+        if (sp < STACK) {
+          stack[sp] = make_int2(far_e, __float_as_int(far_t));
+          ++sp;
+        } else {
+          atomicAdd(overflow, 1);
+        }
+      }
+      deepest = max(deepest, sp);
+      if (near_t < CUDART_INF_F) {
+        cur = near_e;
+        curt = near_t;
       }
     }
   }

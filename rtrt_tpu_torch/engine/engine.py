@@ -3,8 +3,11 @@ resolution buckets and the dynamic-resolution controller, camera input and
 persistence (port of the static-scene part of rtrt_tpu/engine/engine.py).
 
 `Engine(settings, flags, device="cuda").render_frame()` builds the scene,
-its SAH/BVH4 tables and the sky once, then renders frames through
-engine/frame.py::render_frame.  The device is explicit: with
+its BVH tables and the sky once, then renders frames through
+engine/frame.py::render_frame.  ``bvh`` picks the tree: "sah4" (the
+default) the host-built SAH tree collapsed to a BVH4, "lbvh" the two-level
+LBVH built on the device (bvh/build.py) and traced by K1 / K2's binary
+instantiation.  The device is explicit: with
 ``device="cuda"`` and no card it raises; it never falls back to the CPU.
 
 Resolution buckets, as in the JAX Engine: a frame renders at the 16:9
@@ -18,12 +21,16 @@ dt; a switch resets the denoiser history to the new size.
 With the default FeatureFlags() a frame is denoised (K5, K4), bloomed,
 lens-flared and tone-mapped (K3); FeatureFlags(ocean=True, stars=True)
 add the ocean and the star field to the environment of escaped rays.
-``animation="wave"`` animates the scene with a travelling wave: the SAH
-tables' topology is frozen at init and every frame refits its boxes
-(engine/frame.py::animate_tables, bvh/refit.py).  Settings whose pass is
-not ported raise NotImplementedError naming the setting (ROADMAP.md lists
-the queue): another animation than "none" or "wave", fourier_textures,
-sky_model="preetham".
+``animation="wave"`` animates the scene with a travelling wave: with
+"sah4" the tables' topology is frozen at init and every frame refits its
+boxes (engine/frame.py::animate_tables, bvh/refit.py); with "lbvh" every
+frame displaces the vertices, recomputes the smooth normals and rebuilds
+the LBVH (engine/frame.py::rebuild_tables).  In the JAX Engine these are
+its default on a TPU (RTRT_SAH=4, RTRT_REFIT=1), its static scene with
+RTRT_SAH=0, and its animated scene with RTRT_REFIT=0 or off a TPU.
+Settings whose pass is not ported raise NotImplementedError naming the
+setting (ROADMAP.md lists the queue): another animation than "none" or
+"wave", fourier_textures, sky_model="preetham".
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ import time
 import numpy as np
 import torch
 
-from ..bvh.packet import overflow_counter, pack_tables
+from ..bvh.packet import overflow_counter, pack_tables, pack_tables_binary
 from ..bvh.refit import DeviceRefit, plan_refit4
 from ..bvh.sah import build_scene_tables_sah, bvh4_nodes
 from ..core.camera import Camera
@@ -49,12 +56,14 @@ from ..render.sky import (bake_sky_maps, finalize_sky_maps, make_sky_params,
 from ..utils.config import (FeatureFlags, GlobalSettings, RenderParams,
                             default_params)
 from ..utils.timer import FpsLog, Timer
-from .frame import (FrameState, FrameStatic, RestPose, check_flags,
-                    make_frame_consts, render_frame)
+from .frame import (FrameState, FrameStatic, MeshPose, RestPose,
+                    build_scene_tables, check_flags, make_frame_consts,
+                    render_frame)
 from .scene import (HostScene, build_demo_scene, build_mesh_scene,
                     build_terrain_scene, padded_arrays)
 
 SAH_LEAF = 8  # row-aligned leaf width of the static SAH tree
+BVH_KINDS = ("sah4", "lbvh")
 
 _BUCKET_HEIGHTS = (270, 360, 540, 720, 1080, 1440, 2160)
 
@@ -88,7 +97,8 @@ class Engine:
                  flags: FeatureFlags | None = None,
                  scene: HostScene | None = None,
                  params: RenderParams | None = None,
-                 animation: str = "none", device="cuda"):
+                 animation: str = "none", bvh: str = "sah4",
+                 device="cuda"):
         self.settings = settings or GlobalSettings()
         self.flags = flags or FeatureFlags()
         self.params = params or default_params()
@@ -96,6 +106,9 @@ class Engine:
         check_flags(self.flags)
         if animation not in ("none", "wave"):
             _unsupported(f"animation={animation!r}")
+        if bvh not in BVH_KINDS:
+            raise ValueError(f"bvh={bvh!r}: expected one of {BVH_KINDS}")
+        self.bvh = bvh
         if s.sky_model != "physical":
             _unsupported(f"sky_model={s.sky_model!r}")
         self.device = torch.device(device)
@@ -119,21 +132,12 @@ class Engine:
 
         t0 = time.perf_counter()
         pad = padded_arrays(self.scene)
-        bvh, nrm_t, mat_s = build_scene_tables_sah(
-            self.scene.num_batches, pad["indices"], pad["tri_mat"],
-            pad["valid"], self.scene.vertices, self.scene.normals,
-            leaf_max=SAH_LEAF)
-        raw4 = bvh4_nodes(bvh)
-        tables = pack_tables(bvh, nrm_t, mat_s, raw4).to(self.device)
-        # animated scenes keep the rest pose (the sorted (9, P) vertex rows
-        # and normals) and the frozen tree's refit schedule on the device
         self.rest = None
-        if animation == "wave":
-            self.rest = RestPose(
-                tris_t=bvh.tris_t.to(self.device).contiguous(),
-                nrm_t=nrm_t.to(self.device).contiguous(),
-                refit=DeviceRefit(plan_refit4(raw4), self.device))
-        self.init_seconds["sah"] = time.perf_counter() - t0
+        if bvh == "sah4":
+            tables = self._sah4_tables(pad, animation)
+        else:
+            tables = self._lbvh_tables(pad, animation)
+        self.init_seconds[bvh] = time.perf_counter() - t0
         lights = self.scene.lights
         self.scene_data = SceneData(
             tables=tables, materials=self.scene.materials.to(self.device),
@@ -170,6 +174,38 @@ class Engine:
         self.timer = Timer()
         self.fps_log = FpsLog()
         self._input = dict(keys=set(), last_cursor=None)
+
+    def _sah4_tables(self, pad, animation):
+        """The SAH/BVH4 tables, built on the host; an animated scene keeps
+        the rest pose (the sorted (9, P) vertex rows and normals) and the
+        frozen tree's refit schedule on the device."""
+        bvh, nrm_t, mat_s = build_scene_tables_sah(
+            self.scene.num_batches, pad["indices"], pad["tri_mat"],
+            pad["valid"], self.scene.vertices, self.scene.normals,
+            leaf_max=SAH_LEAF)
+        raw4 = bvh4_nodes(bvh)
+        if animation == "wave":
+            self.rest = RestPose(
+                tris_t=bvh.tris_t.to(self.device).contiguous(),
+                nrm_t=nrm_t.to(self.device).contiguous(),
+                refit=DeviceRefit(plan_refit4(raw4), self.device))
+        return pack_tables(bvh, nrm_t, mat_s, raw4).to(self.device)
+
+    def _lbvh_tables(self, pad, animation):
+        """The two-level LBVH's binary tables, built on the device; an
+        animated scene keeps its rest mesh there and rebuilds every
+        frame."""
+        dev = self.device
+        mesh = MeshPose(
+            vertices=torch.from_numpy(self.scene.vertices).to(dev),
+            indices=torch.from_numpy(pad["indices"]).to(dev, torch.int64),
+            tri_mat=torch.from_numpy(pad["tri_mat"]).to(dev, torch.int32),
+            valid=torch.from_numpy(pad["valid"]).to(dev))
+        if animation == "wave":
+            self.rest = mesh
+        return pack_tables_binary(*build_scene_tables(
+            self.scene.num_batches, mesh.indices, mesh.tri_mat, mesh.valid,
+            mesh.vertices, torch.from_numpy(self.scene.normals).to(dev)))
 
     # ------------------------------------------------------------------
     # resolution buckets / dynamic resolution

@@ -1,6 +1,6 @@
-"""One frame of the static-scene product path (port of the static branch of
-rtrt_tpu/engine/frame.py::render_frame with prebuilt SAH tables and the
-megakernel):
+"""One frame of the product path (port of rtrt_tpu/engine/frame.py::
+render_frame with the megakernel: its static branch over prebuilt SAH or
+LBVH tables, and its two animated branches, below):
 
   raygen (blue-noise jitter + thin lens) -> path_trace_mega (K2, with K1's
   traversal inside) -> finish_gbuffer -> [interlace: full-height
@@ -15,10 +15,15 @@ h/2 rows y = 2i + (frame & 1) — K2 takes pixel ids as data, so the field's
 ids and blue-noise rows are all it needs — and fills the other rows from
 their traced neighbours before the denoiser.
 
-Animation (render_frame's `rest`, a RestPose: the refit branch of the JAX
-frame with animation="wave"): before raygen the frame displaces the rest-pose sorted triangle
-rows with a travelling wave, transforms their normals, refits the frozen
-BVH4 (bvh/refit.py) and writes the tables in place (`animate_tables`).
+Animation (render_frame's `rest`): before raygen the frame moves the scene
+by a travelling wave and writes the tables in place, in one of the JAX
+frame's two branches for animation="wave", chosen by the type of `rest`:
+  * a RestPose (the refit branch): displace the rest-pose sorted triangle
+    rows, transform their normals, refit the frozen BVH4 (bvh/refit.py)
+    (`animate_tables`);
+  * a MeshPose (the rebuild branch): displace the rest mesh's vertices,
+    recompute its smooth normals, rebuild the two-level LBVH on the device
+    (bvh/build.py) and repack the binary tables (`rebuild_tables`).
 With FeatureFlags ocean / stars, escaped rays take their radiance from
 render/environment.py instead of the sky fit alone.  Both read the
 animation clock, FrameState.time, which accumulates in float32 as the JAX
@@ -36,10 +41,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..bvh.packet import refresh_tables
+from ..bvh.build import build_scene_bvh
+from ..bvh.packet import refresh_tables, write_tables_binary
 from ..bvh.refit import DeviceRefit
+from ..bvh.types import BATCH_SIZE
 from ..core.camera import Camera, camera_basis, world_to_screen
 from ..denoise.pipeline import DenoiseHistory, denoise
+from ..ops.gather import onehot_permute
+from ..ops.reduce import segment_sum
 from ..ops.resize import upscale_catmull_rom
 from ..post.pipeline import dither_mask, postprocess
 from ..render.environment import env_radiance_scene
@@ -89,11 +98,32 @@ class FrameConsts:
 class RestPose:
     """The animated scene's rest pose and refit schedule (on the device):
     the sorted (9, P) vertex rows and vertex normals of the init-time SAH
-    tables, and the frozen BVH4's DeviceRefit."""
+    tables, and the frozen BVH4's DeviceRefit.  A frame given one refits."""
 
     tris_t: torch.Tensor
     nrm_t: torch.Tensor
     refit: DeviceRefit
+
+    def animate(self, tables, time: float):
+        animate_tables(tables, self, time)
+
+
+@dataclasses.dataclass
+class MeshPose:
+    """The animated scene's rest mesh (on the device), whose frames rebuild
+    the two-level LBVH: the vertices (V, 3), the padded triangle indices
+    (B * 1024, 3), materials (B * 1024,) and valid mask (B, 1024) of
+    engine/scene.py::padded_arrays.  The normals are recomputed from the
+    displaced vertices every frame, so none are kept.  A frame given one
+    rebuilds."""
+
+    vertices: torch.Tensor
+    indices: torch.Tensor
+    tri_mat: torch.Tensor
+    valid: torch.Tensor
+
+    def animate(self, tables, time: float):
+        rebuild_tables(tables, self, time)
 
 
 # the travelling wave of animation="wave": y += WAVE_AMP * sin(WAVE_FREQ x +
@@ -115,18 +145,30 @@ def _f32(x):
     return float(np.float32(x))
 
 
+def _wave_dy(x, z, time: float):
+    """The wave's displacement along y at (x, z), in the JAX function's
+    order of operations."""
+    t = np.float32(time)
+    return WAVE_AMP * torch.sin(x * WAVE_FREQ
+                                + _f32(t * np.float32(WAVE_SPEED))) \
+        * torch.cos(z * (WAVE_FREQ * 0.8) + _f32(t * np.float32(1.1)))
+
+
+def displace_wave(vertices, time: float):
+    """Travelling wave along y applied to (V, 3) vertices (the rebuild
+    branch's form)."""
+    out = vertices.clone()
+    out[:, 1] += _wave_dy(vertices[:, 0], vertices[:, 2], time)
+    return out
+
+
 def displace_wave_rows(tris_t, time: float):
     """Travelling wave along y applied to the sorted (9, P) triangle rows
     (rows 0-2/3-5/6-8 = v0/v1/v2): a function of (x, z) only, so no gather.
     The three vertices go through each op as one (3, P) stack."""
     v = tris_t.reshape(3, 3, -1)
-    x, z = v[:, 0], v[:, 2]
-    t = np.float32(time)
-    dy = WAVE_AMP * torch.sin(x * WAVE_FREQ
-                              + _f32(t * np.float32(WAVE_SPEED))) \
-        * torch.cos(z * (WAVE_FREQ * 0.8) + _f32(t * np.float32(1.1)))
     out = v.clone()
-    out[:, 1] += dy
+    out[:, 1] += _wave_dy(v[:, 0], v[:, 2], time)
     return out.reshape(tris_t.shape)
 
 
@@ -158,6 +200,53 @@ def animate_tables(tables, rest: RestPose, time: float):
     rest.refit.refit(tables.nodes, tt)
     refresh_tables(tables, tt, wave_normal_rows(rest.nrm_t, rest.tris_t,
                                                 time))
+
+
+def compute_smooth_normals(vertices, indices):
+    """Area-weighted vertex normals: each triangle's cross product summed
+    into its three vertices (segment sums, the JAX function's order), then
+    normalised.  indices (T, 3) with padding triangles (0, 0, 0), whose
+    cross product is 0."""
+    v0, v1, v2 = (vertices[indices[:, k]] for k in range(3))
+    fn = torch.linalg.cross(v1 - v0, v2 - v0)
+    nv = vertices.shape[0]
+    acc = (segment_sum(fn, indices[:, 0], nv)
+           + segment_sum(fn, indices[:, 1], nv)
+           + segment_sum(fn, indices[:, 2], nv))
+    norm = torch.linalg.vector_norm(acc, dim=-1, keepdim=True)
+    return acc / torch.clamp(norm, min=1e-12)
+
+
+def build_scene_tables(num_batches: int, indices, tri_mat, valid, verts,
+                       nrm):
+    """Two-level LBVH of the padded scene + its sorted per-triangle
+    attributes: returns (bvh, tri_nrm_t (9, P) f32, sorted_mat (P,) i32),
+    on the device of `verts`.  indices (B * 1024, 3), tri_mat (B * 1024,),
+    valid (B, 1024), verts / nrm (V, 3)."""
+    b = num_batches
+    indices = indices.to(torch.int64)
+    tv = [verts[indices[:, k]].reshape(b, BATCH_SIZE, 3) for k in range(3)]
+    bvh = build_scene_bvh(*tv, valid)
+    # the batch-local permutation of the indices and materials
+    reorder = bvh.sorted_tri_index.reshape(b, BATCH_SIZE).to(torch.int64) \
+        - (torch.arange(b, device=verts.device) * BATCH_SIZE)[:, None]
+    perm = onehot_permute(torch.cat(
+        [indices.reshape(b, BATCH_SIZE, 3),
+         tri_mat.to(torch.int64).reshape(b, BATCH_SIZE, 1)], -1), reorder)
+    flat_idx = perm[..., 0:3].reshape(-1, 3)
+    tri_nrm_t = torch.cat([nrm[flat_idx[:, k]].T for k in range(3)], 0)
+    return bvh, tri_nrm_t, perm[..., 3].reshape(-1).to(torch.int32)
+
+
+def rebuild_tables(tables, mesh: MeshPose, time: float):
+    """The rebuild stage of an animated frame: displace the rest mesh at
+    `time`, recompute its smooth normals, rebuild the two-level LBVH and
+    write the frame's binary tables into `tables` in place."""
+    verts = displace_wave(mesh.vertices, time)
+    nrm = compute_smooth_normals(verts, mesh.indices)
+    write_tables_binary(tables, *build_scene_tables(
+        mesh.valid.shape[0], mesh.indices, mesh.tri_mat, mesh.valid, verts,
+        nrm))
 
 
 def check_flags(flags: FeatureFlags):
@@ -226,14 +315,15 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
     new FrameState, GBuffer).  The G-buffer is the traced one: with
     interlace, the field's (h/2, w) planes.  overflow: optional (1,) int32
     counter of dropped traversal-stack pushes; stack_depth: optional (1,)
-    int32 counter raised to the deepest traversal stack; rest: the
-    RestPose of a scene animated by the travelling wave, whose frame
-    writes scene.tables in place (None: a static scene)."""
+    int32 counter raised to the deepest traversal stack; rest: a scene
+    animated by the travelling wave, whose frame writes scene.tables in
+    place — a RestPose refits the BVH4, a MeshPose rebuilds the two-level
+    LBVH (None: a static scene)."""
     check_flags(static.flags)
     w, h = static.render_w, static.render_h
     dev = scene.tables.nodes.device
     if rest is not None:
-        animate_tables(scene.tables, rest, state.time)
+        rest.animate(scene.tables, state.time)
     if consts is None:
         consts = make_frame_consts(static, dev)
     frame = state.frame_idx

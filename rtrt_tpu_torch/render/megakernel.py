@@ -10,7 +10,9 @@ the glass inside flip and the 1e-3 ray offset along ng.
 
   * `megakernel_trace` launches, for CUDA tensors, K2
     (csrc/megakernel.cu), which traces every segment with K1's device
-    function (csrc/traverse.cuh); for CPU tensors it runs
+    function (csrc/traverse.cuh) for the tables' tree: the BVH4, or the
+    two-level LBVH in K2's binary instantiation (counted apart, as
+    "megakernel_trace_binary"); for CPU tensors it runs
     `megakernel_trace_plain`;
   * `megakernel_trace_plain` is the torch twin of the JAX
     `simulate_megakernel`, on the port's traversal (bvh/packet.py);
@@ -26,8 +28,8 @@ import math
 
 import torch
 
-from ..bvh.packet import (_check_tables, _resolve, overflow_counter,
-                          traverse_plain)
+from ..bvh.packet import (_check_tables, _resolve, kernel_name,
+                          layout_args, overflow_counter, traverse_plain)
 from ..core.camera import motion_vector
 from ..utils import cuda
 from .bsdf import MAT_EMISSIVE
@@ -393,7 +395,8 @@ def megakernel_trace(tables, mat_rows, light_rows, sun_vec, frame_idx, org,
     _check_tables(tables, dev)
     work = torch.empty(1, dtype=torch.int32, device=dev)  # zeroed by K2
     cuda.launch(
-        cuda.library().rtrt_megakernel, "megakernel_trace", dev,
+        cuda.library().rtrt_megakernel,
+        kernel_name("megakernel_trace", tables), dev,
         tables.nodes, tables.tris, tables.nrm, tables.ng, tables.mat,
         mat_rows, ctypes.c_int(mat_rows.shape[0]), light_rows,
         ctypes.c_int(n_lights), sun_vec,
@@ -405,7 +408,7 @@ def megakernel_trace(tables, mat_rows, light_rows, sun_vec, frame_idx, org,
         ctypes.c_int(n), out, overflow,
         stack_depth if stack_depth is not None else ctypes.c_void_p(0), work,
         ctypes.c_int(lead[-1] if len(lead) > 1 else n),
-        ctypes.c_int(tables.stack))
+        *layout_args(tables))
     p = out.reshape((18,) + lead)
     s3 = lambda k: p[k:k + 3].movedim(0, -1)
     return MegaOut(radiance=s3(0), albedo=s3(3), normal=s3(6), depth=p[9],

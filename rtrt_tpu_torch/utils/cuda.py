@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launch_counts = {"packet_intersect": 0, "megakernel_trace": 0,
+                 "packet_intersect_binary": 0, "megakernel_trace_binary": 0,
                  "post_tail": 0, "post_tail_mapped": 0, "denoise_wide": 0, "reproject": 0,
                  "probe_step": 0, "probe_leaf": 0, "probe_cores": 0,
                  "probe_cores_grid": 0, "probe_cond": 0,
@@ -48,11 +49,11 @@ _U = ctypes.c_uint
 # the queries rtrt_smem_optin, a device attribute, and rtrt_traverse_stack,
 # the traversal stack depths that have an instantiation)
 _SIGNATURES = {
-    "rtrt_traverse": [_P] * 8 + [_I, _I] + [_P] * 7 + [_I, _P, _P, _I]
-    + [_P],
-    "rtrt_traverse_stack": [ctypes.POINTER(_I), _I],
+    "rtrt_traverse": [_P] * 8 + [_I, _I] + [_P] * 7 + [_I, _P, _P]
+    + [_I, _I, _I] + [_P],
+    "rtrt_traverse_stack": [ctypes.POINTER(_I), _I, _I],
     "rtrt_megakernel": [_P] * 6 + [_I, _P, _I, _P] + [_F] * 4 + [_U]
-    + [_P] * 5 + [_I, _I, _I] + [_P] * 4 + [_I, _I] + [_P],
+    + [_P] * 5 + [_I, _I, _I] + [_P] * 4 + [_I] + [_I, _I, _I] + [_P],
     "rtrt_post_tail": [_P, _I, _I, _P, _P, _I, _I, _I, _P] + [_P],
     "rtrt_denoise_wide": [_P] * 4 + [_I, _I, _P] + [_I] * 4 + [_F] * 3
     + [_P] + [_P],
@@ -145,11 +146,12 @@ def library():
     return _lib
 
 
-def traverse_stacks() -> tuple:
+def traverse_stacks(arity: int = 4) -> tuple:
     """The traversal stack depths (entries) that K1 and K2 are instantiated
-    for, as the library reports them."""
+    for on trees of `arity` (4: the BVH4, 2: the two-level LBVH), as the
+    library reports them."""
     depths = (_I * 8)()
-    n = library().rtrt_traverse_stack(depths, 8)
+    n = library().rtrt_traverse_stack(depths, 8, arity)
     return tuple(depths[:n])
 
 

@@ -84,6 +84,14 @@ Tolerances:
     tree whose empty slots hold the inverted (+inf, -inf) boxes refit
     writes (tests/torch_refit_cases.py): the same hits as the plain version
     and brute force, no NaN, 0 dropped pushes.
+  * The two-level LBVH (Engine(..., bvh="lbvh", animation="wave") on the
+    1080p terrain, three rebuilt frames under sync debug "error"): the
+    device build equal to the CPU build of the same arrays on every table
+    (the vertex normals, summed in atomic order, within 1e-5); K1's and
+    K2's binary instantiations against their plain versions at the bounds
+    of the refitted terrain's tests, 0 dropped pushes, the deepest stack
+    within the static bound; the C entries refuse any (arity, stack) pair
+    without an instantiation, the wrappers tables of the wrong layout.
 """
 
 import numpy as np
@@ -990,3 +998,165 @@ def test_traverse_kernel_inverted_empty_slots(cuda_device, any_hit):
     assert (got.tri[-128:] >= 0).all()
     h = got.tri >= 0
     torch.testing.assert_close(got.t[h], bt[h], rtol=1e-5, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the two-level LBVH: the device build, K1 / K2's binary instantiations and
+# the Engine that rebuilds it every frame
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def lbvh_engine(cuda_device):
+    """Engine(terrain, 1080p, bvh="lbvh", animation="wave") after three
+    frames under sync debug "error": the rebuild (displace, normals, LBVH,
+    tables in place) reads nothing back to the host."""
+    eng = Engine(GlobalSettings(scene="terrain", render_width=1920,
+                                render_height=1080, texture_size=256,
+                                dynamic_resolution=DynamicResolution(
+                                    enabled=False)),
+                 animation="wave", bvh="lbvh", device=cuda_device)
+    tables = eng.scene_data.tables
+    ptrs = {f: getattr(tables, f).data_ptr()
+            for f in ("nodes", "tris", "nrm", "ng", "mat")}
+    nodes0 = tables.nodes.clone()
+    eng.render_frame_device(dt=1 / 60)  # warm: first-call allocations
+    cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            eng.render_frame_device(dt=1 / 60)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["megakernel_trace_binary"] == 3
+    assert cuda.launch_counts["megakernel_trace"] == 0
+    assert int(eng.overflow) == 0
+    assert 0 < int(eng.stack_depth) <= tables.levels
+    assert all(getattr(tables, f).data_ptr() == p for f, p in ptrs.items())
+    assert not torch.equal(tables.nodes, nodes0)
+    return eng
+
+
+@pytest.mark.gpu
+def test_lbvh_device_build_matches_cpu(lbvh_engine, cuda_device):
+    """The terrain's build at the Engine's clock on the card and on the CPU
+    from the same arrays (the vertices displaced and their normals summed
+    on the card, then copied): every table equal (integer logic, and min /
+    max of float32 boxes whose arithmetic rounds the same on both); the
+    normals the card summed in atomic order against the CPU's sums within
+    1e-5."""
+    from rtrt_tpu_torch.engine import frame as F
+    mesh, t = lbvh_engine.rest, lbvh_engine.state.time
+    verts = F.displace_wave(mesh.vertices, t)
+    nrm = F.compute_smooth_normals(verts, mesh.indices)
+    torch.testing.assert_close(
+        nrm.cpu(), F.compute_smooth_normals(verts.cpu(), mesh.indices.cpu()),
+        rtol=0, atol=1e-5)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        out[dev.type] = F.build_scene_tables(
+            mesh.valid.shape[0], *(x.to(dev) for x in (
+                mesh.indices, mesh.tri_mat, mesh.valid, verts, nrm)))
+    (g, gn, gm), (c, cn, cm) = out["cuda"], out["cpu"]
+    for f in ("children_t", "sorted_tri_index", "boxes_t", "tris_t",
+              "root_lo", "root_hi"):
+        assert torch.equal(getattr(g, f).cpu(), getattr(c, f)), f
+    assert torch.equal(gm.cpu(), cm) and torch.equal(gn.cpu(), cn)
+
+
+def _terrain_rays(eng, frame, step):
+    consts = eng.consts
+    rays = generate_rays_padded(camera_basis(eng.camera), eng.render_w,
+                                eng.render_h, consts.pixel_ids,
+                                rand2_bn(consts.bn, frame, 0),
+                                rand2_bn(consts.bn, frame, 256))
+    return (rays.org.reshape(-1, 3)[::step].contiguous(),
+            rays.dir.reshape(-1, 3)[::step].contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_traverse_kernel_binary_matches_plain(lbvh_engine, cuda_device,
+                                              any_hit):
+    """K1's binary instantiation on the rebuilt terrain LBVH, at the bounds
+    of the refitted terrain's test above."""
+    org, d = _terrain_rays(lbvh_engine, 3, 8)
+    tables = lbvh_engine.scene_data.tables
+    ovf = P.overflow_counter(cuda_device)
+    before = cuda.launch_counts["packet_intersect_binary"]
+    got = P.packet_intersect(tables, org, d, any_hit=any_hit, overflow=ovf)
+    ref = P.packet_intersect_plain(tables, org, d, any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["packet_intersect_binary"] == before + 1
+    assert int(ovf) == 0
+    assert (ref.tri >= 0).float().mean() > 0.3
+    same = (got.tri == ref.tri) & (ref.tri >= 0)
+    assert (got.tri == ref.tri).float().mean() >= 0.999
+    dt = (got.t - ref.t).abs()[same]
+    flat = 1e-5 * ref.t.abs()[same] + 4e-6
+    assert (dt <= flat).float().mean() >= 0.9999
+    assert (dt <= 1e-3 * ref.t.abs()[same]).all()
+
+
+@pytest.mark.gpu
+def test_megakernel_binary_matches_plain(lbvh_engine, cuda_device):
+    """K2's binary instantiation on the rebuilt terrain LBVH, every 4th row
+    and column of the frame, at K2's bounds; its deepest stack within the
+    static bound."""
+    eng = lbvh_engine
+    sc, consts = eng.scene_data, eng.consts
+    sub = lambda x: x[::4, ::4].contiguous()
+    rays = generate_rays_padded(camera_basis(eng.camera), eng.render_w,
+                                eng.render_h, consts.pixel_ids,
+                                rand2_bn(consts.bn, 5, 0),
+                                rand2_bn(consts.bn, 5, 256))
+    args = (sc.tables, pack_materials_rows(sc.materials).to(cuda_device),
+            M.pack_light_rows(sc.lights, cuda_device),
+            M.pack_sun_params(sc.sky), 5, sub(rays.org), sub(rays.dir),
+            sub(rays.cone_width), sub(consts.pixel_ids))
+    bn = sub(consts.bn)
+    ovf, depth = (P.overflow_counter(cuda_device) for _ in range(2))
+    got = M.megakernel_trace(*args, n_lights=0, bn=bn, overflow=ovf,
+                             stack_depth=depth)
+    ref = M.megakernel_trace_plain(*args, n_lights=0, bn=bn)
+    torch.cuda.synchronize()
+    assert int(ovf) == 0 and 0 < int(depth) <= sc.tables.levels
+    miss = (got.mat_id == -1) & (ref.mat_id == -1)
+    assert 0 < miss.float().mean() < 1
+    d_ok = torch.isclose(got.depth, ref.depth, rtol=1e-4, atol=0) | (
+        torch.isinf(got.depth) & torch.isinf(ref.depth))
+    assert d_ok.float().mean() >= 0.99
+    assert (got.mat_id == ref.mat_id).float().mean() >= 0.99
+    for f in ("normal", "albedo", "esc_dir", "esc_beta", "esc_pdf"):
+        a, b = getattr(got, f), getattr(ref, f)
+        rtol = 1e-2 if f == "esc_beta" else 0.0
+        ok = ((a - b).abs() - rtol * b.abs()).amax(-1) <= 5e-3 \
+            if a.dim() == 3 else (a - b).abs() <= 5e-3
+        assert ok[~miss].float().mean() >= 0.99, f
+    torch.testing.assert_close(got.radiance.mean((0, 1)),
+                               ref.radiance.mean((0, 1)), rtol=1e-2,
+                               atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_binary_kernels_refuse_other_layouts(lbvh_engine, cuda_device):
+    """The binary instantiations exist at the 256-entry stack only, and the
+    C entries refuse any other (arity, stack) pair before launching; tables
+    of the wrong layout or on the CPU are refused by the wrappers."""
+    import copy
+    assert cuda.traverse_stacks(2) == (256,)
+    assert cuda.traverse_stacks() == P.STACK_DEPTHS
+    tables = lbvh_engine.scene_data.tables
+    org, d = _terrain_rays(lbvh_engine, 1, 4096)
+    small = copy.copy(tables)
+    small.stack = 32
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        P.packet_intersect(small, org, d)
+    wrong = copy.copy(tables)
+    wrong.tlas_internal += 1
+    with pytest.raises(ValueError, match="two-level LBVH"):
+        P.packet_intersect(wrong, org, d)
+    with pytest.raises(ValueError, match="on cpu"):
+        P.packet_intersect(tables.to("cpu"), org, d)
