@@ -122,12 +122,30 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      reset just before: K2's binary instantiation 13, K3 13, K4 52, K5 13;
      device busy and launches per frame of both and of the rebuild stage
      alone (torch.profiler).
+ 15. the opt-in branches of K1 and K2: K2's Fourier-texture
+     instantiation against its plain version on the 1080p view of phase 3
+     (`_check_k2`; the fit of Engine(terrain, 1920x1080,
+     FeatureFlags(fourier_textures=True))), timed beside the procedural
+     K2 on the same view; that Engine, 3 warm-up and 5 timed frames under
+     sync debug "error" (each image (1080, 1920, 3) uint8; launch counters
+     reset just before: K2's Fourier instantiation 8), its traced albedo
+     against the same frame's with the procedural soil (> 1% of pixels
+     differ), device busy and launches per frame; the flat binary SAH
+     tree (Engine(..., bvh="sah2")): K1's and K2's binary leaf-row
+     instantiations against their plain versions on the 1080p primaries
+     and the any-hit rays toward a low sun, 0 dropped pushes, the deepest
+     stack within the tables' levels, K1 under probe_traverse's step caps
+     (its launches), K2's time beside the BVH4 instantiation's on the same
+     view; that Engine timed as above (K2's leaf-row instantiation 8);
+     Engine(GlobalSettings(scene="terrain", sky_model="preetham")): two
+     frames, each image finite uint8.
   --profile adds 6: torch.profiler over 5 frames each of the main path,
      the north star's Engine at the 720 bucket and the interlaced Engine
      (device busy time, launches and synchronising calls per frame, top
      device ops).
 Prints the card's name and power limit, the per-kernel JSON line (K1-K16,
-K3's pre-mapped instantiation and K1's and K2's binary instantiations),
+K3's pre-mapped instantiation, K1's and K2's binary instantiations, their
+leaf-row instantiations and K2's Fourier-texture instantiation),
 then as its last line
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX nor of the JAX package.  Exits 1 when CUDA is not
@@ -183,6 +201,16 @@ K4_TAP_OPS, K4_PX_OPS, K5_PX_OPS = 21, 10, 280
 #     per-launch table).  Sphere-light terms are not counted (the terrain
 #     has no sphere light).
 SURF_OPS, SOIL_OPS, BSDF_OPS = 109, 13 * 208 + 90, 264 + 3 * 12
+#   ftex_ops(atoms) per textured hit of K2's Fourier branch
+#     (kshade.cuh::ftex_shading): per texture and atom an expf and its
+#     product (2) and per plane the angle (2 products, a sum), a sincosf
+#     (2), the two attenuated terms (2) and 8 FMAs (16): 23; per texture
+#     12 initial sums and the 4 channels' triplanar blend (24); ~80 of
+#     weights, footprint, clamps, frame and normalisation
+def ftex_ops(atoms):
+    return 2 * (atoms * (2 + 3 * 23) + 36) + 80
+
+
 # (the probes K6-K9 count theirs in their tool modules: LANE_OPS, LEAF_OPS,
 # INT_OPS; every bound is rtrt_tpu_torch/utils/timing.py::bound_ms, whose
 # rates are the H100 SXM data sheet's at 700 W)
@@ -717,6 +745,11 @@ def main() -> int:
     print(f"-- phase 14 at {time.perf_counter() - t_start:.1f} s")
     lbvh = _lbvh(card, settings, main.scene, cam0, tables, k1_visits)
 
+    # ---- 15. Fourier textures, the flat binary SAH tree, Preetham ----
+    print(f"-- phase 15 at {time.perf_counter() - t_start:.1f} s")
+    optin = _optin(card, settings, main.scene, cam0, tables, k1_visits,
+                   lbvh[1]["ms"])
+
     if "--profile" in sys.argv[1:]:
 
         def il_step(k):
@@ -785,7 +818,7 @@ def main() -> int:
              launches=counts["reproject"], max_abs_err=k5_err,
              ms=k5_ms, graph_ms=k5_graph, plain_ms=k5_plain,
              bound_ms=k5_bound[0], bound_by=k5_bound[1], library_ms=None),
-    ] + lbvh + probes + hw_probes
+    ] + lbvh + optin + probes + hw_probes
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1014,9 +1047,13 @@ def _dev_t(e):
 
 
 def _top(kern, frames, n=4):
-    """The n device ops of most time: [(name, ms per frame)]."""
+    """The n device ops of most time: [(name, ms per frame, events
+    recorded)].  An op that runs once a frame and shows fewer than
+    `frames` events lost some to the profiler, and its ms per frame reads
+    low by as much."""
     top = sorted(kern, key=_dev_t, reverse=True)[:n]
-    return [(e.key[:40], round(_dev_t(e) / frames / 1e3, 4)) for e in top]
+    return [(e.key[:40], round(_dev_t(e) / frames / 1e3, 4), e.count)
+            for e in top]
 
 
 def _animated(card, settings, scene, cam0, static_ms, static_step):
@@ -1278,7 +1315,7 @@ def _lbvh(card, settings, scene, cam0, bvh4_tables, bvh4_visits):
           f"64-byte records, {tables.tlas_internal} TLAS rows; static "
           f"stack bound {tables.levels} entries: stack {tables.stack}")
     assert (tables.arity, tables.stack) == (2, 256)
-    assert cuda.traverse_stacks(2) == (256,)
+    assert cuda.traverse_stacks(2, 1) == (256,)
     rays = generate_rays_padded(camera_basis(cam0), W, H, consts.pixel_ids,
                                 rand2_bn(consts.bn, 0, 0),
                                 rand2_bn(consts.bn, 0, 256))
@@ -1439,6 +1476,286 @@ def _lbvh(card, settings, scene, cam0, bvh4_tables, bvh4_visits):
              launches=launches, max_abs_err=float(k2_err), ms=k2_ms,
              bvh4_ms_same_view=k2_bvh4, plain_ms=k2_plain,
              bound_ms=k2_bound[0], bound_by=k2_bound[1], library_ms=None),
+    ]
+
+
+def _timed_engine(card, label, eng, cam0, counter, n_warm=3, n_timed=5):
+    """n_warm + n_timed frames of the slow pan under sync debug "error",
+    the launch counters reset just before: each image (H, W, 3) uint8, 0
+    dropped pushes, `counter` read n_warm + n_timed launches; then device
+    busy and launches per frame (torch.profiler over 3 frames).  Returns
+    (ms/frame by host clock, the counter's launches)."""
+    import torch
+    from rtrt_tpu_torch.utils import cuda
+
+    def pan(k):
+        eng.camera = dataclasses.replace(cam0, yaw=cam0.yaw + 0.002 * k)
+
+    cuda.reset_launch_counts()
+    eng.overflow.zero_()
+    eng.stack_depth.zero_()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for k in range(n_warm + n_timed):
+            if k == n_warm:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            pan(k)
+            img = eng.render_frame_device(dt=1 / 60)
+            assert tuple(img.shape) == (H, W, 3) and img.dtype == torch.uint8
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ms = (time.perf_counter() - t0) / n_timed * 1e3
+    counts = dict(cuda.launch_counts)
+    nf = n_warm + n_timed
+    print(f"{label}: {ms:.2f} ms/frame over {n_timed} frames (host clock "
+          f"around synchronize, sync debug 'error' on all {nf}); deepest "
+          f"stack {int(eng.stack_depth)} entries of "
+          f"{eng.scene_data.tables.stack}, dropped pushes "
+          f"{int(eng.overflow)} {card}")
+    print(f"{label} launch counts over {nf} frames: "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    want = {counter: nf, "post_tail": nf, "denoise_wide": 4 * nf,
+            "reproject": nf}
+    for k, v in want.items():
+        assert counts[k] == v, f"{label}: {k} launched {counts[k]}"
+    others = [k for k, v in counts.items() if v and k.startswith(
+        "megakernel_trace") and k != counter]
+    assert not others, f"{label}: other K2 instantiations {others}"
+    assert int(eng.overflow) == 0, f"{label}: overflow"
+    assert int(eng.stack_depth) <= eng.scene_data.tables.levels * (
+        3 if eng.scene_data.tables.arity == 4 else 1)
+    busy, launches, _, kern = _busy(lambda k: (
+        pan(100 + k), eng.render_frame_device(dt=1 / 60)), 3)
+    print(f"{label}: device busy {busy:.3f} ms/frame, {launches:.1f} kernel "
+          f"launches/frame (torch.profiler over 3 frames); top "
+          f"{_top(kern, 3)} {card}")
+    return ms, counts[counter]
+
+
+def _optin(card, settings, scene, cam0, bvh4_tables, bvh4_visits,
+           lbvh_k2_ms):
+    """Phase 15: K2's Fourier-texture branch, K1 and K2 on the flat binary
+    SAH tree, and the Preetham sky, through the Engine.  Returns the
+    kernels-line entries of K2's Fourier instantiation and of K1's and
+    K2's leaf-row instantiations."""
+    import torch
+    from rtrt_tpu_torch.bvh import packet as P
+    from rtrt_tpu_torch.core.camera import camera_basis
+    from rtrt_tpu_torch.engine import frame as F
+    from rtrt_tpu_torch.engine.engine import Engine
+    from rtrt_tpu_torch.render import megakernel as M
+    from rtrt_tpu_torch.render.kshade import pack_materials_rows
+    from rtrt_tpu_torch.render.raygen import generate_rays_padded
+    from rtrt_tpu_torch.render.sampling import rand2_bn
+    from rtrt_tpu_torch.tools import probe_traverse as PT
+    from rtrt_tpu_torch.utils import cuda
+    from rtrt_tpu_torch.utils.config import FeatureFlags, GlobalSettings
+    from rtrt_tpu_torch.utils.timing import bound_ms, time_ms
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda:0")
+    px = W * H
+
+    # (a) the Fourier-texture Engine, fresh: its fit and K2's table of it
+    # are made at init, so every frame from its first runs under sync
+    # debug "error"
+    feng = Engine(settings, flags=FeatureFlags(fourier_textures=True),
+                  scene=scene, device="cuda")
+    fit = feng.ftex
+    atoms = len(fit.fit.albedo_ao.freq) // 2
+    print(f"Fourier textures: soil set {settings.texture_size}^2 fitted in "
+          f"{feng.init_seconds['textures']:.2f} s, {atoms} atoms a texture "
+          f"(a cosine and a sine term each)")
+    f_frame_ms, f_launches = _timed_engine(
+        card, "Fourier-texture frame", feng, cam0, "megakernel_trace_ftex")
+
+    # (b) K2's Fourier-texture instantiation on the BVH4 view of phase 3
+    sc, consts = feng.scene_data, feng.consts
+    rays = generate_rays_padded(camera_basis(cam0), W, H, consts.pixel_ids,
+                                rand2_bn(consts.bn, 0, 0),
+                                rand2_bn(consts.bn, 0, 256))
+    k2_args = lambda tb: (tb, pack_materials_rows(sc.materials).to(dev),
+                          M.pack_light_rows(sc.lights, dev),
+                          M.pack_sun_params(sc.sky), 0, rays.org, rays.dir,
+                          rays.cone_width, consts.pixel_ids)
+    args = k2_args(sc.tables)
+    ovf = P.overflow_counter(dev)
+    a = M.megakernel_trace(*args, n_lights=0, bn=consts.bn, overflow=ovf,
+                           ftex=fit)
+    f_visits, f_hits = [0, 0], [0, 0, 0]
+    b, f_plain = _once(lambda: M.megakernel_trace_plain(
+        *args, n_lights=0, bn=consts.bn, visits=f_visits, hits=f_hits,
+        ftex=fit.fit))
+    _, _, f_err = _check_k2(f"Fourier textures {W}x{H}", sc.sky, rays, a, b,
+                            camera_basis(cam0))
+    assert int(ovf) == 0, f"K2 Fourier: dropped pushes {int(ovf)}"
+    # the fitted albedo of the primary hits, kernel against plain (the
+    # kernel's sine terms are sin(angle), the plain version's
+    # cos(angle - pi/2) rounded once more)
+    hit = (a.mat_id == b.mat_id) & (b.mat_id >= 0)
+    dalb = (a.albedo - b.albedo).abs().amax(-1)[hit].double()
+    q = torch.quantile(dalb[::max(1, dalb.numel() // 1_000_000)],
+                       torch.tensor([0.5, 0.999], dtype=torch.float64,
+                                    device=dalb.device)).tolist()
+    print(f"K2 Fourier: primary-hit albedo |kernel - plain| median "
+          f"{q[0]:.3e}, 99.9th percentile {q[1]:.3e}, max "
+          f"{dalb.max().item():.3e}")
+    run_f = lambda: M.megakernel_trace(*args, n_lights=0, bn=consts.bn,
+                                       ftex=fit)
+    run_s = lambda: M.megakernel_trace(*args, n_lights=0, bn=consts.bn)
+    ts_a, tf_a, tf_b, ts_b = (time_ms(f, 5) for f in (run_s, run_f, run_f,
+                                                       run_s))
+    f_ms, f_soil = (tf_a + tf_b) / 2, (ts_a + ts_b) / 2
+    f_ops = (f_visits[0] * NODE_OPS + f_visits[1] * LEAF_OPS
+             + f_hits[0] * SURF_OPS + f_hits[1] * ftex_ops(atoms)
+             + f_hits[2] * BSDF_OPS)
+    # bytes: as K2, plus the coefficient table
+    f_bound = bound_ms(px * (40 + 72) + _table_bytes(sc.tables)
+                       + fit.table.numel() * 4, f_ops)
+    print(f"K2 Fourier time, {W}x{H}, the same view (procedural, Fourier, "
+          f"Fourier, procedural): Fourier {tf_a:.3f} / {tf_b:.3f} ms, "
+          f"procedural soil {ts_a:.3f} / {ts_b:.3f} ms; plain "
+          f"{f_plain:.1f} ms; {f_hits[1] / px:.3f} textured hits a pixel, "
+          f"{ftex_ops(atoms)} operations each; bound {f_bound[0]:.4f} ms "
+          f"({f_bound[1]}) {card}")
+
+    # (c) the fit's effect on the Engine's frame
+    out = {}
+    for fl in (None, fit):
+        static = dataclasses.replace(feng.static, ftex=fl)
+        _, _, out[fl is None] = F.render_frame(
+            static, feng.scene_data, feng.state, feng.camera,
+            feng.prev_camera, feng.params, 1 / 60, feng.consts)
+    diff = ((out[False].albedo - out[True].albedo).abs().amax(-1)
+            > 1e-3).float().mean().item()
+    print(f"Fourier-texture frame: traced albedo differs from the same "
+          f"frame's with the procedural soil on {diff:.4f} of pixels")
+    assert diff > 0.01, f"the fit changes only {diff} of the albedo"
+    del feng
+
+    # (d) K1 and K2 on the flat binary SAH tree
+    seng = Engine(settings, flags=FeatureFlags(), scene=scene, bvh="sah2",
+                  device="cuda")
+    tables = seng.scene_data.tables
+    print(f"flat SAH Engine init {seng.init_seconds['sah2']:.2f} s; "
+          f"{tables.nodes.shape[0]} 64-byte records, leaf rows of "
+          f"{tables.leaf_width} slots, {tables.levels} levels: stack "
+          f"{tables.stack} entries")
+    assert (tables.kind, tables.leaf_width) == ("sah2", 8)
+    assert cuda.traverse_stacks(2, 8) == P.STACK_DEPTHS
+    org = rays.org.reshape(-1, 3).contiguous()
+    dirs = rays.dir.reshape(-1, 3).contiguous()
+    n = org.shape[0]
+    ovf.zero_()
+    gk = P.packet_intersect(tables, org, dirs, overflow=ovf)
+    visits = [0, 0]
+    rk, k1_plain = _once(lambda: P.packet_intersect_plain(
+        tables, org, dirs, visits=visits))
+    sh_org, sh_dir = _shadow_rays(org, dirs, rk, sc.sky.sun_dir)
+    gs = P.packet_intersect(tables, sh_org, sh_dir, any_hit=True,
+                            overflow=ovf)
+    rs = P.packet_intersect_plain(tables, sh_org, sh_dir, any_hit=True)
+    torch.cuda.synchronize()
+    k1_err = max(_check_k1(name, tables, o, d, x, y)
+                 for name, o, d, x, y in (
+                     ("flat SAH primary", org, dirs, gk, rk),
+                     ("flat SAH shadow", sh_org, sh_dir, gs, rs)))
+    assert int(ovf) == 0, f"K1 leaf rows: dropped pushes {int(ovf)}"
+    k1_ms = time_ms(lambda: P.packet_intersect(tables, org, dirs), 10)
+    k1_bound = bound_ms(n * (28 + 44) + _table_bytes(tables),
+                        visits[0] * NODE2_OPS + visits[1] * LEAF_OPS)
+    print(f"K1 leaf-row time, {W}x{H} primary rays: kernel {k1_ms:.3f} ms, "
+          f"plain {k1_plain:.1f} ms; {visits[0] / n:.2f} node and "
+          f"{visits[1] / n:.2f} leaf visits per primary (BVH4: "
+          f"{bvh4_visits[0] / n:.2f} and {bvh4_visits[1] / n:.2f}); bound "
+          f"{k1_bound[0]:.4f} ms ({k1_bound[1]}, 64-byte records) {card}")
+    cuda.reset_launch_counts()
+    caps = PT.measure(tables, org, dirs, CAPS, 3)
+    k1_launches = cuda.launch_counts["packet_intersect_sah2"]
+    print("K1 leaf rows under step caps (probe_traverse.measure): "
+          + ", ".join(f"cap {c}: {sec * 1e3:.3f} ms, {st} visits"
+                      for c, sec, st in caps) + f"; {k1_launches} launches "
+          f"{card}")
+    assert k1_launches > 0 and cuda.launch_counts["packet_intersect"] == 0
+
+    args = k2_args(tables)
+    ovf.zero_()
+    depth, pdepth = P.overflow_counter(dev), P.overflow_counter(dev)
+    a = M.megakernel_trace(*args, n_lights=0, bn=consts.bn, overflow=ovf,
+                           stack_depth=depth)
+    k2_visits, k2_hits = [0, 0], [0, 0, 0]
+    b, k2_plain = _once(lambda: M.megakernel_trace_plain(
+        *args, n_lights=0, bn=consts.bn, visits=k2_visits, hits=k2_hits,
+        stack_depth=pdepth))
+    _, _, k2_err = _check_k2(f"flat SAH {W}x{H}", sc.sky, rays, a, b,
+                             camera_basis(cam0))
+    print(f"K2 leaf-row deepest traversal stack {int(depth)} entries (plain "
+          f"version {int(pdepth)}; {tables.levels} levels, stack "
+          f"{tables.stack}); dropped pushes {int(ovf)}")
+    assert int(ovf) == 0, f"K2 leaf rows: dropped pushes {int(ovf)}"
+    assert 0 < int(depth) <= tables.levels, f"K2 deepest {int(depth)}"
+    b4 = k2_args(bvh4_tables)
+    run4 = lambda: M.megakernel_trace(*b4, n_lights=0, bn=consts.bn)
+    run2 = lambda: M.megakernel_trace(*args, n_lights=0, bn=consts.bn)
+    t4a, t2a, t2b, t4b = (time_ms(f, 5) for f in (run4, run2, run2, run4))
+    k2_ms, k2_bvh4 = (t2a + t2b) / 2, (t4a + t4b) / 2
+    k2_ops = (k2_visits[0] * NODE2_OPS + k2_visits[1] * LEAF_OPS
+              + k2_hits[0] * SURF_OPS + k2_hits[1] * SOIL_OPS
+              + k2_hits[2] * BSDF_OPS)
+    k2_bound = bound_ms(px * (40 + 72) + _table_bytes(tables), k2_ops)
+    print(f"K2 time, {W}x{H}, the same view (BVH4, leaf rows, leaf rows, "
+          f"BVH4): leaf rows {t2a:.3f} / {t2b:.3f} ms, BVH4 {t4a:.3f} / "
+          f"{t4b:.3f} ms (two-level binary {lbvh_k2_ms:.3f} ms in phase "
+          f"14); plain {k2_plain:.1f} ms; per pixel over the segments "
+          f"{k2_visits[0] / px:.2f} node and {k2_visits[1] / px:.2f} leaf "
+          f"visits; bound {k2_bound[0]:.4f} ms ({k2_bound[1]}) {card}")
+
+    # (e) the flat SAH Engine
+    _, k2_launches = _timed_engine(card, "flat SAH frame", seng, cam0,
+                                   "megakernel_trace_sah2")
+    del seng
+
+    # (f) the Preetham sky through the default settings
+    peng = Engine(GlobalSettings(scene="terrain", sky_model="preetham"),
+                  scene=scene, device="cuda")
+    for _ in range(2):
+        img = peng.render_frame_device(dt=1 / 60)
+        torch.cuda.synchronize()
+        assert tuple(img.shape) == (H, W, 3) and img.dtype == torch.uint8
+        assert torch.isfinite(peng.last_gbuffer.color).all()
+    top = img[: H // 10].float().mean((0, 1)).tolist()
+    print(f"Preetham sky: 2 frames at the {peng.render_h} bucket, top rows "
+          f"mean RGB {[round(v, 1) for v in top]}")
+    print(f"phase 15 took {time.perf_counter() - t_phase:.1f} s {card}")
+
+    return [
+        dict(name="K1 traverse, flat binary SAH instantiation with 8-slot "
+             "leaf rows (traverse2<.., LEAF_WIDTH>, bvh='sah2'; in its frame "
+             "the traversal runs inside K2: launches are "
+             "probe_traverse.measure's under the step caps, phase 15)",
+             route="cuda", source="rtrt_tpu_torch/csrc/traverse.cu",
+             replaces="rtrt_tpu/bvh/packet.py:1104", launches=k1_launches,
+             max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
+             bound_ms=k1_bound[0], bound_by=k1_bound[1], library_ms=None),
+        dict(name="K2 megakernel, flat binary SAH instantiation with 8-slot "
+             "leaf rows (launches: the bvh='sah2' Engine's 8 frames, phase "
+             "15)", route="cuda",
+             source="rtrt_tpu_torch/csrc/megakernel.cu",
+             replaces="rtrt_tpu/render/megakernel.py:707",
+             launches=k2_launches, max_abs_err=float(k2_err), ms=k2_ms,
+             bvh4_ms_same_view=k2_bvh4, plain_ms=k2_plain,
+             bound_ms=k2_bound[0], bound_by=k2_bound[1], library_ms=None),
+        dict(name="K2 megakernel, Fourier-texture instantiation on the BVH4 "
+             "(the TPU kernel's ftex branch; launches: the "
+             "fourier_textures Engine's 8 frames, phase 15)", route="cuda",
+             source="rtrt_tpu_torch/csrc/megakernel.cu",
+             replaces="rtrt_tpu/render/megakernel.py:707",
+             launches=f_launches, max_abs_err=float(f_err), ms=f_ms,
+             procedural_ms_same_view=f_soil, plain_ms=f_plain,
+             bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=None,
+             frame_ms=f_frame_ms),
     ]
 
 

@@ -1,7 +1,8 @@
 """Ray-scene traversal: kernel K1 and its plain twin (port of
-rtrt_tpu/bvh/packet.py::packet_intersect / traverse_tile), over either
-tree the JAX kernel takes: the 4-wide SAH tree of a static scene
-(arity 4) or the two-level LBVH that bvh/build.py rebuilds (arity 2).
+rtrt_tpu/bvh/packet.py::packet_intersect / traverse_tile), over each tree
+the JAX kernel takes: the 4-wide SAH tree of a static scene (arity 4),
+the two-level LBVH that bvh/build.py rebuilds (arity 2, one-triangle
+leaves) and the flat binary SAH tree (arity 2, 8-slot leaf rows).
 
 The TPU kernel shares ONE scalar stack across a 32x128 ray tile and steps
 the tile through the union of its rays' node visits.  On Hopper the natural
@@ -34,12 +35,19 @@ its tables are built, before anything is traced.
 
 The binary two-level tables (`pack_tables_binary`) hold one 64-byte record
 a row: both child boxes and both child entries, the JAX kernel's 16 lanes
-and the reference's BVHNode.  A BLAS node's row is tlas_internal +
-batch * 1023 + idx, a TLAS node's its 22-bit field, and a leaf is one
-triangle.  A node visit slab-tests both children, continues with the
-nearer (the left one on a tie) and pushes the other.  Their tree is rebuilt
-every frame of an animated scene, so its depth cannot be walked on the host
-(a sync): the stack comes from the static bound of `binary_stack_bound`.
+and the reference's BVHNode.  A node visit slab-tests both children,
+continues with the nearer (the left one on a tie) and pushes the other, so
+the stack holds at most one entry a level.  Two binary trees use them:
+  * the two-level LBVH: a BLAS node's row is tlas_internal + batch * 1023
+    + idx, a TLAS node's its 22-bit field, and a leaf is one triangle.  Its
+    tree is rebuilt every frame of an animated scene, so its depth cannot
+    be walked on the host (a sync): the stack comes from the static bound
+    of `binary_stack_bound`;
+  * the flat binary SAH tree (`pack_tables_sah2`, the JAX Engine's
+    RTRT_SAH=2): every internal entry is its row, and a leaf is an 8-slot
+    row as in the BVH4.  Its tree is built once on the host, where its
+    levels are counted (`tree_levels`), and its stack holds them: this
+    tree is no Karras tree, so the LBVH's bound does not hold for it.
 
 The hit id is the sorted slot; shading attributes come from the sorted
 normal / geometric-normal / material tables at that slot.
@@ -76,15 +84,17 @@ class TraceTables:
     nodes: the BVH4's (q, 32) f32 128-byte records from
       bvh/sah.py::bvh4_nodes — 4 child AABBs (lo xyz, hi xyz) then 4 child
       entries as exact floats (leaf bit 23, -1 = empty slot), 4 pad floats;
-      or the two-level LBVH's (M, 16) f32 64-byte records — 2 child AABBs,
-      then the 2 child entries as exact floats, 2 pad floats.
+      or a binary tree's (M, 16) f32 64-byte records — 2 child AABBs, then
+      the 2 child entries as exact floats, 2 pad floats.
     tris (P, 9) f32: sorted triangles as [v0 | v1 - v0 | v2 - v0].
     nrm (P, 9) f32: sorted vertex normals [n0 | n1 | n2].
     ng (P, 3) f32: unit geometric normal per slot.
     mat (P,) i32: material id per slot.
-    tlas_internal (an init argument, kept as an attribute; the fields are
-      the five tensors): the TLAS rows of two-level tables (B - 1); None
-      for a BVH4.
+    The layout (init arguments, kept as attributes; the fields are the
+    five tensors): tlas_internal, the TLAS rows of binary tables (B - 1 for
+    the two-level LBVH, 0 for the flat SAH tree), None for a BVH4;
+    leaf_width, the triangle slots a leaf entry tests (LEAF_WIDTH for a
+    BVH4 and the flat SAH tree, 1 for the LBVH; None: the tree's own).
     """
 
     nodes: torch.Tensor
@@ -93,19 +103,26 @@ class TraceTables:
     ng: torch.Tensor
     mat: torch.Tensor
     tlas_internal: dataclasses.InitVar[int | None] = None
+    leaf_width: dataclasses.InitVar[int | None] = None
 
-    def __post_init__(self, tlas_internal):
+    def __post_init__(self, tlas_internal, leaf_width):
         # not fields: the tree's layout and what derives from it (levels:
-        # its internal levels, counted for a BVH4, the static bound for
-        # two-level tables; stack: the traversal stack depth of every
-        # traversal of these tables)
+        # its internal levels, counted for a tree built on the host, the
+        # static bound for two-level tables; stack: the traversal stack
+        # depth of every traversal of these tables)
         self.tlas_internal = tlas_internal
         if tlas_internal is None:
+            self.leaf_width = LEAF_WIDTH
             self.levels = tree_levels(self.nodes)
             self.stack = stack_depth(self.levels)
-        else:
+        elif leaf_width in (None, 1):
+            self.leaf_width = 1
             self.levels = binary_stack_bound(self.tris.shape[0]
                                              // BATCH_SIZE)
+            self.stack = binary_stack_depth(self.levels)
+        else:
+            self.leaf_width = leaf_width
+            self.levels = tree_levels(self.nodes, arity=2)
             self.stack = binary_stack_depth(self.levels)
 
     @property
@@ -113,22 +130,28 @@ class TraceTables:
         return 2 if self.tlas_internal is not None else 4
 
     @property
-    def leaf_width(self) -> int:
-        """Triangle slots a leaf entry tests."""
-        return 1 if self.tlas_internal is not None else LEAF_WIDTH
+    def kind(self) -> str:
+        """The tree: "bvh4", "lbvh" (two-level, one-triangle leaves) or
+        "sah2" (flat binary, leaf rows)."""
+        if self.arity == 4:
+            return "bvh4"
+        return "lbvh" if self.leaf_width == 1 else "sah2"
 
     def to(self, device) -> "TraceTables":
         return TraceTables(*(getattr(self, f.name).to(device).contiguous()
                              for f in dataclasses.fields(self)),
-                           tlas_internal=self.tlas_internal)
+                           tlas_internal=self.tlas_internal,
+                           leaf_width=self.leaf_width)
 
 
-def tree_levels(nodes) -> int:
-    """Internal levels of the BVH4 in (q, 32) records (the root is level 1):
-    a walk from the root over the child entries (floats 24..27; -1 empty,
-    leaf bit 23)."""
+def tree_levels(nodes, arity: int = 4) -> int:
+    """Internal levels of a tree built on the host (the root is level 1): a
+    walk from the root over the child entries of its records, the BVH4's
+    (q, 32) (floats 24..27) or the flat binary tree's (M, 16) (floats 12,
+    13); -1 empty, leaf bit 23, an internal entry's row its 22-bit
+    field."""
     nodes = torch.as_tensor(nodes).detach().cpu()
-    kids = nodes[:, 24:28].to(torch.int64)
+    kids = nodes[:, 6 * arity:7 * arity].to(torch.int64)
     front = torch.zeros(1, dtype=torch.int64)
     levels = 0
     while front.numel():
@@ -173,12 +196,13 @@ def binary_stack_bound(num_batches: int) -> int:
 
 def binary_stack_depth(bound: int) -> int:
     """The smallest traversal stack of STACK_DEPTHS that holds `bound`
-    entries of a two-level LBVH; ValueError when the deepest does not."""
+    entries of a binary tree (one a level); ValueError when the deepest
+    does not."""
     for depth in STACK_DEPTHS:
         if depth >= bound:
             return depth
     raise ValueError(
-        f"the two-level LBVH may need a {bound}-entry traversal stack; the "
+        f"the binary tree may need a {bound}-entry traversal stack; the "
         f"deepest the kernels hold is {max(STACK_DEPTHS)} entries")
 
 
@@ -218,6 +242,22 @@ def pack_tables_binary(bvh, tri_nrm_t, tri_mat) -> TraceTables:
         ng=ng.contiguous(),
         mat=tri_mat.to(tt.device, torch.int32).contiguous(),
         tlas_internal=bvh.tlas_internal)
+
+
+def pack_tables_sah2(bvh, tri_nrm_t, tri_mat) -> TraceTables:
+    """Flat binary SAH SceneBvh with 8-slot leaf rows (bvh/sah.py,
+    leaf_max=LEAF_WIDTH) + sorted normals / materials -> binary
+    TraceTables without TLAS rows (on the device of bvh.tris_t); the
+    tree's levels are counted from its records (the host walk of
+    `tree_levels`)."""
+    tt = bvh.tris_t.to(torch.float32)
+    tris, ng = _tri_rows(tt)
+    return TraceTables(
+        nodes=binary_nodes(bvh), tris=tris.T.contiguous(),
+        nrm=tri_nrm_t.to(tt.device, torch.float32).T.contiguous(),
+        ng=ng.contiguous(),
+        mat=tri_mat.to(tt.device, torch.int32).contiguous(),
+        tlas_internal=0, leaf_width=LEAF_WIDTH)
 
 
 def write_tables_binary(tables: TraceTables, bvh, tri_nrm_t, tri_mat):
@@ -451,9 +491,10 @@ def _leaf_visit(tables, idx, ent, org, dir, best, tri, hu, hv, sp, first_hit,
 def node_row(tables: TraceTables, ent):
     """Row of the node record of internal entries `ent`: a BLAS node of
     two-level tables sits at tlas_internal + batch * 1023 + idx, any other
-    node at its 22-bit field (a TLAS node, a BVH4 node)."""
+    node at its 22-bit field (a TLAS node, a BVH4 node, a node of the flat
+    SAH tree)."""
     row = ent & (_BLAS_BIT - 1)
-    if tables.tlas_internal is None:
+    if tables.kind != "lbvh":
         return row
     return torch.where((ent & _BLAS_BIT) != 0, tables.tlas_internal
                        + entry_batch(ent) * BLAS_NODES + entry_idx(ent), row)
@@ -590,16 +631,21 @@ def packet_intersect(tables: TraceTables, org, dir, t_max=None, *,
     return out
 
 
+_KERNEL_SUFFIX = {"bvh4": "", "lbvh": "_binary", "sah2": "_sah2"}
+
+
 def kernel_name(name: str, tables: TraceTables) -> str:
     """The launch counter of a traversal kernel's instantiation for these
-    tables: `name` for a BVH4, `name`_binary for two-level tables."""
-    return name if tables.arity == 4 else f"{name}_binary"
+    tables: `name` for a BVH4, `name`_binary for two-level tables,
+    `name`_sah2 for the flat binary SAH tree."""
+    return name + _KERNEL_SUFFIX[tables.kind]
 
 
 def layout_args(tables: TraceTables):
-    """The tables' (arity, tlas_internal, stack) C arguments, by which the
-    kernels' C entries pick their instantiation (and refuse any other)."""
-    return (ctypes.c_int(tables.arity),
+    """The tables' (arity, leaf width, tlas_internal, stack) C arguments,
+    by which the kernels' C entries pick their instantiation (and refuse
+    any other)."""
+    return (ctypes.c_int(tables.arity), ctypes.c_int(tables.leaf_width),
             ctypes.c_int(tables.tlas_internal or 0),
             ctypes.c_int(tables.stack))
 
@@ -608,6 +654,12 @@ def _check_tables(tables: TraceTables, dev):
     p = tables.tris.shape[0]
     if tables.arity == 4:
         nodes = (tables.nodes.shape[0], 32)
+    elif tables.kind == "sah2":  # no TLAS rows; leaf rows of 8 slots
+        nodes = (tables.nodes.shape[0], 16)
+        if p % LEAF_WIDTH or tables.tlas_internal != 0:
+            raise ValueError(f"flat binary tables: {p} triangle slots and "
+                             f"{tables.tlas_internal} TLAS rows do not make "
+                             f"a flat SAH tree of {LEAF_WIDTH}-slot leaves")
     else:  # the TLAS rows, then 1023 rows per batch of 1024 slots
         nodes = (tables.tlas_internal + p // BATCH_SIZE * BLAS_NODES, 16)
         if p % BATCH_SIZE or tables.tlas_internal != p // BATCH_SIZE - 1:

@@ -5,7 +5,8 @@
 // Sobol, native uint32_t math, bit-exact), the component-form BSDFs
 // (Lambert, mirror, Fresnel glass, GGX with VNDF sampling), sun and
 // sphere-light NEE with the power heuristic, material-row select, normal
-// orientation and the procedural soil texture.
+// orientation, the procedural soil texture and the Fourier-fitted textures
+// (render/ftex.py).
 //
 // Differences from the torch form are per-thread control flow only: where
 // the vector form computes every lobe and selects by material type, this
@@ -460,6 +461,94 @@ __device__ __forceinline__ void soil_shading(V3 pos, V3 ns, float cone_width,
   V3 bump = v3(bx - 0.5f, by - 0.5f, bz - 0.5f);
   n_out = vnormalize(ns + bump * (0.8f * bump_fade));
   alb_out = alb * ao;
+}
+
+// ---------------------------------------------------------------------------
+// Fourier-fitted textures (render/ftex.py::ftex_shading_c)
+// ---------------------------------------------------------------------------
+
+// the fit's coefficient table (render/ftex.py::pack_ftex, whose FTEX_*
+// constants these must equal): a row a texture (albedo + AO, normal +
+// roughness), FTEX_HEAD floats (4 channel means, the world scale: texture
+// tiles a world unit) then FTEX_ATOM floats for each of the fit's
+// FTEX_ATOMS atoms (2 pi fx, 2 pi fy, -2 pi^2 |f|^2, 0, the cosine term's 4
+// weights, the sine term's 4)
+constexpr int FTEX_ATOMS = 24;
+constexpr int FTEX_HEAD = 8;
+constexpr int FTEX_ATOM = 12;
+constexpr int FTEX_ROW = FTEX_HEAD + FTEX_ATOMS * FTEX_ATOM;
+
+// The table lives in constant memory, copied on the stream before each
+// launch that shades from it (megakernel.cu).  The lanes of a warp that
+// shade a textured hit walk the same atom at the same step, so every read
+// is one broadcast, and the coefficients hold no registers.
+__constant__ float c_ftex[2][FTEX_ROW];
+
+// One texture's triplanar series at a hit: out = (wx c_x + wy c_y + wz c_z)
+// inv, where c_p is the series at plane p's coordinates (u[p], v[p]) with
+// the Gaussian LOD exp(-2 pi^2 |f|^2 s2).  An atom's LOD factor serves its
+// three planes, and its cosine and sine terms share one sincosf of their
+// angle, formed without FMA contraction as the plain version forms it: the
+// cosine term's argument is the plain version's bit for bit; the sine term
+// is sin(angle) where the plain version takes cos(angle + (-pi/2)), whose
+// sum rounds once more (half an ulp of the angle).  sincosf stays accurate
+// at the hundreds of radians of the terrain's far hits.
+__device__ __forceinline__ void ftex_triplanar(int tex, const float u[3],
+                                               const float v[3], float s2,
+                                               float wx, float wy, float wz,
+                                               float inv, float out[4]) {
+  const float* row = c_ftex[tex];
+  float acc[3][4];
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[p][c] = row[c];
+#pragma unroll 1
+  for (int k = 0; k < FTEX_ATOMS; ++k) {
+    const float* a = row + FTEX_HEAD + FTEX_ATOM * k;
+    const float att = expf(a[2] * s2);
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      const float ang =
+          __fadd_rn(__fmul_rn(a[0], u[p]), __fmul_rn(a[1], v[p]));
+      float sn, cs;
+      sincosf(ang, &sn, &cs);
+      const float ct = cs * att, st = sn * att;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        acc[p][c] = fmaf(a[8 + c], st, fmaf(a[4 + c], ct, acc[p][c]));
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    out[c] = (wx * acc[0][c] + wy * acc[1][c] + wz * acc[2][c]) * inv;
+}
+
+// the textured material from the fit: soil_shading's interface
+__device__ __forceinline__ void ftex_shading(V3 pos, V3 ns, float cone_width,
+                                             V3& alb_out, float& rough,
+                                             V3& n_out) {
+  const float ws = c_ftex[0][4];  // texture tiles per world unit
+  const float ax = fabsf(ns.x), ay = fabsf(ns.y), az = fabsf(ns.z);
+  const float wx = ax * ax * ax * ax, wy = ay * ay * ay * ay,
+              wz = az * az * az * az;
+  const float inv = 1.0f / fmaxf(wx + wy + wz, 1e-8f);
+  const float sigma = fmaxf(cone_width, 0.0f) * (ws * 0.5f);
+  const float s2 = sigma * sigma;
+  // the planes' coordinates: x (y, z), y (x, z), z (x, y)
+  const float u[3] = {pos.y * ws, pos.x * ws, pos.x * ws};
+  const float v[3] = {pos.z * ws, pos.z * ws, pos.y * ws};
+  float a[4], nr[4];
+  ftex_triplanar(0, u, v, s2, wx, wy, wz, inv, a);
+  ftex_triplanar(1, u, v, s2, wx, wy, wz, inv, nr);
+  const float ao = clampf(a[3], 0.0f, 1.0f);
+  alb_out = v3(clampf(a[0], 0.0f, 1.0f) * ao, clampf(a[1], 0.0f, 1.0f) * ao,
+               clampf(a[2], 0.0f, 1.0f) * ao);
+  rough = clampf(nr[3], 0.05f, 1.0f);
+  // the texture normal is y-up local: into the surface frame
+  V3 t, b;
+  onb(ns, t, b);
+  n_out = vnormalize(t * nr[0] + b * nr[2] + ns * fmaxf(nr[1], 0.2f));
 }
 
 // ---------------------------------------------------------------------------

@@ -50,10 +50,26 @@
 //   * The traversal is K1's device function (traverse.cuh, any-hit for
 //     shadow rays); it raises a per-lane deepest-stack count, reduced to
 //     one atomicMax a warp at the end.  The kernel is instantiated for
-//     each traversal stack depth of the BVH4 (STACK_SMALL, STACK_DEEP)
-//     and, as a separate instantiation whose BVH4 code is untouched, for
-//     the binary two-level LBVH (traverse2, STACK_DEEP); the C entry
-//     launches the one the tables' layout needs.
+//     each tree layout of traverse.cuh::tree_kind: the BVH4 at each
+//     traversal stack depth (STACK_SMALL, STACK_DEEP), the binary
+//     two-level LBVH (traverse2, STACK_DEEP) and the flat binary SAH tree
+//     with 8-slot leaf rows (traverse2<.., LEAF_WIDTH>, both depths), each
+//     its own instantiation, so the BVH4's code is untouched by the
+//     others; the C entry launches the one the tables' layout needs.
+//   * Fourier-fitted textures (render/ftex.py; the TPU kernel's ftex
+//     branch) are a template flag of their own (kFtex): an instantiation
+//     with it shades every textured hit from the fit (kshade.cuh::
+//     ftex_shading, ~3.6 k operations a hit: 2 textures x 24 atoms x 3
+//     planes of a sincosf and 8 FMAs, an expf an atom), whatever
+//     use_proctex says, as the TPU kernel does; the ones without it
+//     compile as before.  The fit's table, 2 x (8 + 24 x 12) floats made
+//     on the device once per fit (render/ftex.py::upload_ftex), goes to
+//     __constant__ memory (kshade.cuh::c_ftex) by a device-to-device copy
+//     of 2.4 KB on the stream before each such launch, as the sun's
+//     constants do: any fit of any caller is the one its launch reads,
+//     and nothing caches which fit the symbol holds.  Like c_sun it
+//     is one copy a process: launches on two streams at once would race
+//     (ROADMAP.md, multi-device).
 // The TPU kernel's VMEM table staging, state parking, 32-row strips,
 // per-tile segment skips and i1/i32 mask round trips are TPU artifacts and
 // are not carried over.
@@ -149,7 +165,10 @@ __device__ __forceinline__ rtrt::SunC sun_consts(const MegaParams& p) {
   return sun;
 }
 
-// one bounce of shading (render/megakernel.py::shade_segment, per lane)
+// one bounce of shading (render/megakernel.py::shade_segment, per lane);
+// kFtex: textured materials take the Fourier fit (c_ftex) in place of the
+// procedural soil
+template <bool kFtex>
 __device__ void shade_segment(PathState& st, const Cold& cold,
                               const rtrt::TraceHit& hit, int hmat, V3 hns,
                               V3 hng, const MegaParams& p,
@@ -213,10 +232,13 @@ __device__ void shade_segment(PathState& st, const Cold& cold,
   rtrt::Material m = rtrt::material_select(p.mat_rows, p.n_mat, hmat);
   V3 albedo = m.albedo;
   float rough = m.rough;
-  if (p.use_proctex && m.textured) {
+  if ((kFtex || p.use_proctex) && m.textured) {
     V3 tex_alb, ns_tex;
     float tex_rough;
-    rtrt::soil_shading(pos, ns, cone_w, tex_alb, tex_rough, ns_tex);
+    if constexpr (kFtex)
+      rtrt::ftex_shading(pos, ns, cone_w, tex_alb, tex_rough, ns_tex);
+    else
+      rtrt::soil_shading(pos, ns, cone_w, tex_alb, tex_rough, ns_tex);
     albedo = albedo * tex_alb;
     rough = tex_rough;
     ns = ns_tex;
@@ -349,9 +371,11 @@ __device__ __forceinline__ void write_planes(const PathState& st,
   for (int k = 0; k < COLD; ++k) p.out[(3 + k) * n + i] = cold.get(k);
 }
 
-// STACK: the traversal stack's depth; kBinary: the tables are the binary
-// two-level LBVH (traverse2), else the BVH4 (traverse)
-template <int STACK, bool kBinary>
+// STACK: the traversal stack's depth; TREE: the tables' tree (traverse.cuh
+// Tree): the BVH4 (traverse), the two-level LBVH (traverse2) or the flat
+// binary SAH tree (traverse2 with 8-slot leaf rows); kFtex: textured
+// materials from the Fourier fit
+template <int STACK, int TREE, bool kFtex>
 __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
     megakernel(const MegaParams p) {
   __shared__ float4 table[rtrt::SAMPLER_SLOTS];
@@ -395,10 +419,15 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
     if (pix >= 0) {
       const float t_cap = st.is_shadow ? st.shadow_tmax : CUDART_INF_F;
       rtrt::TraceHit h;
-      if constexpr (kBinary)
+      if constexpr (TREE == rtrt::TREE_LBVH)
         h = rtrt::traverse2<STACK>(
             p.nodes, p.tris, p.tlas_internal,
             make_float3(st.org.x, st.org.y, st.org.z),
+            make_float3(st.dir.x, st.dir.y, st.dir.z), t_cap, st.is_shadow,
+            p.overflow, deepest);
+      else if constexpr (TREE == rtrt::TREE_SAH2)
+        h = rtrt::traverse2<STACK, false, rtrt::LEAF_WIDTH>(
+            p.nodes, p.tris, 0, make_float3(st.org.x, st.org.y, st.org.z),
             make_float3(st.dir.x, st.dir.y, st.dir.z), t_cap, st.is_shadow,
             p.overflow, deepest);
       else
@@ -409,7 +438,7 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
       int hmat;
       float3 ns, ng;
       rtrt::hit_attrs(p.nrm, p.ng, p.mat, h, hmat, ns, ng);
-      shade_segment(st, cold, h, hmat, v3(ns.x, ns.y, ns.z),
+      shade_segment<kFtex>(st, cold, h, hmat, v3(ns.x, ns.y, ns.z),
                     v3(ng.x, ng.y, ng.z), p, rng, seg, seg == SEGMENTS - 1);
       if (st.done || ++seg == SEGMENTS) {
         write_planes(st, cold, p, pix);
@@ -425,13 +454,14 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
 
 // one wave of persistent blocks: resident blocks a SM (from the kernel's
 // registers and shared memory, queried once per instantiation: each
-// <STACK, kBinary> has its own per_sm) times the SMs, fewer for a small n
-template <int STACK, bool kBinary>
+// <STACK, TREE, kFtex> has its own per_sm) times the SMs, fewer for a
+// small n
+template <int STACK, int TREE, bool kFtex>
 int launch(const MegaParams& p, cudaStream_t s) {
   static int per_sm = 0;
   if (per_sm == 0) {
     cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, megakernel<STACK, kBinary>, BLOCK, 0);
+        &per_sm, megakernel<STACK, TREE, kFtex>, BLOCK, 0);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   int dev = 0, sms = 0;
@@ -441,19 +471,34 @@ int launch(const MegaParams& p, cudaStream_t s) {
   if (e != cudaSuccess) return static_cast<int>(e);
   const int warps = BLOCK / 32;
   const int grid = min(per_sm * sms, (p.tiles + warps - 1) / warps);
-  megakernel<STACK, kBinary><<<grid, BLOCK, 0, s>>>(p);
+  megakernel<STACK, TREE, kFtex><<<grid, BLOCK, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the instantiation of the tables' tree (tree_kind) and stack
+template <bool kFtex>
+int launch_tree(const MegaParams& p, int tree, int stack, cudaStream_t s) {
+  const bool small = stack == rtrt::STACK_SMALL;
+  if (tree == rtrt::TREE_LBVH)
+    return launch<rtrt::STACK_DEEP, rtrt::TREE_LBVH, kFtex>(p, s);
+  if (tree == rtrt::TREE_SAH2)
+    return small ? launch<rtrt::STACK_SMALL, rtrt::TREE_SAH2, kFtex>(p, s)
+                 : launch<rtrt::STACK_DEEP, rtrt::TREE_SAH2, kFtex>(p, s);
+  return small ? launch<rtrt::STACK_SMALL, rtrt::TREE_BVH4, kFtex>(p, s)
+               : launch<rtrt::STACK_DEEP, rtrt::TREE_BVH4, kFtex>(p, s);
 }
 
 }  // namespace
 
 // work: (1,) int32 scratch (zeroed here, on the stream); depth: (1,) int32
 // counter of the deepest traversal stack, or nullptr; width: the pixels'
-// row length (n for a flat batch); arity, tlas_internal, stack: the tables'
-// layout (bvh/packet.py::layout_args): arity 4 is the BVH4 at a stack of
-// STACK_SMALL or STACK_DEEP entries, arity 2 the two-level LBVH at
-// STACK_DEEP; any other pair is refused (cudaErrorInvalidValue) before
-// anything is enqueued
+// row length (n for a flat batch); ftex: the Fourier fit's (2, FTEX_ROW)
+// coefficient table on the device (render/ftex.py::pack_ftex), copied to
+// c_ftex on the stream, or nullptr for the instantiations without it;
+// arity, leaf_width, tlas_internal, stack: the tables' layout
+// (bvh/packet.py::layout_args; traverse.cuh tree_kind): any triple without
+// an instantiation is refused (cudaErrorInvalidValue) before anything is
+// enqueued
 extern "C" int rtrt_megakernel(
     const float* nodes, const float* tris, const float* nrm, const float* ng,
     const int* mat, const float* mat_rows, int n_mat, const float* light_rows,
@@ -461,18 +506,16 @@ extern "C" int rtrt_megakernel(
     float disk_omega, float disk_pdf, unsigned frame, const float* org,
     const float* dir, const float* cone, const int* pix, const float* bn,
     int use_bn, int use_proctex, int n, float* out, int* overflow,
-    int* depth, int* work, int width, int arity, int tlas_internal,
-    int stack, void* stream) {
+    int* depth, int* work, int width, const float* ftex, int arity,
+    int leaf_width, int tlas_internal, int stack, void* stream) {
   MegaParams p{nodes,    tris,     nrm,        ng,       mat,
                mat_rows, n_mat,    light_rows, n_lights,
                cos_max,  sin2_max, disk_omega, disk_pdf, frame,
                org,      dir,      cone,       pix,      bn,
                use_bn,   use_proctex, n,       out,      overflow,
                depth,    work,     width};
-  const bool bvh4 = arity == 4 && (stack == rtrt::STACK_SMALL ||
-                                   stack == rtrt::STACK_DEEP);
-  const bool binary = arity == 2 && stack == rtrt::STACK_DEEP;
-  if (!bvh4 && !binary) return static_cast<int>(cudaErrorInvalidValue);
+  const int tree = rtrt::tree_kind(arity, leaf_width, stack);
+  if (tree < 0) return static_cast<int>(cudaErrorInvalidValue);
   p.tlas_internal = tlas_internal;
   if (n <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
   // 8x4 tiles where the grid has 4 rows or more, else runs of 32 pixels
@@ -486,8 +529,10 @@ extern "C" int rtrt_megakernel(
   if (e == cudaSuccess)
     e = cudaMemcpyToSymbolAsync(c_sun, sun_vec, sizeof(c_sun), 0,
                                 cudaMemcpyDeviceToDevice, s);
+  if (e == cudaSuccess && ftex != nullptr)
+    e = cudaMemcpyToSymbolAsync(rtrt::c_ftex, ftex, sizeof(rtrt::c_ftex), 0,
+                                cudaMemcpyDeviceToDevice, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (binary) return launch<rtrt::STACK_DEEP, true>(p, s);
-  return stack == rtrt::STACK_SMALL ? launch<rtrt::STACK_SMALL, false>(p, s)
-                                    : launch<rtrt::STACK_DEEP, false>(p, s);
+  return ftex != nullptr ? launch_tree<true>(p, tree, stack, s)
+                         : launch_tree<false>(p, tree, stack, s);
 }

@@ -1,5 +1,5 @@
 // K1 launcher: standalone ray-scene intersection (one thread per ray), over
-// the BVH4 or the binary two-level LBVH.
+// the BVH4, the binary two-level LBVH or the flat binary SAH tree.
 //
 // Replaces: rtrt_tpu/bvh/packet.py::packet_intersect -> _kernel ->
 // traverse_tile.  The traversal itself and its cost notes live in
@@ -19,9 +19,10 @@
 namespace {
 
 // kCount: cap each ray at max_steps visits and write its visits to steps;
-// STACK: the traversal stack's depth; kBinary: the binary two-level LBVH
-// (traverse2, tlas_internal TLAS rows), else the BVH4 (traverse)
-template <int STACK, bool kCount, bool kBinary>
+// STACK: the traversal stack's depth; TREE: the tables' tree (traverse.cuh
+// Tree): the BVH4 (traverse), the two-level LBVH (traverse2, tlas_internal
+// TLAS rows) or the flat binary SAH tree (traverse2 with 8-slot leaf rows)
+template <int STACK, bool kCount, int TREE>
 __global__ void traverse_kernel(
     const float* __restrict__ nodes, const float* __restrict__ tris,
     const float* __restrict__ nrm, const float* __restrict__ ng,
@@ -38,10 +39,14 @@ __global__ void traverse_kernel(
   float3 d = make_float3(dir[3 * i], dir[3 * i + 1], dir[3 * i + 2]);
   int visits, deepest = 0;
   rtrt::TraceHit h;
-  if constexpr (kBinary)
+  if constexpr (TREE == rtrt::TREE_LBVH)
     h = rtrt::traverse2<STACK, kCount>(nodes, tris, tlas_internal, o, d,
                                        tmax[i], any_hit != 0, overflow,
                                        deepest, max_steps, &visits);
+  else if constexpr (TREE == rtrt::TREE_SAH2)
+    h = rtrt::traverse2<STACK, kCount, rtrt::LEAF_WIDTH>(
+        nodes, tris, 0, o, d, tmax[i], any_hit != 0, overflow, deepest,
+        max_steps, &visits);
   else
     h = rtrt::traverse<STACK, kCount>(nodes, tris, o, d, tmax[i],
                                       any_hit != 0, overflow, deepest,
@@ -63,7 +68,7 @@ __global__ void traverse_kernel(
   ng_out[3 * i + 2] = g.z;
 }
 
-template <int STACK, bool kBinary>
+template <int STACK, int TREE>
 void launch(int grid, int block, cudaStream_t s, const float* nodes,
             const float* tris, const float* nrm, const float* ng,
             const int* mat, const float* org, const float* dir,
@@ -71,11 +76,11 @@ void launch(int grid, int block, cudaStream_t s, const float* nodes,
             float* u, float* v, int* mat_out, float* ns, float* ng_out,
             int max_steps, int* steps, int* overflow, int tlas_internal) {
   if (steps == nullptr)
-    traverse_kernel<STACK, false, kBinary><<<grid, block, 0, s>>>(
+    traverse_kernel<STACK, false, TREE><<<grid, block, 0, s>>>(
         nodes, tris, nrm, ng, mat, org, dir, tmax, n, any_hit, t, tri, u, v,
         mat_out, ns, ng_out, max_steps, steps, overflow, tlas_internal);
   else
-    traverse_kernel<STACK, true, kBinary><<<grid, block, 0, s>>>(
+    traverse_kernel<STACK, true, TREE><<<grid, block, 0, s>>>(
         nodes, tris, nrm, ng, mat, org, dir, tmax, n, any_hit, t, tri, u, v,
         mat_out, ns, ng_out, max_steps, steps, overflow, tlas_internal);
 }
@@ -83,11 +88,10 @@ void launch(int grid, int block, cudaStream_t s, const float* nodes,
 }  // namespace
 
 // steps: nullptr for the plain traversal; else (n,) visits per ray, each
-// ray capped at max_steps.  arity, tlas_internal, stack: the tables'
-// layout (bvh/packet.py::layout_args): arity 4 is the BVH4 at a stack of
-// STACK_SMALL or STACK_DEEP entries, arity 2 the two-level LBVH (with its
-// tlas_internal TLAS rows) at STACK_DEEP; any other pair is refused
-// (cudaErrorInvalidValue) and nothing launches.
+// ray capped at max_steps.  arity, leaf_width, tlas_internal, stack: the
+// tables' layout (bvh/packet.py::layout_args; traverse.cuh tree_kind):
+// any triple without an instantiation is refused (cudaErrorInvalidValue)
+// and nothing launches.
 extern "C" int rtrt_traverse(const float* nodes, const float* tris,
                              const float* nrm, const float* ng,
                              const int* mat, const float* org,
@@ -95,43 +99,45 @@ extern "C" int rtrt_traverse(const float* nodes, const float* tris,
                              int any_hit, float* t, int* tri, float* u,
                              float* v, int* mat_out, float* ns,
                              float* ng_out, int max_steps, int* steps,
-                             int* overflow, int arity, int tlas_internal,
-                             int stack, void* stream) {
-  const bool bvh4 = arity == 4 && (stack == rtrt::STACK_SMALL ||
-                                   stack == rtrt::STACK_DEEP);
-  const bool binary = arity == 2 && stack == rtrt::STACK_DEEP;
-  if (!bvh4 && !binary) return static_cast<int>(cudaErrorInvalidValue);
+                             int* overflow, int arity, int leaf_width,
+                             int tlas_internal, int stack, void* stream) {
+  const int tree = rtrt::tree_kind(arity, leaf_width, stack);
+  if (tree < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
     const int block = 128;
     const int grid = (n + block - 1) / block;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (binary)
-      launch<rtrt::STACK_DEEP, true>(grid, block, s, nodes, tris, nrm, ng,
-                                     mat, org, dir, tmax, n, any_hit, t, tri,
-                                     u, v, mat_out, ns, ng_out, max_steps,
-                                     steps, overflow, tlas_internal);
-    else if (stack == rtrt::STACK_SMALL)
-      launch<rtrt::STACK_SMALL, false>(grid, block, s, nodes, tris, nrm, ng,
-                                       mat, org, dir, tmax, n, any_hit, t,
-                                       tri, u, v, mat_out, ns, ng_out,
-                                       max_steps, steps, overflow, 0);
+    const bool small = stack == rtrt::STACK_SMALL;
+#define RTRT_LAUNCH(STACK, TREE)                                            \
+  launch<STACK, TREE>(grid, block, s, nodes, tris, nrm, ng, mat, org, dir, \
+                      tmax, n, any_hit, t, tri, u, v, mat_out, ns, ng_out, \
+                      max_steps, steps, overflow, tlas_internal)
+    if (tree == rtrt::TREE_LBVH)
+      RTRT_LAUNCH(rtrt::STACK_DEEP, rtrt::TREE_LBVH);
+    else if (tree == rtrt::TREE_SAH2 && small)
+      RTRT_LAUNCH(rtrt::STACK_SMALL, rtrt::TREE_SAH2);
+    else if (tree == rtrt::TREE_SAH2)
+      RTRT_LAUNCH(rtrt::STACK_DEEP, rtrt::TREE_SAH2);
+    else if (small)
+      RTRT_LAUNCH(rtrt::STACK_SMALL, rtrt::TREE_BVH4);
     else
-      launch<rtrt::STACK_DEEP, false>(grid, block, s, nodes, tris, nrm, ng,
-                                      mat, org, dir, tmax, n, any_hit, t,
-                                      tri, u, v, mat_out, ns, ng_out,
-                                      max_steps, steps, overflow, 0);
+      RTRT_LAUNCH(rtrt::STACK_DEEP, rtrt::TREE_BVH4);
+#undef RTRT_LAUNCH
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // the traversal stack depths (entries) that have an instantiation for
-// trees of `arity` (4: the BVH4, 2: the two-level LBVH), for the callers'
-// checks: writes up to cap of them to depths, returns how many exist
-extern "C" int rtrt_traverse_stack(int* depths, int cap, int arity) {
-  const int bvh4[] = {rtrt::STACK_SMALL, rtrt::STACK_DEEP};
-  const int binary[] = {rtrt::STACK_DEEP};
-  const int* all = arity == 4 ? bvh4 : binary;
-  const int n = arity == 4 ? 2 : (arity == 2 ? 1 : 0);
-  for (int k = 0; k < n && k < cap; ++k) depths[k] = all[k];
-  return n;
+// tables of (arity, leaf_width), for the callers' checks: writes up to cap
+// of them to depths, returns how many exist
+extern "C" int rtrt_traverse_stack(int* depths, int cap, int arity,
+                                   int leaf_width) {
+  const int stacks[] = {rtrt::STACK_SMALL, rtrt::STACK_DEEP};
+  int n = 0;
+  for (int stack : stacks)
+    if (rtrt::tree_kind(arity, leaf_width, stack) >= 0) {
+      if (n < cap) depths[n] = stack;
+      ++n;
+    }
+  return n < cap ? n : cap;
 }

@@ -55,6 +55,21 @@ constexpr float RAY_TMIN = 1e-4f;
 constexpr float FAR_SCALE = 1.00000036f;  // float32(1 + 3.6e-7)
 constexpr float TINY = 1e-20f;
 
+// The tree layouts that K1 and K2 are instantiated for, by the tables'
+// (arity, leaf width, stack) (bvh/packet.py::layout_args): the BVH4 (4,
+// LEAF_WIDTH, STACK_SMALL or STACK_DEEP), the two-level LBVH (2, 1,
+// STACK_DEEP) and the flat binary SAH tree (2, LEAF_WIDTH, STACK_SMALL or
+// STACK_DEEP).  tree_kind gives -1 for any other triple, which the C
+// entries refuse (cudaErrorInvalidValue) before anything is enqueued.
+enum Tree { TREE_BVH4 = 0, TREE_LBVH = 1, TREE_SAH2 = 2 };
+inline int tree_kind(int arity, int leaf, int stack) {
+  const bool any = stack == STACK_SMALL || stack == STACK_DEEP;
+  if (arity == 4 && leaf == LEAF_WIDTH && any) return TREE_BVH4;
+  if (arity == 2 && leaf == 1 && stack == STACK_DEEP) return TREE_LBVH;
+  if (arity == 2 && leaf == LEAF_WIDTH && any) return TREE_SAH2;
+  return -1;
+}
+
 struct TraceHit {
   float t;   // +inf on miss
   int tri;   // sorted slot, -1 on miss
@@ -110,6 +125,43 @@ __device__ __forceinline__ bool tri_test(float v0x, float v0y, float v0z,
   u = uq * inv;
   v = vq * inv;
   return ok;
+}
+
+// A leaf row of LEAF_WIDTH triangle slots from slot `base` for the flat
+// binary tree (traverse2): the loop of traverse()'s BVH4 leaf visit, which
+// keeps its own inline copy so that the BVH4 instantiations compile as
+// they did.  The nearest accepted hit under best (gt = +inf where none),
+// the lowest slot on a tie (strict '<': short leaves repeat their first
+// triangle in the padding slots).  `base` is a multiple of LEAF_WIDTH
+// (bvh/sah.py pads leaves to row-aligned 8-slot rows), so a pair of
+// 36-byte records starts 8-byte aligned: 9 float2 loads a pair instead of
+// 18 scalar ones.
+__device__ __forceinline__ void leaf_row(const float* __restrict__ tris,
+                                         int base, float3 o, float3 d,
+                                         float best, float& gt, float& gu,
+                                         float& gv, int& gtri) {
+  gt = CUDART_INF_F;
+  gu = gv = 0.0f;
+  gtri = 0;
+  const float2* row =
+      reinterpret_cast<const float2*>(tris + (size_t)base * 9);
+#pragma unroll 1
+  for (int k = 0; k < LEAF_WIDTH; k += 2) {
+    float2 q[9];
+#pragma unroll
+    for (int j = 0; j < 9; ++j) q[j] = __ldg(row + (k / 2) * 9 + j);
+    float tt, tu, tv;
+    bool ok = tri_test(q[0].x, q[0].y, q[1].x, q[1].y, q[2].x, q[2].y,
+                       q[3].x, q[3].y, q[4].x, o, d, best, tt, tu, tv);
+    if (ok && tt < gt) {
+      gt = tt; gu = tu; gv = tv; gtri = base + k;
+    }
+    ok = tri_test(q[4].y, q[5].x, q[5].y, q[6].x, q[6].y, q[7].x, q[7].y,
+                  q[8].x, q[8].y, o, d, best, tt, tu, tv);
+    if (ok && tt < gt) {
+      gt = tt; gu = tu; gv = tv; gtri = base + k + 1;
+    }
+  }
 }
 
 struct Cand {
@@ -272,26 +324,34 @@ static __device__ TraceHit traverse(const float* __restrict__ nodes,
 }
 
 // ---------------------------------------------------------------------------
-// The binary two-level LBVH (bvh/build.py; the JAX kernel's arity=2 branch)
+// The binary trees (the JAX kernel's arity=2 branch): the two-level LBVH
+// (bvh/build.py; LEAF 1) and the flat binary SAH tree (bvh/sah.py with
+// leaf_max 8; LEAF LEAF_WIDTH)
 //
 // A record is 64 bytes, 4 float4: the left child's box [lo xyz | hi xyz],
 // the right child's, then the two child entries as exact floats and two
-// pad floats (bvh/packet.py::binary_nodes).  Rows: the TLAS nodes first
-// (a TLAS entry's row is its 22-bit field), then BLAS_NODES rows per batch
-// (a BLAS entry's row is tlas_internal + batch * BLAS_NODES + idx).  A leaf
-// is one triangle, slot batch * 1024 + idx; a TLAS leaf was resolved to its
-// batch's BLAS root when the tree was built.  A node visit slab-tests both
+// pad floats (bvh/packet.py::binary_nodes).  A node visit slab-tests both
 // boxes, continues with the nearer child (the left on a tie) and pushes
-// the other with its entry distance.  The stack holds at most one entry a
-// level of the current path: STACK_DEEP holds the static bound of
-// bvh/packet.py::binary_stack_bound (<= 84 entries), the only depth this
-// traversal is instantiated for.  Everything else is traverse()'s: the
+// the other with its entry distance, so the stack holds at most one entry
+// a level of the current path.  Everything else is traverse()'s: the
 // root-exit cap, pruned pops, any-hit, the counters.
+//   * LEAF 1, the LBVH: rows are the TLAS nodes first (a TLAS entry's row
+//     is its 22-bit field), then BLAS_NODES rows per batch (a BLAS entry's
+//     row is tlas_internal + batch * BLAS_NODES + idx).  A leaf is one
+//     triangle, slot batch * 1024 + idx; a TLAS leaf was resolved to its
+//     batch's BLAS root when the tree was built.  Its stack is the static
+//     bound of bvh/packet.py::binary_stack_bound (<= 84 entries): the
+//     STACK_DEEP instantiation only.
+//   * LEAF LEAF_WIDTH, the flat SAH tree: one level of rows, an internal
+//     entry's row is its 22-bit field (no TLAS, no BLAS bit), and a leaf
+//     is a row-aligned LEAF_WIDTH-slot row tested as a BVH4 leaf is
+//     (leaf_row).  Its stack holds the tree's levels, counted on the host
+//     when the tables are built: STACK_SMALL or STACK_DEEP.
 // ---------------------------------------------------------------------------
 constexpr int BLAS_BIT = 1 << 22;
 constexpr int BLAS_NODES = 1023;
 
-template <int STACK, bool kCount = false>
+template <int STACK, bool kCount = false, int LEAF = 1>
 static __device__ TraceHit traverse2(const float* __restrict__ nodes,
                                      const float* __restrict__ tris,
                                      int tlas_internal, float3 o, float3 d,
@@ -345,24 +405,41 @@ static __device__ TraceHit traverse2(const float* __restrict__ nodes,
     if (kCount) ++visits;
     const int idx = e & 0x7FF, batch = (e >> 11) & 0x7FF;
     if (e & LEAF_BIT) {
-      const int slot = batch * 1024 + idx;
-      const float* r = tris + (size_t)slot * 9;
-      float tt, tu, tv;
-      const bool ok = tri_test(__ldg(r), __ldg(r + 1), __ldg(r + 2),
-                               __ldg(r + 3), __ldg(r + 4), __ldg(r + 5),
-                               __ldg(r + 6), __ldg(r + 7), __ldg(r + 8), o,
-                               d, best, tt, tu, tv);
-      if (ok && tt < best) {
-        best = tt;
-        hit.tri = slot;
-        hit.u = tu;
-        hit.v = tv;
-        if (first_hit) break;
+      if constexpr (LEAF > 1) {
+        static_assert(LEAF == LEAF_WIDTH, "leaf rows of LEAF_WIDTH slots");
+        float gt, gu, gv;
+        int gtri;
+        leaf_row(tris, batch * 1024 + idx, o, d, best, gt, gu, gv, gtri);
+        if (gt < best) {
+          best = gt;
+          hit.tri = gtri;
+          hit.u = gu;
+          hit.v = gv;
+          if (first_hit) break;
+        }
+      } else {
+        const int slot = batch * 1024 + idx;
+        const float* r = tris + (size_t)slot * 9;
+        float tt, tu, tv;
+        const bool ok = tri_test(__ldg(r), __ldg(r + 1), __ldg(r + 2),
+                                 __ldg(r + 3), __ldg(r + 4), __ldg(r + 5),
+                                 __ldg(r + 6), __ldg(r + 7), __ldg(r + 8),
+                                 o, d, best, tt, tu, tv);
+        if (ok && tt < best) {
+          best = tt;
+          hit.tri = slot;
+          hit.u = tu;
+          hit.v = tv;
+          if (first_hit) break;
+        }
       }
     } else {
-      const int row = (e & BLAS_BIT)
-                          ? tlas_internal + batch * BLAS_NODES + idx
-                          : (e & (BLAS_BIT - 1));
+      int row;
+      if constexpr (LEAF > 1)
+        row = e & (BLAS_BIT - 1);
+      else
+        row = (e & BLAS_BIT) ? tlas_internal + batch * BLAS_NODES + idx
+                             : (e & (BLAS_BIT - 1));
       const float4* rec =
           reinterpret_cast<const float4*>(nodes + (size_t)row * 16);
       const float4 q0 = __ldg(rec), q1 = __ldg(rec + 1);

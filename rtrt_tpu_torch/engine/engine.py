@@ -7,8 +7,13 @@ its BVH tables and the sky once, then renders frames through
 engine/frame.py::render_frame.  ``bvh`` picks the tree: "sah4" (the
 default) the host-built SAH tree collapsed to a BVH4, "lbvh" the two-level
 LBVH built on the device (bvh/build.py) and traced by K1 / K2's binary
-instantiation.  The device is explicit: with
-``device="cuda"`` and no card it raises; it never falls back to the CPU.
+instantiation, "sah2" the host-built flat binary SAH tree with 8-slot leaf
+rows, traced by their binary leaf-row instantiation.  "sah2" is there for
+parity with the JAX Engine's RTRT_SAH=2 and is never the faster choice:
+on the 1080p terrain its K2 is slower than the BVH4's (PERF.md §6), with
+the same images within bounds.  The device is
+explicit: with ``device="cuda"`` and no card it raises; it never falls
+back to the CPU.
 
 Resolution buckets, as in the JAX Engine: a frame renders at the 16:9
 bucket of its height (`_BUCKET_HEIGHTS`; the first bucket at or above
@@ -25,12 +30,17 @@ add the ocean and the star field to the environment of escaped rays.
 "sah4" the tables' topology is frozen at init and every frame refits its
 boxes (engine/frame.py::animate_tables, bvh/refit.py); with "lbvh" every
 frame displaces the vertices, recomputes the smooth normals and rebuilds
-the LBVH (engine/frame.py::rebuild_tables).  In the JAX Engine these are
-its default on a TPU (RTRT_SAH=4, RTRT_REFIT=1), its static scene with
-RTRT_SAH=0, and its animated scene with RTRT_REFIT=0 or off a TPU.
-Settings whose pass is not ported raise NotImplementedError naming the
-setting (ROADMAP.md lists the queue): another animation than "none" or
-"wave", fourier_textures, sky_model="preetham".
+the LBVH (engine/frame.py::rebuild_tables); "sah2" has no animated form.
+In the JAX Engine these are its default on a TPU (RTRT_SAH=4,
+RTRT_REFIT=1), its static scene with RTRT_SAH=0 or RTRT_SAH=2 (the flat
+tree), and its animated scene with RTRT_REFIT=0 or off a TPU.
+FeatureFlags(fourier_textures=True) fits the soil texture set
+(render/texture.py, sized by ``settings.texture_size``) to its Fourier
+series at init (render/ftex.py), and K2 shades textured materials from the
+fit; ``settings.sky_model`` picks the physical or the Preetham sky
+(render/sky.py::SKY_MODELS; another value raises ValueError at init).
+Another animation than "none" or "wave" raises NotImplementedError
+(ROADMAP.md lists what is not ported).
 """
 
 from __future__ import annotations
@@ -44,26 +54,28 @@ import time
 import numpy as np
 import torch
 
-from ..bvh.packet import overflow_counter, pack_tables, pack_tables_binary
+from ..bvh.packet import (overflow_counter, pack_tables, pack_tables_binary,
+                          pack_tables_sah2)
 from ..bvh.refit import DeviceRefit, plan_refit4
 from ..bvh.sah import build_scene_tables_sah, bvh4_nodes
 from ..core.camera import Camera
 from ..denoise.pipeline import DenoiseHistory, init_history
 from ..post.exposure import init_exposure_state
+from ..render.ftex import fit_soil_fourier, upload_ftex
 from ..render.integrator import SceneData
-from ..render.sky import (bake_sky_maps, finalize_sky_maps, make_sky_params,
-                          sun_direction_from_time)
+from ..render.sky import (SKY_MODELS, bake_sky_maps, finalize_sky_maps,
+                          make_sky_params, sun_direction_from_time)
+from ..render.texture import make_soil_textures
 from ..utils.config import (FeatureFlags, GlobalSettings, RenderParams,
                             default_params)
 from ..utils.timer import FpsLog, Timer
 from .frame import (FrameState, FrameStatic, MeshPose, RestPose,
-                    build_scene_tables, check_flags, make_frame_consts,
-                    render_frame)
+                    build_scene_tables, make_frame_consts, render_frame)
 from .scene import (HostScene, build_demo_scene, build_mesh_scene,
                     build_terrain_scene, padded_arrays)
 
-SAH_LEAF = 8  # row-aligned leaf width of the static SAH tree
-BVH_KINDS = ("sah4", "lbvh")
+SAH_LEAF = 8  # row-aligned leaf width of the static SAH trees
+BVH_KINDS = ("sah4", "lbvh", "sah2")
 
 _BUCKET_HEIGHTS = (270, 360, 540, 720, 1080, 1440, 2160)
 
@@ -103,14 +115,20 @@ class Engine:
         self.flags = flags or FeatureFlags()
         self.params = params or default_params()
         s = self.settings
-        check_flags(self.flags)
         if animation not in ("none", "wave"):
             _unsupported(f"animation={animation!r}")
         if bvh not in BVH_KINDS:
             raise ValueError(f"bvh={bvh!r}: expected one of {BVH_KINDS}")
+        if s.sky_model not in SKY_MODELS:
+            raise ValueError(f"settings.sky_model={s.sky_model!r}: expected "
+                             f"one of {SKY_MODELS}")
+        if bvh == "sah2" and animation != "none":
+            raise ValueError(
+                f"bvh='sah2' with animation={animation!r}: the flat SAH tree "
+                "is built once on the host; an animated scene takes "
+                "bvh='lbvh' (rebuilt every frame, as the JAX Engine does "
+                "with RTRT_SAH=2) or 'sah4' (refitted)")
         self.bvh = bvh
-        if s.sky_model != "physical":
-            _unsupported(f"sky_model={s.sky_model!r}")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine(device='cuda'): no CUDA device")
@@ -135,9 +153,23 @@ class Engine:
         self.rest = None
         if bvh == "sah4":
             tables = self._sah4_tables(pad, animation)
+        elif bvh == "sah2":
+            tables = pack_tables_sah2(*build_scene_tables_sah(
+                self.scene.num_batches, pad["indices"], pad["tri_mat"],
+                pad["valid"], self.scene.vertices, self.scene.normals,
+                leaf_max=SAH_LEAF)).to(self.device)
         else:
             tables = self._lbvh_tables(pad, animation)
         self.init_seconds[bvh] = time.perf_counter() - t0
+
+        # the Fourier fit of the soil texture set (host lstsq) and K2's
+        # table of it on the device, once
+        self.ftex = None
+        if self.flags.fourier_textures:
+            t0 = time.perf_counter()
+            self.ftex = upload_ftex(fit_soil_fourier(make_soil_textures(
+                s.texture_size, device=self.device)), self.device)
+            self.init_seconds["textures"] = time.perf_counter() - t0
         lights = self.scene.lights
         self.scene_data = SceneData(
             tables=tables, materials=self.scene.materials.to(self.device),
@@ -225,7 +257,7 @@ class Engine:
                                  render_h=self.render_h,
                                  screen_w=s.render_width,
                                  screen_h=s.render_height, flags=self.flags,
-                                 interlace=s.interlace)
+                                 interlace=s.interlace, ftex=self.ftex)
             self._frames[bucket_h] = (static,
                                       make_frame_consts(static, self.device))
         self.static, self.consts = self._frames[bucket_h]
@@ -265,7 +297,8 @@ class Engine:
             sun_elevation=elev, sun_azimuth=azim,
             sun_intensity=sp.sun_intensity, rayleigh_scale=sp.rayleigh,
             mie_scale=sp.mie, mie_g=sp.mie_g, device=self.device)
-        self.scene_data.sky = finalize_sky_maps(bake_sky_maps(sky_params))
+        self.scene_data.sky = finalize_sky_maps(bake_sky_maps(
+            sky_params, model=self.settings.sky_model))
 
     # ------------------------------------------------------------------
     # per-frame

@@ -27,7 +27,8 @@ frame's two branches for animation="wave", chosen by the type of `rest`:
 With FeatureFlags ocean / stars, escaped rays take their radiance from
 render/environment.py instead of the sky fit alone.  Both read the
 animation clock, FrameState.time, which accumulates in float32 as the JAX
-frame's does (`advance_clock`).
+frame's does (`advance_clock`).  With a Fourier fit in FrameStatic.ftex,
+K2 shades textured materials from it (render/ftex.py).
 
 The port runs eagerly: each frame is a sequence of torch ops and kernel
 launches (K2, K5, four K4, K3 with the default flags), with every tensor
@@ -52,6 +53,7 @@ from ..ops.reduce import segment_sum
 from ..ops.resize import upscale_catmull_rom
 from ..post.pipeline import dither_mask, postprocess
 from ..render.environment import env_radiance_scene
+from ..render.ftex import FtexTable
 from ..render.integrator import GBuffer, SceneData
 from ..render.megakernel import path_trace_mega
 from ..render.raygen import generate_rays_padded
@@ -80,6 +82,10 @@ class FrameStatic:
     screen_h: int
     flags: FeatureFlags
     interlace: bool = False  # trace half the rows a frame (even heights)
+    ftex: FtexTable | None = None  # the fitted texture set, with K2's
+    #   table of it on the device, that shades textured materials in place
+    #   of the procedural soil (render/ftex.py::upload_ftex; the Engine
+    #   fits and uploads it at init with fourier_textures)
 
 
 @dataclasses.dataclass
@@ -249,14 +255,6 @@ def rebuild_tables(tables, mesh: MeshPose, time: float):
         nrm))
 
 
-def check_flags(flags: FeatureFlags):
-    """Raise NotImplementedError for a flag whose pass is not ported."""
-    if flags.fourier_textures:
-        raise NotImplementedError(
-            "FeatureFlags.fourier_textures=True is not ported to "
-            "rtrt_tpu_torch yet (see ROADMAP.md); set fourier_textures=False")
-
-
 def interlaced(static: FrameStatic) -> bool:
     """Whether frames of `static` trace half their rows."""
     return static.interlace and static.render_h % 2 == 0
@@ -319,7 +317,6 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
     animated by the travelling wave, whose frame writes scene.tables in
     place — a RestPose refits the BVH4, a MeshPose rebuilds the two-level
     LBVH (None: a static scene)."""
-    check_flags(static.flags)
     w, h = static.render_w, static.render_h
     dev = scene.tables.nodes.device
     if rest is not None:
@@ -358,7 +355,8 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
     gbuf: GBuffer = path_trace_mega(
         scene, rays, pixel_ids, frame, prev_basis, w / h,
         use_proctex=static.flags.procedural_textures, bn=bn,
-        overflow=overflow, stack_depth=stack_depth, env_fn=env_fn)
+        overflow=overflow, stack_depth=stack_depth, env_fn=env_fn,
+        ftex=static.ftex)
     full = gbuf
     if interlaced(static):
         full = GBuffer(color=fill_linear(gbuf.color, parity),

@@ -3,17 +3,21 @@ kernel K2 and its plain twin (port of rtrt_tpu/render/megakernel.py).
 
 Per pixel, SEGMENTS scene intersects; each traces one ray (closest hit, or
 any-hit for a pending shadow ray) and runs `shade_segment`: shadow-ray
-resolve, sphere-light hits, deferred escapes, material select + procedural
-soil, emission, primary G-buffer capture, BSDF sample + sun/sphere NEE with
-power-heuristic MIS, the stochastic single-ray shadow-or-scatter choice,
-the glass inside flip and the 1e-3 ray offset along ng.
+resolve, sphere-light hits, deferred escapes, material select + the
+textured materials' procedural soil or Fourier-fitted textures
+(render/ftex.py, which outrank the soil when given), emission, primary
+G-buffer capture, BSDF sample + sun/sphere NEE with power-heuristic MIS,
+the stochastic single-ray shadow-or-scatter choice, the glass inside flip
+and the 1e-3 ray offset along ng.
 
   * `megakernel_trace` launches, for CUDA tensors, K2
     (csrc/megakernel.cu), which traces every segment with K1's device
-    function (csrc/traverse.cuh) for the tables' tree: the BVH4, or the
-    two-level LBVH in K2's binary instantiation (counted apart, as
-    "megakernel_trace_binary"); for CPU tensors it runs
-    `megakernel_trace_plain`;
+    function (csrc/traverse.cuh) for the tables' tree: the BVH4, the
+    two-level LBVH or the flat binary SAH tree, each its own
+    instantiation, and with a Fourier fit (`ftex=`) the instantiation
+    that shades from it; each is counted apart (`kernel_name`:
+    "megakernel_trace", "_binary", "_sah2", each with "_ftex"); for CPU
+    tensors it runs `megakernel_trace_plain`;
   * `megakernel_trace_plain` is the torch twin of the JAX
     `simulate_megakernel`, on the port's traversal (bvh/packet.py);
   * `finish_gbuffer` is the deferred-environment / MIS / demodulation /
@@ -33,6 +37,7 @@ from ..bvh.packet import (_check_tables, _resolve, kernel_name,
 from ..core.camera import motion_vector
 from ..utils import cuda
 from .bsdf import MAT_EMISSIVE
+from .ftex import FTEX_ROW, FourierTextures, ftex_shading_c
 from .integrator import RADIANCE_CLAMP, GBuffer
 from .kshade import (LIGHT_ROW, V3, SunParamsC, _w,
                      bn_rotate, eval_bsdf_c, material_select_c,
@@ -99,6 +104,8 @@ class ShadeCtx:
     use_proctex: bool
     rand2: object   # dim -> (u1, u2)
     hits: list | None = None  # [shaded, textured, sampled] counts or None
+    ftex: FourierTextures | None = None  # textured materials from the fit
+    #   (render/ftex.py) in place of the procedural soil
 
 
 def init_state(org: V3, dir: V3, cone) -> PathState:
@@ -174,12 +181,17 @@ def shade_segment(st: PathState, hit, ctx: ShadeCtx, seg: int,
     ns, ng = orient_normals_c(hns, hng, wo)
     mtype, albedo, rough, ior, f0, emission, textured = material_select_c(
         ctx.mat_rows, hmat)
+    tex = ctx.use_proctex or ctx.ftex is not None
     if ctx.hits is not None:
         ctx.hits[0] += int(live.sum())
-        if ctx.use_proctex:
+        if tex:
             ctx.hits[1] += int((textured & live).sum())
-    if ctx.use_proctex and bool((textured & live).any()):
-        tex_alb, tex_rough, ns_tex = soil_shading_c(pos, ns, cone_w)
+    if tex and bool((textured & live).any()):
+        if ctx.ftex is not None:
+            tex_alb, tex_rough, ns_tex = ftex_shading_c(ctx.ftex, pos, ns,
+                                                        cone_w)
+        else:
+            tex_alb, tex_rough, ns_tex = soil_shading_c(pos, ns, cone_w)
         albedo = vwhere(textured, albedo * tex_alb, albedo)
         rough = torch.where(textured, tex_rough, rough)
         ns = vwhere(textured, ns_tex, ns)
@@ -303,14 +315,16 @@ def megakernel_trace_plain(tables, mat_rows, light_rows, sun_vec, frame_idx,
                            org, dir, cone, pixel_ids, *, n_lights,
                            use_proctex=True, bn=None, overflow=None,
                            stack_depth=None, visits=None,
-                           hits=None) -> MegaOut:
+                           hits=None, ftex=None) -> MegaOut:
     """Torch twin of the JAX simulate_megakernel on the port's traversal.
     The work this run's data needs, for a kernel's bound: visits, optional
     [node visits, leaf visits] over all segments (as in
     bvh.packet.traverse_plain); hits, optional [shaded, textured, sampled]
     counts: hits that reach the surface interaction (normals, material),
-    those that evaluate the procedural soil, those that sample the BSDF
-    and the lights (not emissive).  stack_depth as in megakernel_trace."""
+    those that evaluate the procedural soil or the Fourier fit, those that
+    sample the BSDF and the lights (not emissive).  stack_depth as in
+    megakernel_trace; ftex: the FourierTextures fit itself (an FtexTable's
+    `fit`), or None."""
     lead = org.shape[:-1]
     if overflow is None:
         overflow = overflow_counter(org.device)
@@ -326,7 +340,8 @@ def megakernel_trace_plain(tables, mat_rows, light_rows, sun_vec, frame_idx,
         sampler = lambda dim: rand2_c(pix, frame, dim)
     ctx = ShadeCtx(sun=SunParamsC(sun_vec), mat_rows=mat_rows,
                    light_rows=light_rows, n_lights=n_lights,
-                   use_proctex=use_proctex, rand2=sampler, hits=hits)
+                   use_proctex=use_proctex, rand2=sampler, hits=hits,
+                   ftex=ftex)
     st = init_state(V3(o[:, 0], o[:, 1], o[:, 2]),
                     V3(d[:, 0], d[:, 1], d[:, 2]), cone_f)
     for seg in range(SEGMENTS):
@@ -353,7 +368,7 @@ def megakernel_trace_plain(tables, mat_rows, light_rows, sun_vec, frame_idx,
 def megakernel_trace(tables, mat_rows, light_rows, sun_vec, frame_idx, org,
                      dir, cone, pixel_ids, *, n_lights, use_proctex=True,
                      bn=None, overflow=None, stack_depth=None,
-                     out=None) -> MegaOut:
+                     out=None, ftex=None) -> MegaOut:
     """Trace full paths for image-shaped (..., 3) primary rays.  CPU tensors
     run the plain version; CUDA tensors launch K2 (csrc/megakernel.cu).
 
@@ -364,12 +379,16 @@ def megakernel_trace(tables, mat_rows, light_rows, sun_vec, frame_idx, org,
     stack_depth None or a (1,) int32 counter raised to the deepest
     traversal stack (entries) of the launch; out: for CUDA tensors, an
     optional (18, N) float32 buffer that receives the planes (the result's
-    planes are views of it)."""
+    planes are views of it); ftex: an FtexTable (render/ftex.py::
+    upload_ftex, its table on the rays' device) whose fit shades the
+    textured materials in place of the procedural soil (whatever
+    use_proctex says), or None."""
     if org.device.type == "cpu":
         return megakernel_trace_plain(
             tables, mat_rows, light_rows, sun_vec, frame_idx, org, dir, cone,
             pixel_ids, n_lights=n_lights, use_proctex=use_proctex, bn=bn,
-            overflow=overflow, stack_depth=stack_depth)
+            overflow=overflow, stack_depth=stack_depth,
+            ftex=None if ftex is None else ftex.fit)
     dev = org.device
     lead = tuple(org.shape[:-1])
     n = math.prod(lead)
@@ -388,6 +407,8 @@ def megakernel_trace(tables, mat_rows, light_rows, sun_vec, frame_idx, org,
         specs["stack_depth"] = (stack_depth, torch.int32, (1,))
     if bn is not None:
         specs["bn"] = (bn, torch.float32, lead + (2,))
+    if ftex is not None:
+        specs["ftex"] = (ftex.table, torch.float32, (2, FTEX_ROW))
     if out is None:
         out = torch.empty((18, n), dtype=torch.float32, device=dev)
     specs["out"] = (out, torch.float32, (18, n))
@@ -396,7 +417,8 @@ def megakernel_trace(tables, mat_rows, light_rows, sun_vec, frame_idx, org,
     work = torch.empty(1, dtype=torch.int32, device=dev)  # zeroed by K2
     cuda.launch(
         cuda.library().rtrt_megakernel,
-        kernel_name("megakernel_trace", tables), dev,
+        kernel_name("megakernel_trace", tables)
+        + ("" if ftex is None else "_ftex"), dev,
         tables.nodes, tables.tris, tables.nrm, tables.ng, tables.mat,
         mat_rows, ctypes.c_int(mat_rows.shape[0]), light_rows,
         ctypes.c_int(n_lights), sun_vec,
@@ -408,6 +430,7 @@ def megakernel_trace(tables, mat_rows, light_rows, sun_vec, frame_idx, org,
         ctypes.c_int(n), out, overflow,
         stack_depth if stack_depth is not None else ctypes.c_void_p(0), work,
         ctypes.c_int(lead[-1] if len(lead) > 1 else n),
+        ftex.table if ftex is not None else ctypes.c_void_p(0),
         *layout_args(tables))
     p = out.reshape((18,) + lead)
     s3 = lambda k: p[k:k + 3].movedim(0, -1)
@@ -439,10 +462,10 @@ def finish_gbuffer(sky, rays, out: MegaOut, prev_basis, aspect,
 
 def path_trace_mega(scene, rays, pixel_ids, frame_idx, prev_basis, aspect,
                     use_proctex: bool = True, bn=None, overflow=None,
-                    stack_depth=None, env_fn=None) -> GBuffer:
+                    stack_depth=None, env_fn=None, ftex=None) -> GBuffer:
     """Path-trace image-shaped rays through the megakernel and finish the
     G-buffer.  scene: render.integrator.SceneData; env_fn as in
-    finish_gbuffer."""
+    finish_gbuffer; ftex as in megakernel_trace."""
     dev = rays.org.device
     mat_rows = pack_materials_rows(scene.materials).to(dev)
     light_rows = pack_light_rows(scene.lights, dev)
@@ -453,6 +476,6 @@ def path_trace_mega(scene, rays, pixel_ids, frame_idx, prev_basis, aspect,
         rays.cone_width.contiguous(), pixel_ids.to(torch.int32).contiguous(),
         n_lights=n_lights, use_proctex=use_proctex,
         bn=None if bn is None else bn.contiguous(), overflow=overflow,
-        stack_depth=stack_depth)
+        stack_depth=stack_depth, ftex=ftex)
     return finish_gbuffer(scene.sky, rays, out, prev_basis, aspect,
                           env_fn=env_fn)

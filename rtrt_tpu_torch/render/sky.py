@@ -1,5 +1,6 @@
-"""Physically-based sky: single-scattering Rayleigh + Mie atmosphere (port of
-the physical model of rtrt_tpu/render/sky.py).
+"""The sky: the physically-based single-scattering Rayleigh + Mie atmosphere
+(the default) or the fitted analytic Preetham daylight sky (port of
+rtrt_tpu/render/sky.py; `bake_sky_maps(model=...)` picks one).
 
 Baked once per sky-parameter change: the equal-area sky map, the sun-cone
 map, the transmittance toward the sun, and the host-solved Chebyshev fit
@@ -180,6 +181,76 @@ def atmosphere_radiance(view_dirs, params: SkyParams):
     return torch.where(hit_ground[..., None], radiance + ground, radiance)
 
 
+SKY_MODELS = ("physical", "preetham")  # bake_sky_maps(model=)
+PREETHAM_TURBIDITY = 2.5
+# the Preetham model's Y (kcd/m^2) onto the physical model's radiance scale:
+# mean hemisphere luminance of the physical model at elevation 0.7 and
+# intensity 20 (0.3376) over the Preetham sky's at turbidity 2.5 (9.107),
+# the JAX module's calibration constant
+PREETHAM_LUM_SCALE = 0.3376 / 9.107
+_XYZ_TO_RGB = ((3.2406, -1.5372, -0.4986), (-0.9689, 1.8758, 0.0415),
+               (0.0557, -0.2040, 1.0570))
+
+
+def preetham_radiance(view_dirs, params: SkyParams):
+    """The fitted analytic daylight sky (Perez distribution, Preetham et
+    al. 1999 coefficients; render/skyref.py) along (..., 3) unit view dirs
+    -> (..., 3) linear-sRGB radiance on the physical model's scale, in
+    float32 in the JAX function's order of operations, at the turbidity
+    PREETHAM_TURBIDITY.  Below the horizon it adds the physical model's
+    ground tint."""
+    from .skyref import (_PEREZ_X, _PEREZ_Y, _ZENITH_X, _ZENITH_Y,
+                         perez_coeffs_chroma, preetham_coeffs_Y)
+
+    dev = view_dirs.device
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    up = torch.clamp(view_dirs[..., 1], 1e-3, 1.0)   # horizon clamp
+    cos_t = torch.clamp(up, min=1e-3)
+    sun = params.sun_dir
+    cos_g = torch.clamp(torch.sum(view_dirs * sun, dim=-1), -1.0, 1.0)
+    gamma = torch.arccos(cos_g)
+    cos_g2 = cos_g * cos_g
+    theta_s = torch.arccos(torch.clamp(sun[1], -1.0, 1.0))
+    cos_ts = torch.clamp(sun[1], 1e-3, 1.0)
+    t = PREETHAM_TURBIDITY
+
+    def perez_f(cos_theta, gam, cg2, a, b, c, d, e):
+        return ((1.0 + a * torch.exp(b / cos_theta))
+                * (1.0 + c * torch.exp(d * gam) + e * cg2))
+
+    def channel(coef, zenith_val):
+        f = perez_f(cos_t, gamma, cos_g2, *coef)
+        f0 = perez_f(f32(1.0), theta_s, cos_ts * cos_ts, *coef)
+        return zenith_val * f / torch.clamp(f0, min=1e-9)
+
+    chi = (4.0 / 9.0 - t / 120.0) * (math.pi - 2.0 * theta_s)
+    yz = torch.clamp((4.0453 * t - 4.9710) * torch.tan(chi)
+                     - 0.2155 * t + 2.4192, min=1e-3)
+    tv = f32([t * t, t, 1.0])
+    th = torch.stack([theta_s ** 3, theta_s ** 2, theta_s,
+                      torch.ones_like(theta_s)])
+    zen_chroma = lambda m: tv @ f32(m) @ th
+
+    yy = channel(preetham_coeffs_Y(t), yz)
+    x = channel(perez_coeffs_chroma(t, _PEREZ_X), zen_chroma(_ZENITH_X))
+    y = channel(perez_coeffs_chroma(t, _PEREZ_Y), zen_chroma(_ZENITH_Y))
+
+    y_safe = torch.clamp(y, min=1e-6)
+    # the calibration holds at intensity 20; radiance scales linearly
+    yy = torch.clamp(yy, min=0.0) \
+        * PREETHAM_LUM_SCALE * (params.sun_intensity / 20.0)
+    big_x = x / y_safe * yy
+    big_z = (1.0 - x - y) / y_safe * yy
+    xyz = torch.stack([big_x, yy, big_z], dim=-1)
+    rgb = torch.clamp(xyz @ f32(_XYZ_TO_RGB).T, min=0.0)
+
+    sun_up = torch.clamp(sun[1], min=0.0)
+    ground = params.ground_albedo * (0.3 + 0.7 * sun_up) \
+        * params.sun_intensity * 0.01
+    return torch.where((view_dirs[..., 1] <= 0.0)[..., None], rgb + ground,
+                       rgb)
+
+
 def transmittance_to_sun(params: SkyParams):
     """Transmittance from the observer toward the sun: (3,)."""
     dev = params.sun_dir.device
@@ -218,10 +289,15 @@ def equal_area_uv_to_dir(uv):
 
 def bake_sky_maps(params: SkyParams, sky_res=SKY_RES, sun_res=SUN_RES,
                   model: str = "physical") -> SkyMaps:
-    if model != "physical":
-        raise NotImplementedError(
-            f"sky_model={model!r} is not ported yet (ROADMAP.md, opt-in "
-            "shading); only the physical Rayleigh-Mie model is")
+    """model: "physical" (Rayleigh-Mie single scattering, the default) or
+    "preetham" (the fitted analytic daylight sky).  Everything downstream
+    (the env fit, the sun disk) derives from the baked map and the
+    parameters, so the frame follows the model with no other change.
+    ValueError for another model."""
+    if model not in SKY_MODELS:
+        raise ValueError(f"sky_model={model!r}: expected one of {SKY_MODELS}")
+    radiance_fn = {"physical": atmosphere_radiance,
+                   "preetham": preetham_radiance}[model]
     dev = params.sun_dir.device
     h, w = sky_res
     vv, uu = torch.meshgrid(
@@ -229,7 +305,7 @@ def bake_sky_maps(params: SkyParams, sky_res=SKY_RES, sun_res=SUN_RES,
         (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w,
         indexing="ij")
     dirs = equal_area_uv_to_dir(torch.stack([uu, vv], dim=-1))
-    sky = atmosphere_radiance(dirs, params)
+    sky = radiance_fn(dirs, params)
 
     sh, sw = sun_res
     t, bvec = orthonormal_basis(params.sun_dir)

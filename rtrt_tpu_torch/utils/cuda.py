@@ -34,7 +34,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 launch_counts = {"packet_intersect": 0, "megakernel_trace": 0,
                  "packet_intersect_binary": 0, "megakernel_trace_binary": 0,
-                 "post_tail": 0, "post_tail_mapped": 0, "denoise_wide": 0, "reproject": 0,
+                 "packet_intersect_sah2": 0, "megakernel_trace_sah2": 0,
+                 "megakernel_trace_ftex": 0,
+                 "megakernel_trace_binary_ftex": 0,
+                 "megakernel_trace_sah2_ftex": 0,
+                 "post_tail": 0, "post_tail_mapped": 0, "denoise_wide": 0,
+                 "reproject": 0,
                  "probe_step": 0, "probe_leaf": 0, "probe_cores": 0,
                  "probe_cores_grid": 0, "probe_cond": 0,
                  "probe_smem_alloc": 0, "probe_smem_consume": 0,
@@ -50,10 +55,10 @@ _U = ctypes.c_uint
 # the traversal stack depths that have an instantiation)
 _SIGNATURES = {
     "rtrt_traverse": [_P] * 8 + [_I, _I] + [_P] * 7 + [_I, _P, _P]
-    + [_I, _I, _I] + [_P],
-    "rtrt_traverse_stack": [ctypes.POINTER(_I), _I, _I],
+    + [_I] * 4 + [_P],
+    "rtrt_traverse_stack": [ctypes.POINTER(_I), _I, _I, _I],
     "rtrt_megakernel": [_P] * 6 + [_I, _P, _I, _P] + [_F] * 4 + [_U]
-    + [_P] * 5 + [_I, _I, _I] + [_P] * 4 + [_I] + [_I, _I, _I] + [_P],
+    + [_P] * 5 + [_I, _I, _I] + [_P] * 4 + [_I, _P] + [_I] * 4 + [_P],
     "rtrt_post_tail": [_P, _I, _I, _P, _P, _I, _I, _I, _P] + [_P],
     "rtrt_denoise_wide": [_P] * 4 + [_I, _I, _P] + [_I] * 4 + [_F] * 3
     + [_P] + [_P],
@@ -146,12 +151,13 @@ def library():
     return _lib
 
 
-def traverse_stacks(arity: int = 4) -> tuple:
+def traverse_stacks(arity: int = 4, leaf_width: int = 8) -> tuple:
     """The traversal stack depths (entries) that K1 and K2 are instantiated
-    for on trees of `arity` (4: the BVH4, 2: the two-level LBVH), as the
-    library reports them."""
+    for on trees of (`arity`, `leaf_width`) ((4, 8): the BVH4, (2, 1): the
+    two-level LBVH, (2, 8): the flat binary SAH tree), as the library
+    reports them."""
     depths = (_I * 8)()
-    n = library().rtrt_traverse_stack(depths, 8, arity)
+    n = library().rtrt_traverse_stack(depths, 8, arity, leaf_width)
     return tuple(depths[:n])
 
 

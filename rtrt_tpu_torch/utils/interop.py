@@ -14,10 +14,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..bvh.packet import TraceTables, pack_tables
+from ..bvh.packet import TraceTables, pack_tables, pack_tables_sah2
 from ..bvh.types import SceneBvh
 from ..core.camera import Camera
 from ..render.bsdf import Materials
+from ..render.ftex import FourierTexture, FourierTextures
 from ..render.light import SphereLights
 from ..render.sky import SkyMaps, SkyParams
 
@@ -41,6 +42,31 @@ def trace_tables_from_jax(bvh, tri_nrm_t, sorted_mat, nodes4,
     return pack_tables(bvh_from_jax(bvh, device), _t(tri_nrm_t, device),
                        _t(sorted_mat, device, torch.int32),
                        _t(nodes4, device, torch.float32))
+
+
+def sah2_tables_from_jax(bvh, tri_nrm_t, sorted_mat,
+                         device="cuda") -> TraceTables:
+    """The flat binary SAH SceneBvh of rtrt_tpu.bvh.sah.build_scene_tables_
+    sah(..., leaf_max=8) + its sorted normals / materials (the JAX frame's
+    prebuilt tables with nodes4=None) -> the port's binary leaf-row
+    TraceTables."""
+    return pack_tables_sah2(bvh_from_jax(bvh, device),
+                            _t(tri_nrm_t, device),
+                            _t(sorted_mat, device, torch.int32))
+
+
+def ftex_from_jax(ftex) -> FourierTextures:
+    """A JAX FourierTextures fit (rtrt_tpu.render.ftex) -> the port's: the
+    same nested float tuples (host values; K2's wrapper puts the packed
+    table on the device)."""
+    def one(t):
+        return FourierTexture(
+            freq=tuple((float(fx), float(fy)) for fx, fy in t.freq),
+            phase=tuple(float(p) for p in t.phase),
+            weight=tuple(tuple(float(w) for w in ws) for ws in t.weight),
+            mean=tuple(float(m) for m in t.mean))
+
+    return FourierTextures(one(ftex.albedo_ao), one(ftex.normal_rough))
 
 
 def sky_from_jax(sky, device="cuda") -> SkyMaps:

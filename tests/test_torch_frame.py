@@ -3,7 +3,10 @@ branch, prebuilt SAH leaf-8 tables) at 32x16 on the demo scene, with the
 first slice's flags (denoiser, bloom and lens flare off) and with the
 default FeatureFlags() (the denoised product frame, three frames of a slow
 pan so that the history is reprojected), plus the rule that the port never
-imports JAX nor the JAX package.
+imports JAX nor the JAX package.  The JAX frame's prebuilt tables are the
+flat binary SAH tree (nodes4=None; its CPU frame traces that tree), so the
+port's frame over its BVH4 collapse and over the same flat tree
+(bvh="sah2", bvh/packet.py::pack_tables_sah2) are both held to it.
 
 The JAX frame on the CPU runs the wavefront integrator, not the megakernel
 program; the two agree on ~98% of G-buffer pixels (tests/test_megakernel.py)
@@ -34,7 +37,8 @@ from rtrt_tpu.render.sky import bake_sky_maps, finalize_sky_maps, \
 from rtrt_tpu.render.texture import make_soil_textures
 from rtrt_tpu.utils.config import FeatureFlags as JFlags
 from rtrt_tpu.utils.config import default_params as jparams
-from rtrt_tpu_torch.bvh.packet import overflow_counter, pack_tables
+from rtrt_tpu_torch.bvh.packet import (overflow_counter, pack_tables,
+                                       pack_tables_sah2)
 from rtrt_tpu_torch.bvh.sah import build_scene_tables_sah, bvh4_nodes
 from rtrt_tpu_torch.denoise.pipeline import init_history as tinit_history
 from rtrt_tpu_torch.engine import frame as TF
@@ -52,11 +56,12 @@ W, H = 32, 16
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _render_both(jflags, tflags, cams, screen=(W, H)):
+def _render_both(jflags, tflags, cams, screen=(W, H), sah2=False):
     """Render len(cams) - 1 frames of the demo scene in both packages, frame
     k from camera cams[k + 1] with cams[k] as the previous camera, at
     W x H, out at `screen` (width, height).
-    Returns (JAX images, port images, the port's last G-buffer)."""
+    Returns (JAX images, port images, the port's last G-buffer), and with
+    sah2 the port's images over the flat binary tables as a fourth."""
     sw, sh = screen
     host = build_demo_scene()
     pad = padded_arrays(host)
@@ -88,25 +93,33 @@ def _render_both(jflags, tflags, cams, screen=(W, H)):
     bvh, nrm, mat = build_scene_tables_sah(
         th.num_batches, tpad["indices"], tpad["tri_mat"], tpad["valid"],
         th.vertices, th.normals, leaf_max=8)
-    scene = SceneData(tables=pack_tables(bvh, nrm, mat, bvh4_nodes(bvh)),
-                      materials=th.materials,
-                      sky=interop.sky_from_jax(sky, "cpu"), lights=th.lights)
     tstatic = TF.FrameStatic(render_w=W, render_h=H, screen_w=sw,
                              screen_h=sh, flags=tflags)
-    history = (tinit_history(H, W, half=tflags.half_history, device="cpu")
-               if tflags.denoise else None)
-    tstate = TF.FrameState(exposure=interop.exposure_from_jax(
-        init_exposure_state(), "cpu"), history=history)
     tcams = [interop.camera_from_jax(c, "cpu") for c in cams]
-    ovf = overflow_counter("cpu")
-    got = []
-    for prev, cam in zip(tcams, tcams[1:]):
-        img, tstate, gbuf = TF.render_frame(tstatic, scene, tstate, cam,
-                                            prev, tparams(), 1 / 60,
-                                            overflow=ovf)
-        got.append(img.numpy())
-    assert int(ovf) == 0
-    return ref, got, gbuf
+    trees = [pack_tables(bvh, nrm, mat, bvh4_nodes(bvh))]
+    if sah2:
+        trees.append(pack_tables_sah2(bvh, nrm, mat))
+    out = [ref]
+    for tables in trees:
+        scene = SceneData(tables=tables, materials=th.materials,
+                          sky=interop.sky_from_jax(sky, "cpu"),
+                          lights=th.lights)
+        history = (tinit_history(H, W, half=tflags.half_history,
+                                 device="cpu") if tflags.denoise else None)
+        tstate = TF.FrameState(exposure=interop.exposure_from_jax(
+            init_exposure_state(), "cpu"), history=history)
+        ovf = overflow_counter("cpu")
+        got = []
+        for prev, cam in zip(tcams, tcams[1:]):
+            img, tstate, gbuf = TF.render_frame(tstatic, scene, tstate, cam,
+                                                prev, tparams(), 1 / 60,
+                                                overflow=ovf)
+            got.append(img.numpy())
+        assert int(ovf) == 0
+        out.append(got)
+        if len(out) == 2:
+            out.append(gbuf)
+    return tuple(out)
 
 
 @pytest.fixture(scope="module")
@@ -114,7 +127,7 @@ def frames():
     cam = make_camera(pos=(0.0, 3.0, -9.0), pitch=-0.15, fov_y=1.1)
     return _render_both(JFlags(denoise=False, bloom=False, lens_flare=False),
                         TFlags(denoise=False, bloom=False, lens_flare=False),
-                        [cam] * 3)
+                        [cam] * 3, sah2=True)
 
 
 @pytest.fixture(scope="module")
@@ -126,13 +139,23 @@ def frames_default():
     return _render_both(JFlags(), TFlags(), cams)
 
 
-def test_frame_matches_jax(frames):
-    ref, got, _ = frames
+def _assert_images_close(ref, got):
+    assert len(got) == len(ref)
     for r, g in zip(ref, got):
         assert g.shape == (H, W, 3) and g.dtype == np.uint8
         d = np.abs(r.astype(np.int32) - g.astype(np.int32))
         assert d.mean() <= 2.0, d.mean()
         assert (d.max(-1) <= 4).mean() >= 0.95, (d.max(-1) <= 4).mean()
+
+
+def test_frame_matches_jax(frames):
+    _assert_images_close(frames[0], frames[1])
+
+
+def test_sah2_frame_matches_jax(frames):
+    """The port's frame over the flat binary tree that the JAX frame
+    traces (bvh="sah2")."""
+    _assert_images_close(frames[0], frames[3])
 
 
 def test_default_frame_matches_jax(frames_default):
@@ -146,7 +169,7 @@ def test_default_frame_matches_jax(frames_default):
 
 
 def test_gbuffer_sane(frames):
-    _, _, gbuf = frames
+    gbuf = frames[2]
     for f in ("color", "albedo", "normal", "motion"):
         assert torch.isfinite(getattr(gbuf, f)).all(), f
     assert (gbuf.mat_id[: H // 4] == -1).float().mean() > 0.9   # sky rows
@@ -154,22 +177,17 @@ def test_gbuffer_sane(frames):
 
 
 def test_engine_refuses_unported_settings():
-    """Interlace, dynamic resolution, load_camera_at_init, animation="wave"
-    and the ocean and star flags are ported (tests/test_torch_interlace.py,
-    test_torch_engine_shell.py, test_engine_dynamic_resolution_renders
-    below, test_torch_frame_wave.py, test_torch_environment.py); these are
-    not."""
-    flags = TFlags(denoise=False, bloom=False, lens_flare=False)
-    dr = DynamicResolution(enabled=False)
-    for kw in (dict(flags=TFlags(fourier_textures=True)),
-               dict(settings=GlobalSettings(scene="demo", sky_model="preetham",
-                                            dynamic_resolution=dr)),
-               dict(animation="spin")):
-        kw.setdefault("flags", flags)
-        kw.setdefault("settings", GlobalSettings(scene="demo",
-                                                 dynamic_resolution=dr))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Engine(device="cpu", **kw)
+    """Interlace, dynamic resolution, load_camera_at_init, animation="wave",
+    the ocean and star flags, fourier_textures and sky_model="preetham" are
+    ported (tests/test_torch_interlace.py, test_torch_engine_shell.py,
+    test_engine_dynamic_resolution_renders below, test_torch_frame_wave.py,
+    test_torch_environment.py, test_torch_engine_optin.py); another
+    animation is not."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Engine(GlobalSettings(scene="demo", dynamic_resolution=
+                              DynamicResolution(enabled=False)),
+               TFlags(denoise=False, bloom=False, lens_flare=False),
+               animation="spin", device="cpu")
 
 
 def test_engine_dynamic_resolution_renders():

@@ -214,8 +214,8 @@ def test_animated_lbvh_frames_match_jax_rebuild():
 
 
 def test_engine_refuses_an_unknown_bvh():
-    with pytest.raises(ValueError, match="bvh='sah2'"):
-        Engine(GlobalSettings(scene="demo"), bvh="sah2", device="cpu")
+    with pytest.raises(ValueError, match="bvh='bvh8'"):
+        Engine(GlobalSettings(scene="demo"), bvh="bvh8", device="cpu")
 
 
 @pytest.mark.parametrize("animation", ["none", "wave"])

@@ -92,6 +92,15 @@ Tolerances:
     of the refitted terrain's tests, 0 dropped pushes, the deepest stack
     within the static bound; the C entries refuse any (arity, stack) pair
     without an instantiation, the wrappers tables of the wrong layout.
+  * The flat binary SAH tree (Engine(..., bvh="sah2") on the 1080p terrain
+    with FeatureFlags(fourier_textures=True), three frames under sync
+    debug "error"): K1's and K2's binary leaf-row instantiations at the
+    tables' stack and at 256 entries against their plain versions at the
+    bounds above (K1's hits also those of the BVH4 over the same leaf
+    rows), 0 dropped pushes; K2's Fourier-texture instantiation on the
+    flat tree, the BVH4 and the LBVH at K2's bounds; a leaf width or stack
+    without an instantiation refused by the C entries, a fit that is not
+    in cos / sin pairs by K2's wrapper.
 """
 
 import numpy as np
@@ -108,6 +117,7 @@ from rtrt_tpu_torch.engine.scene import build_chain_scene, chain_scene_rays
 from rtrt_tpu_torch.post.pipeline import dither_mask
 from rtrt_tpu_torch.post.tail import post_tail, post_tail_plain, tail_params
 from rtrt_tpu_torch.render import megakernel as M
+from rtrt_tpu_torch.render.ftex import upload_ftex
 from rtrt_tpu_torch.render.kshade import pack_materials_rows
 from rtrt_tpu_torch.render.raygen import generate_rays_padded
 from rtrt_tpu_torch.render.sampling import rand2_bn
@@ -1146,7 +1156,7 @@ def test_binary_kernels_refuse_other_layouts(lbvh_engine, cuda_device):
     C entries refuse any other (arity, stack) pair before launching; tables
     of the wrong layout or on the CPU are refused by the wrappers."""
     import copy
-    assert cuda.traverse_stacks(2) == (256,)
+    assert cuda.traverse_stacks(2, 1) == (256,)
     assert cuda.traverse_stacks() == P.STACK_DEPTHS
     tables = lbvh_engine.scene_data.tables
     org, d = _terrain_rays(lbvh_engine, 1, 4096)
@@ -1160,3 +1170,188 @@ def test_binary_kernels_refuse_other_layouts(lbvh_engine, cuda_device):
         P.packet_intersect(wrong, org, d)
     with pytest.raises(ValueError, match="on cpu"):
         P.packet_intersect(tables.to("cpu"), org, d)
+
+
+# ---------------------------------------------------------------------------
+# the flat binary SAH tree (bvh="sah2": K1 / K2's binary instantiation with
+# 8-slot leaf rows) and K2's Fourier-texture instantiations
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def sah2_engine(cuda_device):
+    """Engine(terrain, 1080p, FeatureFlags(fourier_textures=True),
+    bvh="sah2") after its first three frames, all under sync debug "error"
+    (the fit's coefficient table is made at init), and the same scene's
+    BVH4 tables."""
+    from rtrt_tpu_torch.bvh.sah import build_scene_tables_sah, bvh4_nodes
+    from rtrt_tpu_torch.engine.scene import padded_arrays
+    eng = Engine(GlobalSettings(scene="terrain", render_width=1920,
+                                render_height=1080, texture_size=256,
+                                dynamic_resolution=DynamicResolution(
+                                    enabled=False)),
+                 FeatureFlags(fourier_textures=True), bvh="sah2",
+                 device=cuda_device)
+    cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            eng.render_frame_device(dt=1 / 60)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["megakernel_trace_sah2_ftex"] == 3
+    assert int(eng.overflow) == 0
+    assert 0 < int(eng.stack_depth) <= eng.scene_data.tables.levels
+    pad = padded_arrays(eng.scene)
+    built = build_scene_tables_sah(
+        eng.scene.num_batches, pad["indices"], pad["tri_mat"], pad["valid"],
+        eng.scene.vertices, eng.scene.normals, leaf_max=8)
+    eng.bvh4_tables = P.pack_tables(*built, bvh4_nodes(built[0])).to(
+        cuda_device)
+    return eng
+
+
+def _deep(tables):
+    """The same tables traced at the 256-entry stack: the other
+    instantiation of their tree."""
+    import copy
+    deep = copy.copy(tables)
+    deep.stack = 256
+    return deep
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("deep", [False, True])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_traverse_kernel_sah2_matches_plain(sah2_engine, cuda_device,
+                                            any_hit, deep):
+    """K1's binary leaf-row instantiation on the terrain's flat SAH tree, at
+    the tables' stack and at 256 entries, at the bounds of the refitted
+    terrain's test; the hits of the BVH4 over the same leaf rows."""
+    org, d = _terrain_rays(sah2_engine, 3, 8)
+    tables = sah2_engine.scene_data.tables
+    if deep:
+        tables = _deep(tables)
+    ovf = P.overflow_counter(cuda_device)
+    before = cuda.launch_counts["packet_intersect_sah2"]
+    got = P.packet_intersect(tables, org, d, any_hit=any_hit, overflow=ovf)
+    ref = P.packet_intersect_plain(tables, org, d, any_hit=any_hit)
+    four = P.packet_intersect(sah2_engine.bvh4_tables, org, d,
+                              any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["packet_intersect_sah2"] == before + 1
+    assert int(ovf) == 0
+    assert (ref.tri >= 0).float().mean() > 0.3
+    same = (got.tri == ref.tri) & (ref.tri >= 0)
+    assert (got.tri == ref.tri).float().mean() >= 0.999
+    dt = (got.t - ref.t).abs()[same]
+    flat = 1e-5 * ref.t.abs()[same] + 4e-6
+    assert (dt <= flat).float().mean() >= 0.9999
+    assert (dt <= 1e-3 * ref.t.abs()[same]).all()
+    assert torch.equal(got.tri >= 0, four.tri >= 0) if any_hit else \
+        (got.tri == four.tri).float().mean() >= 0.999
+
+
+def _k2_close(got, ref):
+    """K2's bounds (the module docstring) on a frame of planes."""
+    miss = (got.mat_id == -1) & (ref.mat_id == -1)
+    assert 0 < miss.float().mean() < 1
+    d_ok = torch.isclose(got.depth, ref.depth, rtol=1e-4, atol=0) | (
+        torch.isinf(got.depth) & torch.isinf(ref.depth))
+    assert d_ok.float().mean() >= 0.99
+    assert (got.mat_id == ref.mat_id).float().mean() >= 0.99
+    for f in ("normal", "albedo", "esc_dir", "esc_beta", "esc_pdf"):
+        a, b = getattr(got, f), getattr(ref, f)
+        rtol = 1e-2 if f == "esc_beta" else 0.0
+        ok = ((a - b).abs() - rtol * b.abs()).amax(-1) <= 5e-3 \
+            if a.dim() == 3 else (a - b).abs() <= 5e-3
+        assert ok[~miss].float().mean() >= 0.99, f
+    torch.testing.assert_close(got.radiance.mean((0, 1)),
+                               ref.radiance.mean((0, 1)), rtol=1e-2,
+                               atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tree,ftex", [("sah2", False), ("sah2", True),
+                                       ("sah2_deep", False), ("sah4", True),
+                                       ("lbvh", True)])
+def test_megakernel_sah2_and_ftex_match_plain(sah2_engine, lbvh_engine,
+                                              cuda_device, tree, ftex):
+    """K2's instantiations of this slice on the 1080p terrain, every 4th
+    row and column: the flat SAH tree (at its stack and at 256 entries),
+    and the Fourier-texture branch on each tree, at K2's bounds; the
+    launch counted under its instantiation's name."""
+    eng = lbvh_engine if tree == "lbvh" else sah2_engine
+    sc, consts = eng.scene_data, eng.consts
+    tables = {"sah2": sc.tables, "sah2_deep": _deep(sc.tables),
+              "sah4": getattr(eng, "bvh4_tables", None),
+              "lbvh": sc.tables}[tree]
+    fit = sah2_engine.ftex if ftex else None
+    sub = lambda x: x[::4, ::4].contiguous()
+    rays = generate_rays_padded(camera_basis(eng.camera), eng.render_w,
+                                eng.render_h, consts.pixel_ids,
+                                rand2_bn(consts.bn, 5, 0),
+                                rand2_bn(consts.bn, 5, 256))
+    args = (tables, pack_materials_rows(sc.materials).to(cuda_device),
+            M.pack_light_rows(sc.lights, cuda_device),
+            M.pack_sun_params(sc.sky), 5, sub(rays.org), sub(rays.dir),
+            sub(rays.cone_width), sub(consts.pixel_ids))
+    bn = sub(consts.bn)
+    name = P.kernel_name("megakernel_trace", tables) + ("_ftex" * ftex)
+    before = cuda.launch_counts[name]
+    ovf, depth = (P.overflow_counter(cuda_device) for _ in range(2))
+    got = M.megakernel_trace(*args, n_lights=0, bn=bn, overflow=ovf,
+                             stack_depth=depth, ftex=fit)
+    hits = [0, 0, 0]
+    ref = M.megakernel_trace_plain(*args, n_lights=0, bn=bn,
+                                   ftex=fit.fit if ftex else None,
+                                   hits=hits)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts[name] == before + 1
+    assert int(ovf) == 0 and 0 < int(depth) <= tables.levels * (
+        3 if tables.arity == 4 else 1)
+    assert hits[1] > 0.1 * hits[0]  # textured hits
+    _k2_close(got, ref)
+
+
+@pytest.mark.gpu
+def test_sah2_and_ftex_kernels_refuse_other_layouts(sah2_engine,
+                                                    cuda_device):
+    """The flat tree's instantiations exist at both stacks; the C entries
+    refuse a leaf width or a stack without an instantiation before
+    launching, the wrappers tables of the wrong layout; a fit that is not
+    in cos / sin pairs has no table, and K2's wrapper refuses a table
+    that is not on the rays' device."""
+    import copy
+    assert cuda.traverse_stacks(2, 8) == P.STACK_DEPTHS
+    assert cuda.traverse_stacks(2, 4) == ()
+    tables = sah2_engine.scene_data.tables
+    org, d = _terrain_rays(sah2_engine, 1, 4096)
+    for attr, value in (("leaf_width", 4), ("stack", 64)):
+        odd = copy.copy(tables)
+        setattr(odd, attr, value)
+        with pytest.raises(RuntimeError, match="cudaError 1"):
+            P.packet_intersect(odd, org, d)
+    wrong = copy.copy(tables)
+    wrong.tlas_internal = 3
+    with pytest.raises(ValueError, match="flat SAH tree"):
+        P.packet_intersect(wrong, org, d)
+    fit = sah2_engine.ftex.fit
+    odd = fit._replace(albedo_ao=fit.albedo_ao._replace(
+        phase=(0.5,) + fit.albedo_ao.phase[1:]))
+    with pytest.raises(ValueError, match="cos / sin"):
+        upload_ftex(odd, cuda_device)
+    sc, consts = sah2_engine.scene_data, sah2_engine.consts
+    rays = generate_rays_padded(camera_basis(sah2_engine.camera), 1920,
+                                1080, consts.pixel_ids,
+                                rand2_bn(consts.bn, 0, 0),
+                                rand2_bn(consts.bn, 0, 256))
+    with pytest.raises(ValueError, match="ftex: on cpu"):
+        M.megakernel_trace(
+            tables, pack_materials_rows(sc.materials).to(cuda_device),
+            M.pack_light_rows(sc.lights, cuda_device),
+            M.pack_sun_params(sc.sky), 0, rays.org, rays.dir,
+            rays.cone_width, consts.pixel_ids, n_lights=0,
+            ftex=upload_ftex(fit, "cpu"))
