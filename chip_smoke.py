@@ -139,13 +139,40 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      view; that Engine timed as above (K2's leaf-row instantiation 8);
      Engine(GlobalSettings(scene="terrain", sky_model="preetham")): two
      frames, each image finite uint8.
+ 16. the denoiser's other branches: Engine(terrain, 1920x1080, dynamic
+     resolution off, FeatureFlags(temporal_filter=False)), 3 warm-up and 5
+     timed frames of phase 5's pan under sync debug "error", launch
+     counters reset just before: K2 8, K4 32, K3 8, K5 0 (its second
+     temporal pass fetches history through the ±1 px shift stencil); each
+     image (1080, 1920, 3) uint8, the history finite, the image differs
+     from phase 5's frame of the same camera on > 1% of pixels; K5's
+     bilinear instantiation against reproject_plain(...,
+     history_filter="bilinear") on phase 3e's history and motions at phase
+     3e's bounds, timed by events and by graph replay beside its bound and
+     F.grid_sample; then 3 main-path frames with RTRT_HISTORY_FILTER's
+     module default set to "bilinear" (its launch counter 3, the
+     Catmull-Rom one 0); the RTRT_DEBUG guards outside sync-debug mode:
+     nan_guard(enabled=True) on a card tensor with NaN and Inf zeroes them
+     and reports 3, and a default-flags frame with the guards on reports
+     0 bad values on each of its five labels;
+ 17. quality: tools/quality.py's measure at 1920x1080 on the terrain, 64
+     spp and 48 frames: the ceiling and the SSIM trajectory beside the
+     card; the final SSIM must be >= 0.90;
+ 18. the viewer: ViewerServer(Engine(terrain, 1920x1080, dynamic
+     resolution off), host 127.0.0.1, port 0): GET / (the page), /params
+     (19 entries, each value in its range), POST /input ("w" down moves
+     the camera, then up; post.bloom_strength 0.2 read back in
+     engine.params), GET /stats (fps, w, h), one multipart part of /stream
+     decoded to a 1920x1080 RGB PNG; stop() must not raise; K2, K5, K4 and
+     K3 must read launches.
   --profile adds 6: torch.profiler over 5 frames each of the main path,
      the north star's Engine at the 720 bucket and the interlaced Engine
      (device busy time, launches and synchronising calls per frame, top
      device ops).
 Prints the card's name and power limit, the per-kernel JSON line (K1-K16,
-K3's pre-mapped instantiation, K1's and K2's binary instantiations, their
-leaf-row instantiations and K2's Fourier-texture instantiation),
+K3's pre-mapped instantiation, K5's bilinear instantiation, K1's and K2's
+binary instantiations, their leaf-row instantiations and K2's
+Fourier-texture instantiation),
 then as its last line
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX nor of the JAX package.  Exits 1 when CUDA is not
@@ -182,6 +209,9 @@ NODE2_OPS, LEAF2_OPS = 2 * 20 + 4, 59
 # clamp ~29 a channel, dither and quantize ~6 (csrc/post_tail.cu)
 TAIL_MAPPED_OPS_PX = 110
 K4_TAP_OPS, K4_PX_OPS, K5_PX_OPS = 21, 10, 280
+# K5's bilinear instantiation ~90 per pixel: positions 8, 4 weights of 4,
+# 4 tap products, 4 taps x 6 channels of FMA (2 each), nearest and ok 14
+K5_BL_PX_OPS = 90
 # K2's shading, per hit of the plain version's counts (`hits=`), from
 # csrc/kshade.cuh and megakernel.cu::shade_segment, each float or integer
 # operation one (an FMA two, sqrt / div / sin / cos / floor one):
@@ -582,29 +612,14 @@ def main() -> int:
                          rng.integers(-4, 4, (q, W, 2)) + 0.5,
                          rng.uniform(-0.6, 0.6, (H - 3 * q, W, 2)) * [W, H]])
     mv_syn = torch.from_numpy((px / [W, H]).astype(np.float32)).to(dev)
-    k5_err = 0.0
     wide = lambda x: x.to(torch.float32)
-    for label, mv in (("camera yaw 0.02 rad + 0.1 units", mv_cam),
-                      ("synthetic field", mv_syn)):
-        mv = mv.contiguous()
-        got = reproject(*hist, mv)
-        ref = reproject_plain(wide(hist[0]), wide(hist[1]), wide(hist[2]),
-                              hist[3], wide(hist[4]), mv)
-        torch.cuda.synchronize()
-        fr = {}
-        for f in ("color", "color2"):
-            a_, b_ = getattr(got, f), getattr(ref, f)
-            err = (a_ - b_).abs()
-            k5_err = max(k5_err, err.max().item())
-            fr[f] = ((err <= 1e-6 + 1e-5 * b_.abs()).all(-1)
-                     ).float().mean().item()
-        exact = {f: torch.equal(getattr(got, f), getattr(ref, f))
-                 for f in ("depth", "count", "mat_id", "ok")}
-        print(f"K5 {label}, {W}x{H}: colour within rtol 1e-5 + atol 1e-6 on "
-              f"{fr}; exact {exact}; ok on {got.ok.float().mean().item():.4f}"
-              f" of pixels")
-        assert min(fr.values()) >= 0.9999, f"K5 {label} colour {fr}"
-        assert all(exact.values()), f"K5 {label} nearest planes {exact}"
+    motions = [("camera yaw 0.02 rad + 0.1 units", mv_cam.contiguous()),
+               ("synthetic field", mv_syn.contiguous())]
+    k5_err = max(_k5_check(f"K5 {label}, {W}x{H}", reproject(*hist, mv),
+                           reproject_plain(wide(hist[0]), wide(hist[1]),
+                                           wide(hist[2]), hist[3],
+                                           wide(hist[4]), mv))
+                 for label, mv in motions)
     k5_ms = time_ms(lambda: reproject(*hist, mv_cam), 20)
     k5_graph = time_graph_ms(lambda: reproject(*hist, mv_cam), 20, 20)
     k5_plain = time_ms(lambda: reproject_plain(
@@ -616,6 +631,7 @@ def main() -> int:
           f"events, {k5_graph:.4f} ms by graph replay, plain {k5_plain:.3f} "
           f"ms; bound {k5_bound[0]:.4f} ms ({k5_bound[1]}), "
           f"{k5_bound[0] / k5_graph:.0%} of it {card}")
+    k5_in = (hist, motions)
 
     # ---- 3f. K1 and K2 on a tree that needs the deep stack ----
     print(f"-- phase 3f at {time.perf_counter() - t_start:.1f} s")
@@ -694,6 +710,7 @@ def main() -> int:
           f"{bottom.item():.1f}")
     assert top.mean() > 100 and top[2] > top[0], "sky rows not bright blue"
     assert bottom > 10, "lower half is black"
+    main_img = img
 
     # denoise sanity: luminance variance inside 8x8 tiles of the lower half,
     # denoised colour (the history's pass-2 colour) vs the raw 1-spp colour
@@ -749,6 +766,19 @@ def main() -> int:
     print(f"-- phase 15 at {time.perf_counter() - t_start:.1f} s")
     optin = _optin(card, settings, main.scene, cam0, tables, k1_visits,
                    lbvh[1]["ms"])
+
+    # ---- 16. the denoiser's other branches, K5 bilinear, RTRT_DEBUG ----
+    print(f"-- phase 16 at {time.perf_counter() - t_start:.1f} s")
+    k5_bl = _denoiser_branches(card, settings, main.scene, cam0, main_img,
+                               *k5_in, main_step)
+
+    # ---- 17. image quality against a converged render ----
+    print(f"-- phase 17 at {time.perf_counter() - t_start:.1f} s")
+    _quality(card)
+
+    # ---- 18. the HTTP viewer ----
+    print(f"-- phase 18 at {time.perf_counter() - t_start:.1f} s")
+    _viewer(card, settings, main.scene)
 
     if "--profile" in sys.argv[1:]:
 
@@ -818,12 +848,302 @@ def main() -> int:
              launches=counts["reproject"], max_abs_err=k5_err,
              ms=k5_ms, graph_ms=k5_graph, plain_ms=k5_plain,
              bound_ms=k5_bound[0], bound_by=k5_bound[1], library_ms=None),
+        k5_bl,
     ] + lbvh + optin + probes + hw_probes
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _k5_check(label, got, ref):
+    """K5 against its plain version at phase 3e's bounds: colour within
+    rtol 1e-5 + atol 1e-6 on >= 99.99% of pixels, the nearest planes and ok
+    equal.  Returns the largest colour difference."""
+    import torch
+    torch.cuda.synchronize()
+    err_max, fr = 0.0, {}
+    for f in ("color", "color2"):
+        a_, b_ = getattr(got, f), getattr(ref, f)
+        err = (a_ - b_).abs()
+        err_max = max(err_max, err.max().item())
+        fr[f] = ((err <= 1e-6 + 1e-5 * b_.abs()).all(-1)
+                 ).float().mean().item()
+    exact = {f: torch.equal(getattr(got, f), getattr(ref, f))
+             for f in ("depth", "count", "mat_id", "ok")}
+    print(f"{label}: colour within rtol 1e-5 + atol 1e-6 on {fr}; exact "
+          f"{exact}; ok on {got.ok.float().mean().item():.4f} of pixels")
+    assert min(fr.values()) >= 0.9999, f"{label} colour {fr}"
+    assert all(exact.values()), f"{label} nearest planes {exact}"
+    return err_max
+
+
+def _denoiser_branches(card, settings, scene, cam0, main_img, hist, motions,
+                       main_step):
+    """Phase 16: the denoiser's other branches.  The Engine with
+    FeatureFlags(temporal_filter=False) (its second temporal pass fetches
+    history through the ±1 px shift stencil); K5's bilinear instantiation
+    against its plain version on phase 3e's history and motions, timed
+    beside its bound and F.grid_sample, then driven through the main
+    Engine's frames with RTRT_HISTORY_FILTER's module default set to
+    "bilinear"; the RTRT_DEBUG NaN guards.  Returns the kernels-line entry
+    of K5's bilinear instantiation."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+    import torch.nn.functional as Fn
+    from rtrt_tpu_torch.denoise import reproject as R
+    from rtrt_tpu_torch.engine.engine import Engine
+    from rtrt_tpu_torch.utils import cuda
+    from rtrt_tpu_torch.utils import debug
+    from rtrt_tpu_torch.utils.config import FeatureFlags
+    from rtrt_tpu_torch.utils.timing import bound_ms, time_graph_ms, time_ms
+
+    # ---- the Engine with temporal_filter off ----
+    eng = Engine(settings, flags=FeatureFlags(temporal_filter=False),
+                 scene=scene, device="cuda")
+    n_warm, n_timed = 3, 5
+    nf = n_warm + n_timed
+    cuda.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i, k in enumerate(range(WARMUP + TIMED - nf, WARMUP + TIMED)):
+            if i == n_warm:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            # phase 5's pans: the last frame sees phase 5's last camera
+            eng.camera = dataclasses.replace(cam0, yaw=cam0.yaw + 0.002 * k)
+            img = eng.render_frame_device(dt=1 / 60)
+            assert tuple(img.shape) == (H, W, 3) and img.dtype == torch.uint8
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ms = (time.perf_counter() - t0) / n_timed * 1e3
+    counts = dict(cuda.launch_counts)
+    print(f"temporal_filter=False: {ms:.2f} ms/frame over {n_timed} frames "
+          f"(host clock around synchronize, sync debug 'error' on all "
+          f"{nf}), {W}x{H} terrain {card}")
+    print(f"temporal_filter=False launch counts over {nf} frames: "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    want = dict(megakernel_trace=nf, denoise_wide=4 * nf, post_tail=nf,
+                reproject=0, reproject_bilinear=0)
+    for k, n in want.items():
+        assert counts[k] == n, f"temporal_filter=False: {k} launched " \
+            f"{counts[k]} times, not {n}"
+    h_ = eng.state.history
+    assert h_.valid
+    for f in ("color", "color2", "count"):
+        assert torch.isfinite(getattr(h_, f).float()).all(), \
+            f"history {f} not finite"
+    assert not torch.isnan(h_.depth.float()).any(), "NaN in history depth"
+    differs = ((img.int() - main_img.int()).abs().amax(-1) > 0).float()
+    print(f"temporal_filter=False: the image differs from phase 5's frame "
+          f"(the same camera, default flags) on {differs.mean().item():.4f} "
+          f"of pixels, mean |du8| "
+          f"{(img.float() - main_img.float()).abs().mean().item():.3f}")
+    assert differs.mean().item() > 0.01, "temporal_filter=False changed " \
+        "nothing"
+    busy, n_launch, _, kern_ev = _busy(lambda k: (
+        setattr(eng, "camera", dataclasses.replace(
+            cam0, yaw=cam0.yaw + 0.002 * (100 + k))),
+        eng.render_frame_device(dt=1 / 60)), 3)
+    print(f"temporal_filter=False: device busy {busy:.3f} ms/frame, "
+          f"{n_launch:.1f} kernel launches/frame (torch.profiler over 3 "
+          f"frames); top {_top(kern_ev, 3)} {card}")
+    del eng
+
+    # ---- K5's bilinear instantiation against its plain version ----
+    wide = lambda x: x.to(torch.float32)
+    plain = lambda mv: R.reproject_plain(
+        wide(hist[0]), wide(hist[1]), wide(hist[2]), hist[3], wide(hist[4]),
+        mv, history_filter="bilinear")
+    kern = lambda mv: R.reproject(*hist, mv, history_filter="bilinear")
+    err = max(_k5_check(f"K5 bilinear {label}, {W}x{H}", kern(mv), plain(mv))
+              for label, mv in motions)
+    mv_cam = motions[0][1]
+    t_ev = time_ms(lambda: kern(mv_cam), 20)
+    t_graph = time_graph_ms(lambda: kern(mv_cam), 20, 20)
+    t_cr = time_graph_ms(lambda: R.reproject(*hist, mv_cam,
+                                             history_filter="catmull_rom"),
+                         20, 20)
+    t_plain = time_ms(lambda: plain(mv_cam), 3)
+    # the Catmull-Rom instantiation's bytes; 4 taps in place of 16
+    bound = bound_ms(W * H * (28 + 37), W * H * K5_BL_PX_OPS)
+    # the library yardstick: F.grid_sample's bilinear colour resampling of
+    # both colour planes (one (1, 6, H, W) tensor) at the same points
+    # (align_corners=True, border padding).  It takes its grid in the
+    # input's dtype, and a bf16 grid cannot address 1920 columns, so it
+    # reads the widened float32 history; laying out its inputs is not
+    # timed, and it makes no nearest planes and no ok
+    planes = torch.cat([wide(hist[0]), wide(hist[1])], -1).permute(
+        2, 0, 1)[None].contiguous()
+    ys, xs = torch.meshgrid(torch.arange(H, device=mv_cam.device,
+                                         dtype=torch.float32),
+                            torch.arange(W, device=mv_cam.device,
+                                         dtype=torch.float32), indexing="ij")
+    grid = torch.stack([(xs + mv_cam[..., 0] * W) / (W - 1) * 2 - 1,
+                        (ys + mv_cam[..., 1] * H) / (H - 1) * 2 - 1],
+                       -1)[None].contiguous()
+    gs = lambda: Fn.grid_sample(planes, grid, mode="bilinear",
+                                padding_mode="border", align_corners=True)
+    t_lib = time_graph_ms(gs, 20, 20)
+    ref_c = kern(mv_cam)
+    lib = gs()[0].permute(1, 2, 0)
+    both = torch.cat([ref_c.color, ref_c.color2], -1)
+    # the grid's normalised coordinates (x / (W - 1) * 2 - 1, and back
+    # inside grid_sample) move a position by a few ulps of 2048, ~5e-4 px,
+    # and the weights with it: the two agree up to that rounding
+    d = (lib - both).abs()
+    tight = (d <= 1e-5 + 1e-4 * both.abs()).all(-1).float().mean().item()
+    close = (d <= 1e-4 + 2e-3 * both.abs()).all(-1).float().mean().item()
+    print(f"K5 bilinear: F.grid_sample against the kernel's colour: within "
+          f"rtol 1e-4 + atol 1e-5 on {tight:.6f} of pixels, rtol 2e-3 + "
+          f"atol 1e-4 on {close:.6f}")
+    assert close >= 0.999, "F.grid_sample computes another function"
+    print(f"K5 bilinear time, {W}x{H}, camera motion: kernel {t_ev:.4f} ms "
+          f"by events, {t_graph:.4f} ms by graph replay (Catmull-Rom "
+          f"{t_cr:.4f} in this call), plain {t_plain:.3f} ms, F.grid_sample "
+          f"{t_lib:.4f} ms by graph replay; bound {bound[0]:.4f} ms "
+          f"({bound[1]}), {bound[0] / t_graph:.0%} of it {card}")
+
+    # ---- the bilinear instantiation on the main path ----
+    cuda.reset_launch_counts()
+    saved = R.HISTORY_FILTER
+    R.HISTORY_FILTER = "bilinear"  # what RTRT_HISTORY_FILTER=bilinear sets
+    try:
+        for k in range(3):
+            main_step(k)
+        torch.cuda.synchronize()
+    finally:
+        R.HISTORY_FILTER = saved
+    counts = dict(cuda.launch_counts)
+    print(f"main path with RTRT_HISTORY_FILTER=bilinear, 3 frames: "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    assert counts["reproject_bilinear"] == 3 and counts["reproject"] == 0
+    launches = counts["reproject_bilinear"]
+
+    # ---- the RTRT_DEBUG guards (outside sync-debug mode) ----
+    x = torch.ones((H, W, 3), device="cuda")
+    x[0, 0, 0], x[5, 7, 1], x[-1, -1, 2] = float("nan"), float("inf"), \
+        -float("inf")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        y = debug.nan_guard(x, "smoke", enabled=True)
+    assert buf.getvalue() == "[nan_guard:smoke] bad values: 3\n", \
+        buf.getvalue()
+    assert torch.isfinite(y).all() and float(y.sum()) == x.numel() - 3
+    buf = io.StringIO()
+    saved = debug.DEBUG
+    debug.DEBUG = True  # what RTRT_DEBUG=1 sets
+    try:
+        with contextlib.redirect_stdout(buf):
+            main_step(3)
+            torch.cuda.synchronize()
+    finally:
+        debug.DEBUG = saved
+    found = dict(re.findall(r"\[nan_guard:([\w.]+)\] bad values: (\d+)",
+                            buf.getvalue()))
+    print(f"RTRT_DEBUG guards on a default-flags frame: {found}")
+    assert found == {lab: "0" for lab in (
+        "trace.radiance", "trace.albedo", "trace.normal", "trace.motion",
+        "denoise.remodulated")}, found
+    return dict(name="K5 history reprojection, bilinear instantiation "
+                "(RTRT_HISTORY_FILTER=bilinear: 4 taps + nearest, bf16 "
+                "history; launches: 3 main-path frames with the filter set)",
+                route="cuda", source="rtrt_tpu_torch/csrc/reproject.cu",
+                replaces="rtrt_tpu/denoise/reproject.py:244",
+                launches=launches, max_abs_err=err, ms=t_ev,
+                graph_ms=t_graph, plain_ms=t_plain, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=t_lib)
+
+
+def _quality(card):
+    """Phase 17: tools/quality.py's measure at 1920x1080 on the terrain, 64
+    spp and 48 frames: the ceiling, the trajectory, the final SSIM >= 0.90
+    (PARITY.md's product bar)."""
+    from rtrt_tpu_torch.tools.quality import measure
+
+    r = measure(W, H, 64, 48, "terrain", device="cuda",
+                log=lambda line: print(f"quality: {line} {card}"))
+    print(f"quality: {W}x{H} terrain, denoised stream SSIM {r['final']:.4f} "
+          f"after 48 frames against the 64-spp converged render, ceiling "
+          f"{r['ceiling']:.4f} {card}; the JAX package's recorded 0.952 "
+          f"(VERDICT.md:10) is a TPU run against a 96-spp reference, not "
+          f"this card's")
+    assert r["final"] >= 0.90, f"SSIM {r['final']} below the 0.90 bar"
+
+
+def _viewer(card, settings, scene):
+    """Phase 18: the HTTP viewer on the 1080p terrain: its routes, input,
+    one frame of the stream, a clean stop; K2, K5, K4 and K3 launched."""
+    import json
+    import urllib.request
+
+    import numpy as np
+    from rtrt_tpu_torch.app.viewer import ViewerServer
+    from rtrt_tpu_torch.engine.engine import Engine
+    from rtrt_tpu_torch.utils import cuda
+    from rtrt_tpu_torch.utils.config import PARAM_REGISTRY
+    from rtrt_tpu_torch.utils.image import decode_png
+
+    eng = Engine(settings, scene=scene, device="cuda")
+    cuda.reset_launch_counts()
+    v = ViewerServer(eng, host="127.0.0.1", port=0).start()
+    base = f"http://127.0.0.1:{v.port}"
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=60) as r:
+            return r.read()
+
+    def post(obj):
+        req = urllib.request.Request(base + "/input", method="POST",
+                                     data=json.dumps(obj).encode())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            assert r.status == 204, r.status
+
+    def wait(cond, what):
+        t0 = time.perf_counter()
+        while not cond():
+            assert v.error is None, v.error
+            assert time.perf_counter() - t0 < 60, f"viewer: {what}"
+            time.sleep(0.02)
+
+    try:
+        assert b'<img id="view" src="/stream">' in get("/")
+        ps = json.loads(get("/params"))
+        assert [p["path"] for p in ps] == [r[0] for r in PARAM_REGISTRY]
+        assert len(ps) == 19
+        for p in ps:
+            assert p["min"] <= p["value"] <= p["max"], p
+        with urllib.request.urlopen(base + "/stream", timeout=60) as r:
+            assert r.readline() == b"--f\r\n"
+            r.readline()
+            n = int(r.readline().split(b":")[1])
+            r.readline()
+            frame = decode_png(r.read(n))
+        assert frame.shape == (H, W, 3) and frame.dtype == np.uint8
+        pos0 = eng._camera_host()[:3].copy()
+        post({"key": "w", "down": True})
+        wait(lambda: not np.array_equal(eng._camera_host()[:3], pos0),
+             "the camera did not move with 'w' held")
+        post({"key": "w", "down": False})
+        post({"param": "post.bloom_strength", "value": 0.2})
+        assert eng.params.post.bloom_strength == 0.2
+        wait(lambda: eng.timer.fps > 0, "no fps after a second")
+        stats = json.loads(get("/stats"))
+        assert set(stats) == {"fps", "w", "h"}, stats
+    finally:
+        v.stop()
+    counts = dict(cuda.launch_counts)
+    print(f"viewer: routes served, camera moved "
+          f"{np.linalg.norm(eng._camera_host()[:3] - pos0):.3f} units with "
+          f"'w' held, stream frame {frame.shape}, stats {stats}, stopped; "
+          f"launches { {k: c for k, c in counts.items() if c} } {card}")
+    for k in ("megakernel_trace", "reproject", "denoise_wide", "post_tail"):
+        assert counts[k] > 0, f"viewer: {k} never launched"
 
 
 def _north_star(card):

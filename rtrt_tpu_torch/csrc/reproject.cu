@@ -7,12 +7,19 @@
 // (tests/test_reproject.py) and the one the JAX frame runs off the TPU:
 //   * colour and colour2: 16 Catmull-Rom taps (a = -1/2, taps -1..2 around
 //     floor(p), indices clamped), (wy * wx) * img summed ky outer, kx inner;
+//     or, in the bilinear instantiation (RTRT_HISTORY_FILTER=bilinear,
+//     reproject.py:44-70 and 286-301), the 4 taps 0..1 with weights
+//     max(0, 1 - |d|), in the same order;
 //   * depth, count, material id: nearest, rintf (round half to even, as
 //     jnp.round / torch.round; roundf would round half away from zero);
 //   * ok = 0 <= yh <= h-1 and 0 <= xh <= w-1.
 // The tile-shift kernel's extra ok=False where a lane's motion leaves its
 // tile's window (its 32x128 tile mean +-3 px) comes from the TPU's windowed
 // DMA and is not carried over.
+//
+// Instantiations: history dtype {bf16, f32} x filter {Catmull-Rom,
+// bilinear}.  The bilinear one is the same thread a pixel with 4 taps in
+// place of 16: the same bytes, about a quarter of the tap operations.
 //
 // What bounds it on the H100: bytes.  Per pixel it reads 8 bfloat16
 // history planes, the int32 material id and 2 float32 motion components
@@ -53,6 +60,14 @@ __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+constexpr int CATMULL_ROM = 0;  // HISTORY_FILTERS order, reproject.py
+constexpr int BILINEAR = 1;
+
+// 1-D bilinear weight max(0, 1 - |d|), as _w_bilinear
+__device__ __forceinline__ float w_bl(float d) {
+  return fmaxf(0.0f, __fsub_rn(1.0f, fabsf(d)));
+}
+
 // 1-D Catmull-Rom weight (a = -1/2), in the order of _w_catmull_rom
 __device__ __forceinline__ float w_cr(float d) {
   const float t = fabsf(d);
@@ -70,7 +85,7 @@ __device__ __forceinline__ float w_cr(float d) {
   return 0.0f;
 }
 
-template <typename T>
+template <typename T, int FILTER>
 __global__ void __launch_bounds__(BW * BH)
     reproject_kernel(const T* __restrict__ color, const T* __restrict__ color2,
                      const T* __restrict__ depth, const T* __restrict__ count,
@@ -89,17 +104,22 @@ __global__ void __launch_bounds__(BW * BH)
   const float fy = __fsub_rn(yh, y0f), fx = __fsub_rn(xh, x0f);
   const int y0i = (int)y0f, x0i = (int)x0f;
 
-  float wx[4];
-  int xi[4];
-  for (int kx = 0; kx < 4; ++kx) {
-    wx[kx] = w_cr(__fsub_rn(fx, (float)(kx - 1)));
-    xi[kx] = min(max(x0i + kx - 1, 0), w - 1);
+  // taps k0 .. k0 + NT - 1 around the floor
+  constexpr int NT = FILTER == BILINEAR ? 2 : 4;
+  constexpr int k0 = FILTER == BILINEAR ? 0 : -1;
+  float wx[NT];
+  int xi[NT];
+  for (int kx = 0; kx < NT; ++kx) {
+    const float d = __fsub_rn(fx, (float)(kx + k0));
+    wx[kx] = FILTER == BILINEAR ? w_bl(d) : w_cr(d);
+    xi[kx] = min(max(x0i + kx + k0, 0), w - 1);
   }
   float a[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  for (int ky = 0; ky < 4; ++ky) {
-    const float wy = w_cr(__fsub_rn(fy, (float)(ky - 1)));
-    const size_t row = (size_t)min(max(y0i + ky - 1, 0), h - 1) * w;
-    for (int kx = 0; kx < 4; ++kx) {
+  for (int ky = 0; ky < NT; ++ky) {
+    const float d = __fsub_rn(fy, (float)(ky + k0));
+    const float wy = FILTER == BILINEAR ? w_bl(d) : w_cr(d);
+    const size_t row = (size_t)min(max(y0i + ky + k0, 0), h - 1) * w;
+    for (int kx = 0; kx < NT; ++kx) {
       const float wt = __fmul_rn(wy, wx[kx]);
       const size_t t = (row + xi[kx]) * 3;
       for (int c = 0; c < 3; ++c) {
@@ -122,14 +142,14 @@ __global__ void __launch_bounds__(BW * BH)
             (xh <= (float)w - 1.0f);
 }
 
-template <typename T>
+template <typename T, int FILTER>
 void launch(const void* color, const void* color2, const void* depth,
             const void* count, const int* mat, const float* motion, int h,
             int w, float* o_color, float* o_color2, float* o_depth,
             float* o_count, int* o_mat, uint8_t* o_ok, cudaStream_t s) {
   dim3 block(BW, BH);
   dim3 grid((w + BW - 1) / BW, (h + BH - 1) / BH);
-  reproject_kernel<T><<<grid, block, 0, s>>>(
+  reproject_kernel<T, FILTER><<<grid, block, 0, s>>>(
       static_cast<const T*>(color), static_cast<const T*>(color2),
       static_cast<const T*>(depth), static_cast<const T*>(count), mat, motion,
       h, w, o_color, o_color2, o_depth, o_count, o_mat, o_ok);
@@ -137,23 +157,36 @@ void launch(const void* color, const void* color2, const void* depth,
 
 }  // namespace
 
-// History planes are bfloat16 when is_bf16, else float32; o_ok is a bool
-// (one byte) plane.
+// History planes are bfloat16 when is_bf16, else float32; filter is 0
+// (Catmull-Rom) or 1 (bilinear), and any other value is refused
+// (cudaErrorInvalidValue) before anything launches; o_ok is a bool (one
+// byte) plane.
 extern "C" int rtrt_reproject(const void* color, const void* color2,
                               const void* depth, const void* count,
                               const int* mat, const float* motion, int h,
-                              int w, int is_bf16, float* o_color,
+                              int w, int is_bf16, int filter, float* o_color,
                               float* o_color2, float* o_depth, float* o_count,
                               int* o_mat, uint8_t* o_ok, void* stream) {
+  if (filter != CATMULL_ROM && filter != BILINEAR)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (h > 0 && w > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (is_bf16)
-      launch<__nv_bfloat16>(color, color2, depth, count, mat, motion, h, w,
-                            o_color, o_color2, o_depth, o_count, o_mat, o_ok,
-                            s);
+    if (is_bf16 && filter == BILINEAR)
+      launch<__nv_bfloat16, BILINEAR>(color, color2, depth, count, mat,
+                                      motion, h, w, o_color, o_color2,
+                                      o_depth, o_count, o_mat, o_ok, s);
+    else if (is_bf16)
+      launch<__nv_bfloat16, CATMULL_ROM>(color, color2, depth, count, mat,
+                                         motion, h, w, o_color, o_color2,
+                                         o_depth, o_count, o_mat, o_ok, s);
+    else if (filter == BILINEAR)
+      launch<float, BILINEAR>(color, color2, depth, count, mat, motion, h, w,
+                              o_color, o_color2, o_depth, o_count, o_mat,
+                              o_ok, s);
     else
-      launch<float>(color, color2, depth, count, mat, motion, h, w, o_color,
-                    o_color2, o_depth, o_count, o_mat, o_ok, s);
+      launch<float, CATMULL_ROM>(color, color2, depth, count, mat, motion, h,
+                                 w, o_color, o_color2, o_depth, o_count,
+                                 o_mat, o_ok, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,18 @@
-"""The SVGF-style denoising chain (port of rtrt_tpu/denoise/pipeline.py
-with `reproject_mode="gather"`, the function the JAX frame runs off the
-TPU):
+"""The SVGF-style denoising chain (port of rtrt_tpu/denoise/pipeline.py):
 
     reproject history (K5) -> TemporalFilter -> tile noise 8
     -> SpatialFilter7x7 (K4) -> history colour -> tile noise 16
     -> 3x SpatialFilterGlobal5x5 at strides 3/6/12 (K4) -> x albedo
     -> TemporalFilter2 -> history colour2
+
+`reproject_mode="gather"` (the default, the function the JAX frame runs off
+the TPU) resamples the history at uv + motion with K5 (or its plain
+version on the CPU) when FeatureFlags.temporal_filter is on; "stencil"
+skips the reprojection and both temporal passes fetch their history with
+the ±1 px shift stencil (denoise/temporal.py).  With temporal_filter off
+the second pass takes the stencil too, as in JAX.  The JAX package's
+"tile_shift" mode is its TPU kernel, whose function K5 computes as
+"gather"; any other mode raises ValueError.
 
 History is stored as bfloat16 when FeatureFlags.half_history is on (the
 default); all filter math runs in float32.  `valid` is a host bool (False
@@ -20,9 +27,13 @@ import torch
 
 from ..ops.resize import box_pool
 from ..utils.config import DenoiseParams, FeatureFlags
+from ..utils.debug import nan_guard
 from .reproject import reproject
 from .spatial import spatial_filter_7x7, spatial_filter_wide
 from .temporal import temporal_filter, tile_noise_downsample, tile_noise_level
+
+
+REPROJECT_MODES = ("gather", "stencil")
 
 
 class DenoiseHistory(NamedTuple):
@@ -53,24 +64,37 @@ def init_history(h: int, w: int, half: bool = True,
 
 def denoise(color, albedo, normal, depth, mat_id, motion,
             history: DenoiseHistory, p: DenoiseParams, flags: FeatureFlags,
-            frame_parity: int = 0):
+            frame_parity: int = 0, reproject_mode: str = "gather"):
     """Run the chain on demodulated radiance.  Returns
     (final colour with albedo, new history)."""
+    if reproject_mode not in REPROJECT_MODES:
+        raise ValueError(f"reproject_mode={reproject_mode!r}: expected one "
+                         f"of {REPROJECT_MODES}")
     # the kernels take dense planes; the G-buffer's are views of K2's
     # (18, H, W) output
     color, albedo, normal, depth, mat_id, motion = (
         x.contiguous() for x in (color, albedo, normal, depth, mat_id,
                                  motion))
     c = color
-    new_count = history.count.to(torch.float32)
+    hist_count = new_count = history.count.to(torch.float32)
     rep1 = rep2 = None
-    if flags.temporal_filter:
+    if flags.temporal_filter and reproject_mode == "gather":
         rep = reproject(history.color, history.color2, history.depth,
                         history.mat_id, history.count, motion)
         rep1 = (rep.color, rep.depth, rep.mat_id, rep.count, rep.ok)
         rep2 = (rep.color2, rep.depth, rep.mat_id, rep.count, rep.ok)
+
+    def fetch(hist_color):
+        """The stencil fetch's float32 history planes (unused with a
+        reprojection)."""
+        f = lambda x: x.to(torch.float32)
+        return dict(hist_color=f(hist_color), hist_depth=f(history.depth),
+                    hist_mat=history.mat_id, hist_count=hist_count)
+
+    if flags.temporal_filter:
+        kw = fetch(history.color) if rep1 is None else {}
         c, new_count = temporal_filter(c, normal, depth, mat_id, motion,
-                                       history.valid, p, rep1)
+                                       history.valid, p, rep1, **kw)
 
     # the noise estimate decays with accumulation (variance ~ 1/N)
     noise8 = tile_noise_level(c, depth, 8)
@@ -88,16 +112,12 @@ def denoise(color, albedo, normal, depth, mat_id, motion,
             c = spatial_filter_wide(c, normal, depth, mat_id, noise16, p,
                                     stride)
 
-    c = c * albedo  # remodulate
+    c = nan_guard(c * albedo, "denoise.remodulated")  # remodulate
 
     if flags.second_temporal:
-        if rep2 is None:
-            raise NotImplementedError(
-                "FeatureFlags.second_temporal without temporal_filter needs "
-                "the ±1 px stencil history fetch, which is not ported to "
-                "rtrt_tpu_torch yet (see ROADMAP.md)")
+        kw = fetch(history.color2) if rep2 is None else {}
         c, _ = temporal_filter(c, normal, depth, mat_id, motion,
-                               history.valid, p, rep2)
+                               history.valid, p, rep2, **kw)
 
     store = (lambda x: x.to(torch.bfloat16)) if flags.half_history \
         else (lambda x: x)

@@ -4,16 +4,24 @@ package's Pallas tile-shift kernel `_reproject_kernel` computes on every
 lane it resolves).
 
 Per pixel, the history sample sits at (y + motion_y * h, x + motion_x * w):
-  * colour and colour2: 16-tap Catmull-Rom (a = -1/2) at that point, taps
-    -1..2 around its floor, indices clamped to the image, weights
-    (wy * wx) * img summed ky outer, kx inner;
+  * colour and colour2: by the history filter, indices clamped to the
+    image, weights (wy * wx) * img summed ky outer, kx inner —
+    "catmull_rom" (the default): 16 Catmull-Rom (a = -1/2) taps -1..2
+    around the point's floor; "bilinear": the 4 taps 0..1, weights
+    max(0, 1 - |d|);
   * depth, count, material id: nearest (round half to even), clamped;
   * ok: the point lies inside [0, h-1] x [0, w-1].
 
-`reproject` launches, for CUDA tensors, K5 (csrc/reproject.cu), which reads
-bfloat16 history directly and widens it in registers (widening is exact,
-so the function is unchanged); for CPU tensors it widens the history and
-runs `reproject_plain`.  The TPU kernel's extra ok=False where a lane's
+HISTORY_FILTER is RTRT_HISTORY_FILTER at import ("catmull_rom" unset), the
+JAX package's switch; `reproject` and `reproject_plain` read it when their
+`history_filter` is None.  Another value raises ValueError where JAX
+quietly takes bilinear weights over the Catmull-Rom taps.
+
+`reproject` launches, for CUDA tensors, K5 (csrc/reproject.cu; one
+instantiation per history dtype and filter), which reads bfloat16 history
+directly and widens it in registers (widening is exact, so the function is
+unchanged); for CPU tensors it widens the history and runs
+`reproject_plain`.  The TPU kernel's extra ok=False where a lane's
 motion falls outside its tile's window is an artifact of the windowed DMA
 and is not carried over.
 """
@@ -21,6 +29,7 @@ and is not carried over.
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import NamedTuple
 
 import torch
@@ -28,12 +37,16 @@ import torch
 from ..utils import cuda
 
 
+HISTORY_FILTERS = ("catmull_rom", "bilinear")  # K5's filter argument
+HISTORY_FILTER = os.environ.get("RTRT_HISTORY_FILTER", "catmull_rom")
+
+
 class Reprojection(NamedTuple):
     """History resampled at uv + motion for every pixel (float32; garbage
     where ~ok)."""
 
-    color: torch.Tensor    # (H,W,3) Catmull-Rom pass-1 history
-    color2: torch.Tensor   # (H,W,3) Catmull-Rom pass-2 history
+    color: torch.Tensor    # (H,W,3) pass-1 history, by the filter
+    color2: torch.Tensor   # (H,W,3) pass-2 history, by the filter
     depth: torch.Tensor    # (H,W)   nearest
     mat_id: torch.Tensor   # (H,W)   nearest i32
     count: torch.Tensor    # (H,W)   nearest accumulation count
@@ -48,10 +61,25 @@ def _w_catmull_rom(d):
     return torch.where(t <= 1.0, inner, torch.where(t < 2.0, outer, 0.0))
 
 
-def reproject_plain(color, color2, depth, mat_id, count, motion
-                    ) -> Reprojection:
+def _w_bilinear(d):
+    return torch.clamp(1.0 - torch.abs(d), min=0.0)
+
+
+def _filter(history_filter):
+    """The history filter's name (None: HISTORY_FILTER); another name than
+    those of HISTORY_FILTERS raises ValueError."""
+    f = HISTORY_FILTER if history_filter is None else history_filter
+    if f not in HISTORY_FILTERS:
+        raise ValueError(f"history filter {f!r} (RTRT_HISTORY_FILTER): "
+                         f"expected one of {HISTORY_FILTERS}")
+    return f
+
+
+def reproject_plain(color, color2, depth, mat_id, count, motion,
+                    history_filter: str | None = None) -> Reprojection:
     """Per-pixel gather form on float32 history (the XLA function of the
     JAX package's reproject_gather)."""
+    bilinear = _filter(history_filter) == "bilinear"
     h, w = depth.shape
     dev = depth.device
     yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
@@ -65,16 +93,17 @@ def reproject_plain(color, color2, depth, mat_id, count, motion
     fx = xh - x0f
     y0i = y0f.to(torch.int64)
     x0i = x0f.to(torch.int64)
-    taps = (-1, 0, 1, 2)
+    taps = (0, 1) if bilinear else (-1, 0, 1, 2)
+    weight = _w_bilinear if bilinear else _w_catmull_rom
 
     def resample(img):
         acc = 0.0
         for ky in taps:
             yi = torch.clamp(y0i + ky, 0, h - 1)
-            wy = _w_catmull_rom(fy - ky)[..., None]
+            wy = weight(fy - ky)[..., None]
             for kx in taps:
                 xi = torch.clamp(x0i + kx, 0, w - 1)
-                wx = _w_catmull_rom(fx - kx)[..., None]
+                wx = weight(fx - kx)[..., None]
                 acc = acc + wy * wx * img[yi, xi]
         return acc
 
@@ -87,15 +116,18 @@ def reproject_plain(color, color2, depth, mat_id, count, motion
         count=count[nyi, nxi], ok=ok)
 
 
-def reproject(color, color2, depth, mat_id, count, motion) -> Reprojection:
+def reproject(color, color2, depth, mat_id, count, motion,
+              history_filter: str | None = None) -> Reprojection:
     """Resample the history set (colour, colour2 (H,W,3); depth, count
     (H,W), all bfloat16 or all float32; mat_id (H,W) int32) at uv + motion
-    ((H,W,2) float32).  CPU tensors run the plain version on the widened
-    history; CUDA tensors launch K5."""
+    ((H,W,2) float32) with the history filter (None: HISTORY_FILTER).  CPU
+    tensors run the plain version on the widened history; CUDA tensors
+    launch K5's instantiation of the filter."""
+    filt = _filter(history_filter)
     if color.device.type == "cpu":
         f = lambda x: x.to(torch.float32)
         return reproject_plain(f(color), f(color2), f(depth), mat_id,
-                               f(count), motion)
+                               f(count), motion, filt)
     dev = color.device
     h, w = depth.shape
     dt = color.dtype
@@ -114,9 +146,11 @@ def reproject(color, color2, depth, mat_id, count, motion) -> Reprojection:
                                           device=dev),
                        count=f32(h, w),
                        ok=torch.empty((h, w), dtype=torch.bool, device=dev))
-    cuda.launch(cuda.library().rtrt_reproject, "reproject", dev,
-                color, color2, depth, count, mat_id, motion, ctypes.c_int(h),
-                ctypes.c_int(w), ctypes.c_int(int(dt == torch.bfloat16)),
-                out.color, out.color2, out.depth, out.count, out.mat_id,
-                out.ok)
+    cuda.launch(cuda.library().rtrt_reproject,
+                "reproject_bilinear" if filt == "bilinear" else "reproject",
+                dev, color, color2, depth, count, mat_id, motion,
+                ctypes.c_int(h), ctypes.c_int(w),
+                ctypes.c_int(int(dt == torch.bfloat16)),
+                ctypes.c_int(HISTORY_FILTERS.index(filt)), out.color,
+                out.color2, out.depth, out.count, out.mat_id, out.ok)
     return out

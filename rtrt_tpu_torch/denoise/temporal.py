@@ -1,10 +1,17 @@
 """Temporal reprojection filter (port of rtrt_tpu/denoise/temporal.py:
-`temporal_filter` on pre-reprojected history, the tile noise estimate).
+`temporal_filter` with its three history fetches, the tile noise estimate
+and its debug overlay).
 
-The history arrives resampled at uv + motion by denoise/reproject.py (K5 or
-its plain version); the JAX module's in-function ±1 px shift-stencil and
-bicubic history fetches are not on the product path and are not ported
-(ROADMAP.md).
+The history reaches `temporal_filter` in one of three ways, as in JAX:
+  * `reproj`: resampled at uv + motion by denoise/reproject.py (K5 or its
+    plain version) — the product path;
+  * `bicubic=True`: a 16-tap Catmull-Rom gather of the history colour at
+    uv + motion (ops/stencil.py), nearest material, depth and count;
+  * otherwise the ±1 px shift stencil: the history colour as 9 bilinearly
+    weighted shifted copies, the nearest-shift material, depth and count,
+    and motion beyond one pixel rejected (the second pass of a frame with
+    FeatureFlags(temporal_filter=False), and both passes of
+    denoise(..., reproject_mode="stencil")).
 """
 
 from __future__ import annotations
@@ -14,8 +21,10 @@ import torch
 
 from ..core.color import luminance, rgb_to_ycocg, ycocg_to_rgb
 from ..ops.resize import box_pool
-from ..ops.stencil import neighborhood
+from ..ops.stencil import bicubic_catmull_rom_sample, neighborhood, shifted
 from ..utils.config import DenoiseParams
+
+_SHIFTS = (-1, 0, 1)
 
 
 def _uv_grid(h, w, device):
@@ -31,19 +40,74 @@ def count_cap(p: DenoiseParams) -> float:
                                               np.float32(1e-3)))
 
 
+def _shift_pick(img, ry, rx):
+    """Per pixel, `shifted(img, ry, rx)` with the pixel's own shift (ry, rx
+    in {-1, 0, 1}): the nearest-shift history of JAX's 9 selects, as one
+    gather."""
+    h, w = img.shape[0], img.shape[1]
+    dev = img.device
+    yy = torch.arange(h, device=dev)[:, None]
+    xx = torch.arange(w, device=dev)[None, :]
+    return img[torch.clamp(yy + ry, 0, h - 1), torch.clamp(xx + rx, 0, w - 1)]
+
+
 def temporal_filter(color, normal, depth, mat_id, motion, hist_valid: bool,
-                    p: DenoiseParams, reproj):
-    """One temporal accumulation pass with 1/N blending.
+                    p: DenoiseParams, reproj=None, *, hist_color=None,
+                    hist_depth=None, hist_mat=None, bicubic: bool = False,
+                    hist_count=None):
+    """One temporal accumulation pass.
 
     color/normal (H,W,3); depth (H,W); mat_id (H,W) i32; motion (H,W,2) uv
-    offsets (prev - cur); hist_valid: host bool, False on the first frame;
+    offsets (prev - cur); hist_valid: host bool, False on the first frame.
     reproj: (hist_rgb, hist_depth, hist_mat, hist_count, ok) of the history
-    resampled at uv + motion.  Returns (filtered, new_count)."""
+    resampled at uv + motion; without it the pass fetches from the float32
+    history planes hist_color (H,W,3), hist_depth, hist_mat (and
+    hist_count), by the bicubic gather when `bicubic`, else by the ±1 px
+    shift stencil.
+
+    With a count (reproj's, or hist_count) the blend is 1/N accumulation,
+    alpha = max(1/(N+1), temporal_blend), and the pass returns (filtered,
+    new_count); without one (hist_count=None and no reproj) it is the
+    luma-weighted EMA and returns the filtered colour alone."""
     h, w = color.shape[0], color.shape[1]
     prev_uv = _uv_grid(h, w, color.device) + motion
-    hist, hd, hist_mat_s, n_prev_raw, rep_ok = reproj
+    counted = reproj is not None or hist_count is not None
 
-    # neighbourhood min/max clamp in YCoCg
+    # --- history fetch ---
+    if reproj is not None:
+        hist, hd, hist_mat_s, n_prev_raw, small_motion = reproj
+    elif bicubic:
+        hist = bicubic_catmull_rom_sample(hist_color, prev_uv)
+        # nearest texel; the integer cast truncates toward zero, as JAX's
+        hx = torch.clamp((prev_uv[..., 0] * w).to(torch.int64), 0, w - 1)
+        hy = torch.clamp((prev_uv[..., 1] * h).to(torch.int64), 0, h - 1)
+        hist_mat_s = hist_mat[hy, hx]
+        hd = hist_depth[hy, hx]
+        if counted:
+            n_prev_raw = hist_count[hy, hx]
+        small_motion = None
+    else:
+        mx, my = motion[..., 0] * w, motion[..., 1] * h  # pixels
+        small_motion = (torch.abs(mx) <= 1.0) & (torch.abs(my) <= 1.0)
+        fx = torch.clamp(mx, -1.0, 1.0)
+        fy = torch.clamp(my, -1.0, 1.0)
+        # separable bilinear weights over the shifts {-1, 0, +1}
+        wx = [torch.clamp(1.0 - torch.abs(fx - s), min=0.0) for s in _SHIFTS]
+        wy = [torch.clamp(1.0 - torch.abs(fy - s), min=0.0) for s in _SHIFTS]
+        hist = 0.0
+        for iy, sy in enumerate(_SHIFTS):
+            for ix, sx in enumerate(_SHIFTS):
+                wgt = (wy[iy] * wx[ix])[..., None]
+                hist = hist + wgt * shifted(hist_color, sy, sx)
+        # nearest shift for material, depth and count (round half to even)
+        rx = torch.round(fx).to(torch.int64)
+        ry = torch.round(fy).to(torch.int64)
+        hist_mat_s = _shift_pick(hist_mat, ry, rx)
+        hd = _shift_pick(hist_depth, ry, rx)
+        if counted:
+            n_prev_raw = _shift_pick(hist_count, ry, rx)
+
+    # --- neighbourhood min/max clamp in YCoCg ---
     taps, _ = neighborhood(rgb_to_ycocg(color), 1)  # (9,H,W,3)
     box_min = taps.amin(0)
     box_max = taps.amax(0)
@@ -53,10 +117,11 @@ def temporal_filter(color, normal, depth, mat_id, motion, hist_valid: bool,
                                           center - extent), center + extent)
     hist = ycocg_to_rgb(clamped)
 
-    # history validity
+    # --- history validity ---
     in_bounds = ((prev_uv[..., 0] >= 0.0) & (prev_uv[..., 0] <= 1.0)
-                 & (prev_uv[..., 1] >= 0.0) & (prev_uv[..., 1] <= 1.0)
-                 & rep_ok)
+                 & (prev_uv[..., 1] >= 0.0) & (prev_uv[..., 1] <= 1.0))
+    if small_motion is not None:
+        in_bounds = in_bounds & small_motion
     mat_ok = hist_mat_s == mat_id
     fin, hfin = torch.isfinite(depth), torch.isfinite(hd)
     depth_ok = torch.where(
@@ -66,13 +131,19 @@ def temporal_filter(color, normal, depth, mat_id, motion, hist_valid: bool,
         ~fin & ~hfin)  # both sky is fine
     ok = in_bounds & mat_ok & depth_ok & hist_valid
 
-    # blend
-    n_prev = torch.where(ok, n_prev_raw, 0.0)
-    alpha = torch.clamp(1.0 / (n_prev + 1.0), min=p.temporal_blend)
-    alpha = torch.where(ok, alpha, 1.0)
-    out = color * alpha[..., None] + hist * (1.0 - alpha[..., None])
-    new_count = torch.clamp(n_prev + 1.0, max=count_cap(p))
-    return out, new_count
+    # --- blend ---
+    if counted:
+        n_prev = torch.where(ok, n_prev_raw, 0.0)
+        alpha = torch.clamp(1.0 / (n_prev + 1.0), min=p.temporal_blend)
+        alpha = torch.where(ok, alpha, 1.0)
+        out = color * alpha[..., None] + hist * (1.0 - alpha[..., None])
+        new_count = torch.clamp(n_prev + 1.0, max=count_cap(p))
+        return out, new_count
+    # luma-weighted EMA: darker pixels get more history
+    blend = torch.clamp(p.temporal_blend * (1.0 + luminance(color) * 0.5),
+                        0.0, 1.0)
+    blend = torch.where(ok, blend, 1.0)[..., None]
+    return color * blend + hist * (1.0 - blend)
 
 
 def tile_noise_level(color, depth, tile: int = 8):
@@ -90,3 +161,20 @@ def tile_noise_level(color, depth, tile: int = 8):
 def tile_noise_downsample(noise):
     """8x8 -> 16x16 tile noise (2x2 average)."""
     return box_pool(noise, 2)
+
+
+def noise_level_visualize(img, noise, threshold, tile: int = 8):
+    """Debug overlay: tiles whose noise exceeds `threshold` tinted orange
+    (half the image, half [1, 0.5, 0.1]); img (H,W,3), noise the tile map
+    (edge-padded where the tiles do not cover the image)."""
+    h, w = img.shape[0], img.shape[1]
+    dev = img.device
+    ys = torch.clamp(torch.arange(h, device=dev) // tile,
+                     max=noise.shape[0] - 1)
+    xs = torch.clamp(torch.arange(w, device=dev) // tile,
+                     max=noise.shape[1] - 1)
+    up = noise.index_select(0, ys).index_select(1, xs)
+    mask = (up > threshold)[..., None]
+    tint = torch.tensor([1.0, 0.5, 0.1], dtype=torch.float32,
+                        device=img.device)
+    return torch.where(mask, img * 0.5 + tint * 0.5, img)

@@ -26,6 +26,12 @@ dt; a switch resets the denoiser history to the new size.
 With the default FeatureFlags() a frame is denoised (K5, K4), bloomed,
 lens-flared and tone-mapped (K3); FeatureFlags(ocean=True, stars=True)
 add the ocean and the star field to the environment of escaped rays.
+Every FeatureFlags combination of the JAX Engine renders: with
+temporal_filter off, the second temporal pass fetches its history through
+the ±1 px shift stencil (denoise/temporal.py), as the JAX frame does.
+RTRT_HISTORY_FILTER=bilinear switches K5 to its bilinear instantiation
+(denoise/reproject.py), and RTRT_DEBUG=1 turns on the frame's NaN guards
+(utils/debug.py).
 ``animation="wave"`` animates the scene with a travelling wave: with
 "sah4" the tables' topology is frozen at init and every frame refits its
 boxes (engine/frame.py::animate_tables, bvh/refit.py); with "lbvh" every

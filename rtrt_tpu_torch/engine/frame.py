@@ -59,6 +59,7 @@ from ..render.megakernel import path_trace_mega
 from ..render.raygen import generate_rays_padded
 from ..render.sampling import blue_offsets_flat, rand2, rand2_bn
 from ..utils.config import FeatureFlags, RenderParams
+from ..utils.debug import nan_guard
 
 
 @dataclasses.dataclass
@@ -365,6 +366,13 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
                        depth=fill_nearest(gbuf.depth),
                        motion=fill_nearest(gbuf.motion),
                        mat_id=fill_nearest(gbuf.mat_id))
+    # NaN guards under RTRT_DEBUG=1 (utils/debug.py; the identity, with no
+    # launch, when off), where the JAX frame places them
+    full = dataclasses.replace(
+        full, color=nan_guard(full.color, "trace.radiance"),
+        albedo=nan_guard(full.albedo, "trace.albedo"),
+        normal=nan_guard(full.normal, "trace.normal"),
+        motion=nan_guard(full.motion, "trace.motion"))
 
     if static.flags.denoise:
         if state.history is None:

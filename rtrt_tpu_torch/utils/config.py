@@ -6,7 +6,9 @@ Port of rtrt_tpu/utils/config.py.  Field names and defaults are identical
 runtime-tunable parameter groups are plain dataclasses of Python floats
 instead of NamedTuple pytrees of traced scalars: the port runs eagerly, so
 a parameter change never recompiles anything.  `get_param` / `set_param`
-address them by dotted path ("post.bloom_strength"), as the JAX ones do.
+address them by dotted path ("post.bloom_strength"), as the JAX ones do,
+and `PARAM_REGISTRY` lists the runtime-tunable ones for a generic
+parameter panel (app/viewer.py), entry for entry the JAX registry.
 """
 
 from __future__ import annotations
@@ -143,6 +145,38 @@ def default_params() -> RenderParams:
                       sun_intensity=20.0, rayleigh=1.0, mie=1.0,
                       mie_g=0.76),
     )
+
+
+# The runtime parameter panel's table: (dotted path, label, widget, min,
+# max, log scale)
+PARAM_REGISTRY = [
+    ("sample.aperture", "Aperture", "slider", 0.0, 0.5, False),
+    ("sample.focal_dist", "Focal distance", "slider", 0.5, 100.0, True),
+    ("denoise.sigma_normal", "Denoise: normal sigma", "slider", 1.0, 256.0,
+     True),
+    ("denoise.sigma_depth", "Denoise: depth sigma", "slider", 0.001, 1.0,
+     True),
+    ("denoise.sigma_material", "Denoise: material penalty", "slider", 0.0,
+     4.0, False),
+    ("denoise.temporal_blend", "Denoise: temporal blend", "slider", 0.01,
+     1.0, False),
+    ("denoise.anti_flicker", "Denoise: anti-flicker", "slider", 0.0, 4.0,
+     False),
+    ("denoise.noise_threshold", "Denoise: noise gate", "slider", 0.0, 0.01,
+     False),
+    ("post.exposure_gain", "Exposure gain", "slider", 0.1, 10.0, True),
+    ("post.bloom_strength", "Bloom", "slider", 0.0, 0.3, False),
+    ("post.flare_strength", "Lens flare", "slider", 0.0, 4.0, False),
+    ("post.tone_map", "Tone mapper",
+     "combo:reinhard,aces_fitted,aces,uncharted2", 0, 3, False),
+    ("post.sharpen_amount", "Sharpen", "slider", 0.0, 1.0, False),
+    ("sky.time_of_day", "Time of day", "slider", 0.0, 1.0, False),
+    ("sky.sun_axis_angle", "Sun axis angle", "slider", 0.0, 1.5, False),
+    ("sky.sun_intensity", "Sun intensity", "slider", 1.0, 100.0, True),
+    ("sky.rayleigh", "Rayleigh", "slider", 0.1, 4.0, False),
+    ("sky.mie", "Mie", "slider", 0.1, 4.0, False),
+    ("sky.mie_g", "Mie anisotropy", "slider", 0.0, 0.99, False),
+]
 
 
 def get_param(params: RenderParams, path: str):

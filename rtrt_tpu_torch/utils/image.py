@@ -16,9 +16,10 @@ def _u8(img) -> np.ndarray:
     return img
 
 
-def write_png(path: str, img) -> None:
-    """img: (H, W, 3) uint8 or float in [0,1] (numpy, or anything
-    numpy.asarray takes: a CPU tensor)."""
+def encode_png(img, compress_level: int = 6) -> bytes:
+    """The bytes of an 8-bit RGB PNG of img ((H, W, 3) or (H, W) uint8, or
+    float in [0,1]; numpy, or anything numpy.asarray takes: a CPU tensor),
+    every row unfiltered, zlib at `compress_level`."""
     img = _u8(img)
     h, w = img.shape[:2]
     if img.ndim == 2:
@@ -31,17 +32,26 @@ def write_png(path: str, img) -> None:
 
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)  # 8-bit RGB
     raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw, compress_level))
+            + chunk(b"IEND", b""))
+
+
+def write_png(path: str, img) -> None:
+    """img: (H, W, 3) uint8 or float in [0,1] (see encode_png)."""
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", ihdr))
-        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(chunk(b"IEND", b""))
+        f.write(encode_png(img))
 
 
 def read_png(path: str) -> np.ndarray:
-    """8-bit RGB / RGBA PNG without interlace -> (H, W, 3) uint8."""
+    """8-bit RGB / RGBA PNG file without interlace -> (H, W, 3) uint8."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "PNG data") -> np.ndarray:
+    """The bytes of an 8-bit RGB / RGBA PNG without interlace -> (H, W, 3)
+    uint8 (path names the source in errors)."""
     if data[:8] != b"\x89PNG\r\n\x1a\n":
         raise ValueError(f"{path}: not a PNG file")
     pos = 8

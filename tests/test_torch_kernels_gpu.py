@@ -52,7 +52,10 @@ Tolerances:
     roundings a channel fewer, each within an ulp); depth, count,
     material and ok exactly equal on every pixel.  Also on three motion
     fields at a ragged size: a smooth pan, +-30 px noise (taps scattered
-    over a 60-pixel window) and the two side by side.
+    over a 60-pixel window) and the two side by side.  Its bilinear
+    instantiation (RTRT_HISTORY_FILTER=bilinear) at the same bounds, at
+    1x1, 37x5 and 140x232 in both history dtypes; a filter without an
+    instantiation refused by the wrapper and by the C entry.
   * K1 under a step cap (max_steps / count_steps): as K1, and each ray's
     visit count equal on >= 99.9% of rays and never above the cap.
   * K1 and K2 on the chain scene (engine/scene.py::build_chain_scene, 12
@@ -548,26 +551,26 @@ def _motion_field(kind, h, w, rng):
     return np.where((xx < w // 2)[..., None], pan, wild)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("half", [True, False])
-@pytest.mark.parametrize("kind", ["pan", "wild", "mixed"])
-def test_reproject_kernel_motion_fields(cuda_device, kind, half):
-    rng = np.random.default_rng(11)
-    h, w = 140, 232  # ragged 32x8 blocks
+def _reproject_field(dev, shape, kind, half, seed, history_filter=None):
+    """K5 against its plain version on random history of `shape` under a
+    motion field of `kind` (_motion_field), at the K5 bounds.  Returns the
+    kernel's and the plain version's Reprojection."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
     dt = torch.bfloat16 if half else torch.float32
     f = lambda *s: torch.from_numpy(rng.uniform(0, 3, s).astype(
-        np.float32)).to(cuda_device, dt)
+        np.float32)).to(dev, dt)
     color, color2, count, depth = f(h, w, 3), f(h, w, 3), f(h, w), f(h, w)
-    depth[:10] = float("inf")
+    depth[: h // 14] = float("inf")  # sky rows
     mat = torch.from_numpy(rng.integers(-1, 4, (h, w)).astype(
-        np.int32)).to(cuda_device)
+        np.int32)).to(dev)
     px = _motion_field(kind, h, w, rng)
-    motion = torch.from_numpy((px / [w, h]).astype(np.float32)).to(
-        cuda_device)
-    got = reproject(color, color2, depth, mat, count, motion)
+    motion = torch.from_numpy((px / [w, h]).astype(np.float32)).to(dev)
+    got = reproject(color, color2, depth, mat, count, motion,
+                    history_filter=history_filter)
     wide = lambda x: x.to(torch.float32)
     ref = reproject_plain(wide(color), wide(color2), wide(depth), mat,
-                          wide(count), motion)
+                          wide(count), motion, history_filter=history_filter)
     torch.cuda.synchronize()
     for fld in ("color", "color2"):
         a, b = getattr(got, fld), getattr(ref, fld)
@@ -575,6 +578,56 @@ def test_reproject_kernel_motion_fields(cuda_device, kind, half):
         assert close.float().mean() >= 0.9999, fld
     for fld in ("depth", "count", "mat_id", "ok"):
         assert torch.equal(getattr(got, fld), getattr(ref, fld)), fld
+    return got, ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("half", [True, False])
+@pytest.mark.parametrize("kind", ["pan", "wild", "mixed"])
+def test_reproject_kernel_motion_fields(cuda_device, kind, half):
+    _reproject_field(cuda_device, (140, 232), kind, half, 11)  # ragged 32x8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("half", [True, False])
+@pytest.mark.parametrize("kind", ["pan", "wild", "mixed"])
+@pytest.mark.parametrize("shape", [(1, 1), (37, 5), (140, 232)])
+def test_reproject_bilinear_kernel_matches_plain(cuda_device, shape, kind,
+                                                  half):
+    """K5's bilinear instantiation (RTRT_HISTORY_FILTER=bilinear) against
+    reproject_plain(..., history_filter="bilinear"): the bounds of the
+    Catmull-Rom instantiation; its own launch counter."""
+    cuda.reset_launch_counts()
+    got, _ = _reproject_field(cuda_device, shape, kind, half, 13,
+                              history_filter="bilinear")
+    assert cuda.launch_counts["reproject_bilinear"] == 1
+    assert cuda.launch_counts["reproject"] == 0
+    if shape[0] * shape[1] > 100:  # the filter changes the colour
+        cr, _ = _reproject_field(cuda_device, shape, kind, half, 13)
+        assert not torch.allclose(got.color, cr.color)
+
+
+@pytest.mark.gpu
+def test_reproject_refuses_unknown_filter(cuda_device):
+    """An unknown history filter is refused by the wrapper (ValueError) and
+    by the C entry (cudaErrorInvalidValue) before anything launches."""
+    import ctypes
+    z = lambda *s: torch.zeros(s, device=cuda_device)
+    planes = (z(4, 4, 3), z(4, 4, 3), z(4, 4), z(4, 4),
+              torch.zeros((4, 4), dtype=torch.int32, device=cuda_device),
+              z(4, 4, 2))
+    with pytest.raises(ValueError, match="history filter"):
+        reproject(*planes[:3], planes[4], planes[3], planes[5],
+                  history_filter="lanczos")
+    outs = (z(4, 4, 3), z(4, 4, 3), z(4, 4), z(4, 4),
+            torch.zeros((4, 4), dtype=torch.int32, device=cuda_device),
+            torch.zeros((4, 4), dtype=torch.bool, device=cuda_device))
+    cuda.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        cuda.launch(cuda.library().rtrt_reproject, "reproject_bilinear",
+                    cuda_device, *planes, ctypes.c_int(4), ctypes.c_int(4),
+                    ctypes.c_int(0), ctypes.c_int(2), *outs)
+    assert cuda.launch_counts["reproject_bilinear"] == 0
 
 
 @pytest.mark.gpu
