@@ -165,14 +165,34 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      engine.params), GET /stats (fps, w, h), one multipart part of /stream
      decoded to a 1920x1080 RGB PNG; stop() must not raise; K2, K5, K4 and
      K3 must read launches.
+ 19. the wavefront integrator (render/integrator.py::path_trace):
+     Engine(terrain, 1920x1080, trace="packets"), default FeatureFlags(),
+     3 warm-up and 5 timed frames of the slow pan under sync debug
+     "error", launch counters reset just before: K1 40 (5 a frame: one per
+     bounce segment, shadow rays included), K2 0, K3 8, K4 32, K5 8;
+     ms/frame, device busy and launches per frame beside the main path's
+     megakernel frame on the same view; then one frame with K1's inputs
+     recorded: its primary G-buffer (mat id, depth rtol 1e-5, normal
+     within 1e-3) equal to the megakernel frame's of the same state and
+     camera on >= 99.9% of pixels, the share of raw colour within 1e-3,
+     K1 timed on each segment's rays, and K1 against its plain version on
+     all of the frame's rays in one batch (the primaries, the bounce and
+     shadow rays, finished lanes with t_max 0) and on the same rays with a
+     finite t_max on half the live lanes, at phase 3's bounds, with each
+     bounce segment's tri ids equal on >= 99.9% alone; Engine(terrain, 480x270,
+     trace="loop") one frame (sync debug off: the loop syncs every step)
+     against the packet route's frame of the same state (primary G-buffer
+     equal on >= 99.9%; no traversal kernel launched); the packet route
+     on the animated terrain, bvh="sah4" (refit) and "lbvh" (rebuild): 3
+     frames each under sync debug "error", K1's instantiation 15, K2 0.
   --profile adds 6: torch.profiler over 5 frames each of the main path,
      the north star's Engine at the 720 bucket and the interlaced Engine
      (device busy time, launches and synchronising calls per frame, top
      device ops).
 Prints the card's name and power limit, the per-kernel JSON line (K1-K16,
 K3's pre-mapped instantiation, K5's bilinear instantiation, K1's and K2's
-binary instantiations, their leaf-row instantiations and K2's
-Fourier-texture instantiation),
+binary instantiations, their leaf-row instantiations, K2's
+Fourier-texture instantiation and K1's wavefront route),
 then as its last line
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX nor of the JAX package.  Exits 1 when CUDA is not
@@ -780,6 +800,10 @@ def main() -> int:
     print(f"-- phase 18 at {time.perf_counter() - t_start:.1f} s")
     _viewer(card, settings, main.scene)
 
+    # ---- 19. the wavefront integrator: trace="packets" and "loop" ----
+    print(f"-- phase 19 at {time.perf_counter() - t_start:.1f} s")
+    wave = _wavefront(card, settings, main.scene, cam0, frame_ms, main)
+
     if "--profile" in sys.argv[1:]:
 
         def il_step(k):
@@ -849,7 +873,7 @@ def main() -> int:
              ms=k5_ms, graph_ms=k5_graph, plain_ms=k5_plain,
              bound_ms=k5_bound[0], bound_by=k5_bound[1], library_ms=None),
         k5_bl,
-    ] + lbvh + optin + probes + hw_probes
+    ] + lbvh + optin + [wave] + probes + hw_probes
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1144,6 +1168,255 @@ def _viewer(card, settings, scene):
           f"launches { {k: c for k, c in counts.items() if c} } {card}")
     for k in ("megakernel_trace", "reproject", "denoise_wide", "post_tail"):
         assert counts[k] > 0, f"viewer: {k} never launched"
+
+
+def _wavefront(card, settings, scene, cam0, mega_ms, mega):
+    """Phase 19: the wavefront integrator through the Engine.  (a)
+    Engine(terrain, 1920x1080, trace="packets") renders 3 warm-up and 5
+    timed frames of the slow pan under sync debug "error", the launch
+    counters reset just before: K1 5 a frame, K2 0, K5 1, K4 4, K3 1; its
+    device busy and launches per frame beside those of `mega`, the main
+    path's megakernel Engine, on the same view; (b) one frame with each
+    K1 launch's rays recorded: the primary G-buffer and the raw colour
+    against the megakernel frame of the same state and camera, K1 timed
+    per segment, and K1 against its plain version on all the frame's rays
+    in one batch (primaries, bounce and shadow rays, finished lanes with
+    t_max 0), then on the same rays with a finite t_max on half the live
+    lanes, the tri ids of each bounce segment also alone; (c)
+    Engine(terrain, 480x270, trace="loop") (sync debug off: the loop
+    syncs a step) against the packet route's frame of the same state; (d)
+    the packet route on the animated terrain, the refitted BVH4 and the
+    rebuilt LBVH: 3 frames each under sync debug "error", 5 K1 launches a
+    frame of the tree's instantiation.  Returns the kernels-line entry of
+    K1's wavefront route."""
+    import numpy as np
+    import torch
+    from rtrt_tpu_torch.bvh import packet as P
+    from rtrt_tpu_torch.engine import frame as F
+    from rtrt_tpu_torch.engine.engine import Engine
+    from rtrt_tpu_torch.render import integrator as I
+    from rtrt_tpu_torch.utils import cuda
+    from rtrt_tpu_torch.utils.config import FeatureFlags
+    from rtrt_tpu_torch.utils.timing import bound_ms, time_ms
+
+    t_phase = time.perf_counter()
+    segs = I.SEGMENTS
+    eng = Engine(settings, flags=FeatureFlags(), scene=scene,
+                 trace="packets", device="cuda")
+    assert not eng.static.use_megakernel and eng.static.use_packets
+    tables = eng.scene_data.tables
+
+    def pan(k, e=eng):
+        e.camera = dataclasses.replace(cam0, yaw=cam0.yaw + 0.002 * k)
+
+    # (a) the timed frames: launches and no host sync
+    n_warm, n_timed = 3, 5
+    cuda.reset_launch_counts()
+    eng.overflow.zero_()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for k in range(n_warm + n_timed):
+            if k == n_warm:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            pan(k)
+            img = eng.render_frame_device(dt=1 / 60)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    wave_ms = (time.perf_counter() - t0) / n_timed * 1e3
+    counts = dict(cuda.launch_counts)
+    nf = n_warm + n_timed
+    print(f"wavefront frame (Engine(terrain, {W}x{H}, trace='packets'), "
+          f"default FeatureFlags): {wave_ms:.2f} ms/frame over {n_timed} "
+          f"frames (host clock around synchronize, sync debug 'error' on "
+          f"all {nf}); megakernel main path {mega_ms:.2f} ms/frame in this "
+          f"run; dropped pushes {int(eng.overflow)} {card}")
+    print(f"wavefront launch counts over {nf} frames: "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    want = dict(packet_intersect=segs * nf, megakernel_trace=0,
+                post_tail=nf, denoise_wide=4 * nf, reproject=nf)
+    for k, v in want.items():
+        assert counts[k] == v, f"wavefront: {k} launched {counts[k]}, not {v}"
+    assert not [k for k, v in counts.items() if v and k.startswith(
+        "megakernel_trace")], "wavefront: a K2 instantiation launched"
+    assert int(eng.overflow) == 0, "wavefront: dropped pushes"
+    assert tuple(img.shape) == (H, W, 3) and img.dtype == torch.uint8
+    k1_launches = counts["packet_intersect"]
+    busy = {}
+    for label, e in (("wavefront", eng), ("megakernel", mega)):
+        busy[label] = _busy(lambda k, e=e: (
+            pan(100 + k, e), e.render_frame_device(dt=1 / 60)), 3)
+        print(f"{label} frame, the same view: device busy "
+              f"{busy[label][0]:.3f} ms/frame, {busy[label][1]:.1f} kernel "
+              f"launches/frame (torch.profiler over 3 frames); top "
+              f"{_top(busy[label][3], 3, 6)} {card}")
+
+    # (b) one frame with K1's inputs recorded, against the megakernel
+    # frame of the same state and camera
+    rec = []
+    launch = I.packet_intersect
+
+    def recording(tbl, org, dirs, t_max=None, **kw):
+        rec.append((org.clone(), dirs.clone(), t_max.clone()))
+        return launch(tbl, org, dirs, t_max, **kw)
+
+    pan(200)
+    state, cam = eng.state, eng.camera
+    args = (eng.scene_data, state, cam, cam, eng.params, 1 / 60, eng.consts)
+    I.packet_intersect = recording
+    try:
+        _, _, gw = F.render_frame(eng.static, *args, overflow=eng.overflow)
+    finally:
+        I.packet_intersect = launch
+    _, _, gm = F.render_frame(dataclasses.replace(
+        eng.static, use_megakernel=True), *args)
+    torch.cuda.synchronize()
+    assert len(rec) == segs, f"{len(rec)} K1 launches in a frame"
+    same = (gw.mat_id == gm.mat_id) & (
+        torch.isclose(gw.depth, gm.depth, rtol=1e-5, atol=0)
+        | (torch.isinf(gw.depth) & torch.isinf(gm.depth))) & (
+        (gw.normal - gm.normal).abs().amax(-1) <= 1e-3)
+    frac = same.float().mean().item()
+    raw_w, raw_m = gw.color * gw.albedo, gm.color * gm.albedo
+    raw_eq = ((raw_w - raw_m).abs().amax(-1) <= 1e-3).float().mean().item()
+    print(f"wavefront primary G-buffer against the megakernel frame of the "
+          f"same state and camera: mat id equal, depth within rtol 1e-5 and "
+          f"normal within 1e-3 on {frac:.6f} of pixels; raw colour within "
+          f"1e-3 on {raw_eq:.6f}")
+    assert frac >= 0.999, f"wavefront primary G-buffer equal on {frac}"
+    for f in ("color", "albedo", "normal", "motion"):
+        assert torch.isfinite(getattr(gw, f)).all(), f"wavefront {f}"
+
+    seg_ms = [time_ms(lambda r=r: P.packet_intersect(tables, *r), 10)
+              for r in rec]
+    live_n = [int((r[2] > 0).sum()) for r in rec]
+    print(f"K1 per wavefront segment, {W}x{H} rays: "
+          f"{[round(x, 4) for x in seg_ms]} ms (segment 0 the primaries); "
+          f"live lanes per segment {live_n} (the others finished: t_max 0) "
+          f"{card}")
+    # K1 against its plain version on all of the frame's rays in one batch
+    # (phase 3's share rule is a share of hits: on the 1080p terrain the
+    # first bounce segment alone hits ~8,000 times, the others fewer),
+    # each bounce segment's tri ids also alone
+    n = rec[0][0].shape[0]
+    cat_o, cat_d, cat_t = (torch.cat([r[i] for r in rec]) for i in range(3))
+    rng = np.random.default_rng(19)
+    cap = torch.from_numpy(rng.uniform(0.5, 40.0, cat_t.numel()).astype(
+        np.float32)).to(cat_t.device)
+    half = torch.from_numpy(rng.random(cat_t.numel()) < 0.5).to(
+        cat_t.device)
+    errs = []
+    for label, t_max in (("", cat_t), (", a finite t_max on half the live "
+                                       "lanes", torch.where(
+                                           (cat_t > 0) & half, cap, cat_t))):
+        got = P.packet_intersect(tables, cat_o, cat_d, t_max)
+        ref = P.packet_intersect_plain(tables, cat_o, cat_d, t_max)
+        torch.cuda.synchronize()
+        errs.append(_check_k1(f"a wavefront frame's rays, {segs} segments"
+                              f"{label}", tables, cat_o, cat_d, got, ref))
+        for k in range(1, segs):
+            sl = slice(k * n, (k + 1) * n)
+            eq = (got.tri[sl] == ref.tri[sl]).float().mean().item()
+            print(f"  K1 bounce segment {k}{label}: {live_n[k]} live lanes,"
+                  f" {int((ref.tri[sl] >= 0).sum())} hits, tri id equal on "
+                  f"{eq:.6f}")
+            assert eq >= 0.999, f"K1 bounce segment {k}: tri equal on {eq}"
+        assert (got.tri[t_max <= 0] == -1).all(), "a finished lane hit"
+        capped = torch.isfinite(t_max) & (got.tri >= 0)
+        assert (got.t[capped] < t_max[capped]).all(), "a hit beyond t_max"
+    del cat_o, cat_d, cat_t, got, ref
+    # time, plain time and bound on the first bounce segment's rays
+    o, d, tm = rec[1]
+    visits = [0, 0]
+    P.packet_intersect_plain(tables, o, d, tm, visits=visits)
+    k1_plain = time_ms(lambda: P.packet_intersect_plain(tables, o, d, tm),
+                       1)
+    k1_bound = bound_ms(n * (28 + 44) + _table_bytes(tables),
+                        visits[0] * NODE_OPS + visits[1] * LEAF_OPS)
+    print(f"K1 time, wavefront bounce segment 1: kernel {seg_ms[1]:.3f} ms, "
+          f"plain {k1_plain:.1f} ms; {visits[0] / n:.2f} node and "
+          f"{visits[1] / n:.2f} leaf visits per ray; bound "
+          f"{k1_bound[0]:.4f} ms ({k1_bound[1]}) {card}")
+    del rec
+
+    # (c) the loop route at 480x270 against the packet route
+    small = dataclasses.replace(settings, render_width=480,
+                                render_height=270)
+    loop = Engine(small, flags=FeatureFlags(), scene=scene, trace="loop",
+                  device="cuda")
+    loop.camera = cam0
+    state, prev = loop.state, loop.prev_camera
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    loop.render_frame_device(dt=1 / 60)
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(cuda.launch_counts)
+    gl = loop.last_gbuffer
+    _, _, gp = F.render_frame(
+        dataclasses.replace(loop.static, use_packets=True), loop.scene_data,
+        state, cam0, prev, loop.params, 1 / 60, loop.consts)
+    torch.cuda.synchronize()
+    same = (gl.mat_id == gp.mat_id) & (
+        torch.isclose(gl.depth, gp.depth, rtol=1e-4, atol=0)
+        | (torch.isinf(gl.depth) & torch.isinf(gp.depth))) & (
+        (gl.normal - gp.normal).abs().amax(-1) <= 1e-3)
+    frac_loop = same.float().mean().item()
+    print(f"loop route (Engine(terrain, 480x270, trace='loop')): one frame "
+          f"{loop_ms:.1f} ms (host clock, the first, sync debug off); "
+          f"primary G-buffer equal to the packet route's on "
+          f"{frac_loop:.6f} of pixels; launches "
+          f"{ {k: v for k, v in counts.items() if v} } {card}")
+    assert frac_loop >= 0.999, f"loop route G-buffer equal on {frac_loop}"
+    assert counts["packet_intersect"] == 0 and counts["megakernel_trace"] \
+        == 0, "the loop route launched a traversal kernel"
+    assert int(loop.overflow) == 0, "loop route: dropped pushes"
+    del loop
+
+    # (d) the packet route on the animated terrain: refit and rebuild
+    for bvh, counter in (("sah4", "packet_intersect"),
+                         ("lbvh", "packet_intersect_binary")):
+        anim = Engine(settings, flags=FeatureFlags(), scene=scene,
+                      animation="wave", bvh=bvh, trace="packets",
+                      device="cuda")
+        cuda.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for k in range(3):
+                if k == 1:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                pan(k, anim)
+                img = anim.render_frame_device(dt=1 / 60)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ms = (time.perf_counter() - t0) / 2 * 1e3
+        counts = dict(cuda.launch_counts)
+        print(f"wavefront animated terrain (bvh={bvh!r}, animation='wave'): "
+              f"{ms:.2f} ms/frame over 2 frames (sync debug 'error' on all "
+              f"3); launches {({k: v for k, v in counts.items() if v})} "
+              f"{card}")
+        assert counts[counter] == 3 * segs, f"{bvh}: K1 {counts[counter]}"
+        assert not [k for k, v in counts.items() if v and k.startswith(
+            "megakernel")], f"{bvh}: a K2 instantiation launched"
+        assert tuple(img.shape) == (H, W, 3) and int(anim.overflow) == 0
+        assert torch.isfinite(anim.last_gbuffer.color).all()
+        del anim
+    print(f"phase 19 took {time.perf_counter() - t_phase:.1f} s {card}")
+    return dict(
+        name="K1 traverse, the wavefront route (packet_intersect once a "
+             "bounce segment of Engine(trace='packets'), shadow rays "
+             "included; ms / plain / bound on segment 1's bounce rays, "
+             "error on all the frame's rays, phase 19)", route="cuda",
+        source="rtrt_tpu_torch/csrc/traverse.cu",
+        replaces="rtrt_tpu/bvh/packet.py:1104", launches=k1_launches,
+        max_abs_err=max(errs), ms=seg_ms[1], plain_ms=k1_plain,
+        bound_ms=k1_bound[0], bound_by=k1_bound[1], library_ms=None,
+        segment_ms=seg_ms, frame_ms=wave_ms, frame_busy_ms=busy[
+            "wavefront"][0], launches_per_frame=busy["wavefront"][1],
+        megakernel_frame_busy_ms=busy["megakernel"][0])
 
 
 def _north_star(card):

@@ -1,11 +1,11 @@
 """Headless CLI: render N frames without a display, print ms/frame, write
 the last image (port of rtrt_tpu/app/headless.py; the same flags, and
---device).
+--device and --trace).
 
 Usage:
   python -m rtrt_tpu_torch.app.headless --scene demo --width 480 \
       --height 270 --frames 8 --out frame.png [--orbit] [--config cfg.toml]
-      [--device cpu]
+      [--device cpu] [--trace megakernel|packets|loop]
 
 Dynamic resolution is off, as in the JAX CLI: the frame renders at the
 bucket of --height (engine/engine.py) and comes out at --width x --height.
@@ -43,6 +43,11 @@ def main(argv=None):
     p.add_argument("--time-of-day", type=float, default=None)
     p.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu (plain versions)")
+    p.add_argument("--trace", default="megakernel",
+                   choices=("megakernel", "packets", "loop"),
+                   help="path tracer (engine/engine.py): the megakernel, "
+                        "the wavefront with K1 a segment, or the wavefront "
+                        "with the loop traverser")
     args = p.parse_args(argv)
 
     from ..engine.engine import Engine
@@ -64,7 +69,8 @@ def main(argv=None):
     flags = FeatureFlags(denoise=not args.no_denoise,
                          postprocess=not args.no_post,
                          ocean=args.ocean, stars=args.stars)
-    eng = Engine(settings, flags=flags, device=args.device)
+    eng = Engine(settings, flags=flags, trace=args.trace,
+                 device=args.device)
     if args.time_of_day is not None:
         eng.params = set_param(eng.params, "sky.time_of_day",
                                args.time_of_day)

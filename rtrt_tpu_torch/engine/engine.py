@@ -47,6 +47,18 @@ fit; ``settings.sky_model`` picks the physical or the Preetham sky
 (render/sky.py::SKY_MODELS; another value raises ValueError at init).
 Another animation than "none" or "wave" raises NotImplementedError
 (ROADMAP.md lists what is not ported).
+
+``trace`` picks the path tracer (`TRACE_ROUTES`): "megakernel" (the
+default) traces a frame in one K2 launch; "packets" runs the wavefront
+integrator (render/integrator.py::path_trace) with K1 launched once a
+bounce segment on the same tables (the JAX Engine's RTRT_MEGAKERNEL=0 on a
+TPU); "loop" runs the wavefront with the loop traverser (bvh/traverse.py),
+plain torch on the Engine's device, over the tables' SceneBvh (the JAX
+Engine's route off a TPU).  "loop" traverses the static tree, so it takes
+no animation.  The wavefront routes shade textured materials with the
+procedural soil, or with procedural_textures off with the soil texture set
+of ``settings.texture_size`` (built at init), never with a Fourier fit
+(fourier_textures fits only for the megakernel).
 """
 
 from __future__ import annotations
@@ -82,6 +94,9 @@ from .scene import (HostScene, build_demo_scene, build_mesh_scene,
 
 SAH_LEAF = 8  # row-aligned leaf width of the static SAH trees
 BVH_KINDS = ("sah4", "lbvh", "sah2")
+# trace route -> (FrameStatic.use_megakernel, .use_packets)
+TRACE_ROUTES = {"megakernel": (True, True), "packets": (False, True),
+                "loop": (False, False)}
 
 _BUCKET_HEIGHTS = (270, 360, 540, 720, 1080, 1440, 2160)
 
@@ -116,7 +131,7 @@ class Engine:
                  scene: HostScene | None = None,
                  params: RenderParams | None = None,
                  animation: str = "none", bvh: str = "sah4",
-                 device="cuda"):
+                 trace: str = "megakernel", device="cuda"):
         self.settings = settings or GlobalSettings()
         self.flags = flags or FeatureFlags()
         self.params = params or default_params()
@@ -125,6 +140,14 @@ class Engine:
             _unsupported(f"animation={animation!r}")
         if bvh not in BVH_KINDS:
             raise ValueError(f"bvh={bvh!r}: expected one of {BVH_KINDS}")
+        if trace not in TRACE_ROUTES:
+            raise ValueError(f"trace={trace!r}: expected one of "
+                             f"{tuple(TRACE_ROUTES)}")
+        if trace == "loop" and animation != "none":
+            raise ValueError(
+                f"trace='loop' with animation={animation!r}: the loop "
+                "traverser walks the static SceneBvh; an animated scene "
+                "takes trace='packets' or 'megakernel'")
         if s.sky_model not in SKY_MODELS:
             raise ValueError(f"settings.sky_model={s.sky_model!r}: expected "
                              f"one of {SKY_MODELS}")
@@ -135,6 +158,7 @@ class Engine:
                 "bvh='lbvh' (rebuilt every frame, as the JAX Engine does "
                 "with RTRT_SAH=2) or 'sah4' (refitted)")
         self.bvh = bvh
+        self.trace = trace
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine(device='cuda'): no CUDA device")
@@ -157,30 +181,43 @@ class Engine:
         t0 = time.perf_counter()
         pad = padded_arrays(self.scene)
         self.rest = None
+        # tree: the SceneBvh, sorted normals and materials that the tables
+        # pack (the loop route's tables)
         if bvh == "sah4":
-            tables = self._sah4_tables(pad, animation)
+            tables, tree = self._sah4_tables(pad, animation)
         elif bvh == "sah2":
-            tables = pack_tables_sah2(*build_scene_tables_sah(
+            tree = build_scene_tables_sah(
                 self.scene.num_batches, pad["indices"], pad["tri_mat"],
                 pad["valid"], self.scene.vertices, self.scene.normals,
-                leaf_max=SAH_LEAF)).to(self.device)
+                leaf_max=SAH_LEAF)
+            tables = pack_tables_sah2(*tree).to(self.device)
         else:
-            tables = self._lbvh_tables(pad, animation)
+            tables, tree = self._lbvh_tables(pad, animation)
         self.init_seconds[bvh] = time.perf_counter() - t0
+        loop = {}
+        if trace == "loop":
+            loop = dict(bvh=tree[0].to(self.device),
+                        tri_nrm_t=tree[1].to(self.device),
+                        tri_mat=tree[2].to(self.device, torch.int32))
 
         # the Fourier fit of the soil texture set (host lstsq) and K2's
         # table of it on the device, once
         self.ftex = None
-        if self.flags.fourier_textures:
+        if self.flags.fourier_textures and trace == "megakernel":
             t0 = time.perf_counter()
             self.ftex = upload_ftex(fit_soil_fourier(make_soil_textures(
                 s.texture_size, device=self.device)), self.device)
             self.init_seconds["textures"] = time.perf_counter() - t0
+        # the soil texture set of the wavefront's gather texturing
+        textures = None
+        if trace != "megakernel" and not self.flags.procedural_textures:
+            textures = make_soil_textures(s.texture_size, device=self.device)
         lights = self.scene.lights
         self.scene_data = SceneData(
             tables=tables, materials=self.scene.materials.to(self.device),
             sky=None,
-            lights=None if lights is None else lights.to(self.device))
+            lights=None if lights is None else lights.to(self.device),
+            textures=textures, **loop)
 
         t0 = time.perf_counter()
         self._sky_key = None
@@ -214,9 +251,10 @@ class Engine:
         self._input = dict(keys=set(), last_cursor=None)
 
     def _sah4_tables(self, pad, animation):
-        """The SAH/BVH4 tables, built on the host; an animated scene keeps
-        the rest pose (the sorted (9, P) vertex rows and normals) and the
-        frozen tree's refit schedule on the device."""
+        """The SAH/BVH4 tables, built on the host, and the tree they
+        collapse (SceneBvh, sorted normals, materials); an animated scene
+        keeps the rest pose (the sorted (9, P) vertex rows and normals) and
+        the frozen tree's refit schedule on the device."""
         bvh, nrm_t, mat_s = build_scene_tables_sah(
             self.scene.num_batches, pad["indices"], pad["tri_mat"],
             pad["valid"], self.scene.vertices, self.scene.normals,
@@ -227,12 +265,13 @@ class Engine:
                 tris_t=bvh.tris_t.to(self.device).contiguous(),
                 nrm_t=nrm_t.to(self.device).contiguous(),
                 refit=DeviceRefit(plan_refit4(raw4), self.device))
-        return pack_tables(bvh, nrm_t, mat_s, raw4).to(self.device)
+        return (pack_tables(bvh, nrm_t, mat_s, raw4).to(self.device),
+                (bvh, nrm_t, mat_s))
 
     def _lbvh_tables(self, pad, animation):
-        """The two-level LBVH's binary tables, built on the device; an
-        animated scene keeps its rest mesh there and rebuilds every
-        frame."""
+        """The two-level LBVH's binary tables, built on the device, and the
+        tree (SceneBvh, sorted normals, materials); an animated scene keeps
+        its rest mesh there and rebuilds every frame."""
         dev = self.device
         mesh = MeshPose(
             vertices=torch.from_numpy(self.scene.vertices).to(dev),
@@ -241,9 +280,10 @@ class Engine:
             valid=torch.from_numpy(pad["valid"]).to(dev))
         if animation == "wave":
             self.rest = mesh
-        return pack_tables_binary(*build_scene_tables(
+        tree = build_scene_tables(
             self.scene.num_batches, mesh.indices, mesh.tri_mat, mesh.valid,
-            mesh.vertices, torch.from_numpy(self.scene.normals).to(dev)))
+            mesh.vertices, torch.from_numpy(self.scene.normals).to(dev))
+        return pack_tables_binary(*tree), tree
 
     # ------------------------------------------------------------------
     # resolution buckets / dynamic resolution
@@ -259,11 +299,13 @@ class Engine:
         self.render_w, self.render_h = _res_for_height(bucket_h)
         if bucket_h not in self._frames:
             s = self.settings
+            mega, packets = TRACE_ROUTES[self.trace]
             static = FrameStatic(render_w=self.render_w,
                                  render_h=self.render_h,
                                  screen_w=s.render_width,
                                  screen_h=s.render_height, flags=self.flags,
-                                 interlace=s.interlace, ftex=self.ftex)
+                                 interlace=s.interlace, ftex=self.ftex,
+                                 use_megakernel=mega, use_packets=packets)
             self._frames[bucket_h] = (static,
                                       make_frame_consts(static, self.device))
         self.static, self.consts = self._frames[bucket_h]

@@ -1,19 +1,31 @@
 """One frame of the product path (port of rtrt_tpu/engine/frame.py::
-render_frame with the megakernel: its static branch over prebuilt SAH or
-LBVH tables, and its two animated branches, below):
+render_frame: its static branch over prebuilt SAH or LBVH tables, its two
+animated branches, below, and its two trace routes):
 
   raygen (blue-noise jitter + thin lens) -> path_trace_mega (K2, with K1's
-  traversal inside) -> finish_gbuffer -> [interlace: full-height
-  reconstruction] -> SVGF denoise (K5 history reprojection, K4 a-trous
-  passes; or color * albedo with the denoiser off) -> sun screen position
-  and visibility -> postprocess (exposure pyramid, bloom, lens flare, the
-  fused tail K3; below the screen size the Catmull-Rom upscale and K3's
-  pre-mapped instantiation) -> uint8.
+  traversal inside) -> finish_gbuffer, or the wavefront path_trace ->
+  [interlace: full-height reconstruction] -> SVGF denoise (K5 history
+  reprojection, K4 a-trous passes; or color * albedo with the denoiser
+  off) -> sun screen position and visibility -> postprocess (exposure
+  pyramid, bloom, lens flare, the fused tail K3; below the screen size the
+  Catmull-Rom upscale and K3's pre-mapped instantiation) -> uint8.
 
-Interlace (FrameStatic.interlace, even render heights): a frame traces the
-h/2 rows y = 2i + (frame & 1) — K2 takes pixel ids as data, so the field's
-ids and blue-noise rows are all it needs — and fills the other rows from
-their traced neighbours before the denoiser.
+The trace route (FrameStatic.use_megakernel, .use_packets): the megakernel
+(the default) traces the image-shaped rays in one K2 launch; the wavefront
+route (use_megakernel=False, render/integrator.py::path_trace) traces the
+flat rays of every pixel (ids 0 .. h*w - 1, their blue-noise offsets in
+the same order) segment by segment, through K1 (use_packets=True) or the
+loop traverser (use_packets=False, on scene.bvh), and its flat G-buffer is
+reshaped to the image, as the JAX frame's wavefront branch does.  Its
+textured materials take the procedural soil or, with
+procedural_textures off, the soil texture set's gather (scene.textures);
+a Fourier fit (ftex) serves only K2.
+
+Interlace (FrameStatic.interlace, even render heights, megakernel route
+only, as in the JAX frame): a frame traces the h/2 rows y = 2i +
+(frame & 1) — K2 takes pixel ids as data, so the field's ids and
+blue-noise rows are all it needs — and fills the other rows from their
+traced neighbours before the denoiser.
 
 Animation (render_frame's `rest`): before raygen the frame moves the scene
 by a travelling wave and writes the tables in place, in one of the JAX
@@ -54,7 +66,7 @@ from ..ops.resize import upscale_catmull_rom
 from ..post.pipeline import dither_mask, postprocess
 from ..render.environment import env_radiance_scene
 from ..render.ftex import FtexTable
-from ..render.integrator import GBuffer, SceneData
+from ..render.integrator import GBuffer, SceneData, path_trace
 from ..render.megakernel import path_trace_mega
 from ..render.raygen import generate_rays_padded
 from ..render.sampling import blue_offsets_flat, rand2, rand2_bn
@@ -87,6 +99,9 @@ class FrameStatic:
     #   table of it on the device, that shades textured materials in place
     #   of the procedural soil (render/ftex.py::upload_ftex; the Engine
     #   fits and uploads it at init with fourier_textures)
+    use_megakernel: bool = True  # K2; False: the wavefront path_trace
+    use_packets: bool = True  # the wavefront's traversal: K1 on
+    #   scene.tables; False: the loop traverser on scene.bvh
 
 
 @dataclasses.dataclass
@@ -257,8 +272,10 @@ def rebuild_tables(tables, mesh: MeshPose, time: float):
 
 
 def interlaced(static: FrameStatic) -> bool:
-    """Whether frames of `static` trace half their rows."""
-    return static.interlace and static.render_h % 2 == 0
+    """Whether frames of `static` trace half their rows (the megakernel
+    route only)."""
+    return (static.interlace and static.use_megakernel
+            and static.render_h % 2 == 0)
 
 
 def make_frame_consts(static: FrameStatic, device) -> FrameConsts:
@@ -314,7 +331,8 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
     new FrameState, GBuffer).  The G-buffer is the traced one: with
     interlace, the field's (h/2, w) planes.  overflow: optional (1,) int32
     counter of dropped traversal-stack pushes; stack_depth: optional (1,)
-    int32 counter raised to the deepest traversal stack; rest: a scene
+    int32 counter raised to the deepest traversal stack (K2's; the
+    wavefront route leaves it as it is); rest: a scene
     animated by the travelling wave, whose frame writes scene.tables in
     place — a RestPose refits the BVH4, a MeshPose rebuilds the two-level
     LBVH (None: a static scene)."""
@@ -353,11 +371,26 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
             scene.sky, o, d, state.time, ocean=flags.ocean,
             stars=flags.stars)
 
-    gbuf: GBuffer = path_trace_mega(
-        scene, rays, pixel_ids, frame, prev_basis, w / h,
-        use_proctex=static.flags.procedural_textures, bn=bn,
-        overflow=overflow, stack_depth=stack_depth, env_fn=env_fn,
-        ftex=static.ftex)
+    if static.use_megakernel:
+        gbuf: GBuffer = path_trace_mega(
+            scene, rays, pixel_ids, frame, prev_basis, w / h,
+            use_proctex=static.flags.procedural_textures, bn=bn,
+            overflow=overflow, stack_depth=stack_depth, env_fn=env_fn,
+            ftex=static.ftex)
+    else:
+        flat = lambda x: x.reshape((h * w,) + tuple(x.shape[2:]))
+        g = path_trace(
+            scene, dataclasses.replace(rays, **{
+                f.name: flat(getattr(rays, f.name)).contiguous()
+                for f in dataclasses.fields(rays)}),
+            flat(pixel_ids), frame, prev_basis, w / h,
+            use_packets=static.use_packets,
+            use_proctex=static.flags.procedural_textures,
+            bn=None if bn is None else flat(bn), env_fn=env_fn,
+            leaf_width=scene.tables.leaf_width, overflow=overflow)
+        gbuf = GBuffer(**{f.name: getattr(g, f.name).reshape(
+            (h, w) + tuple(getattr(g, f.name).shape[1:]))
+            for f in dataclasses.fields(g)})
     full = gbuf
     if interlaced(static):
         full = GBuffer(color=fill_linear(gbuf.color, parity),

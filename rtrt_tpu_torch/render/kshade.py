@@ -19,8 +19,9 @@ import torch
 
 from .bsdf import (INV_PI, MAT_GGX, MAT_GLASS, MAT_LAMBERT, MAT_MIRROR,
                    fresnel_dielectric, ggx_d, smith_g1, smith_g2)
-from .sampling import (INV_2POW24, TWO_PI, M32, _dim_shift, mul32,
-                       pixel_seed, sobol_owen_pair, u32)
+from .proctex import _hash3 as _hash3_c  # the soil's lattice hash
+from .sampling import (TWO_PI, _dim_shift, pixel_seed, sobol_owen_pair,
+                       u32)
 from .sky import SUN_DISK_OMEGA, SUN_DISK_PDF, SUN_COS_THETA_MAX, SUN_SIN2_MAX
 
 MAT_ROW = 16
@@ -364,17 +365,6 @@ def sample_sun_c(sun: SunParamsC, u1, u2):
 # ---------------------------------------------------------------------------
 # procedural soil texture
 # ---------------------------------------------------------------------------
-
-
-def _hash3_c(ix, iy, iz, seed: int):
-    h = ((mul32(ix & M32, 0x8DA6B343) ^ mul32(iy & M32, 0xD8163841)
-          ^ mul32(iz & M32, 0xCB1AB31F)) + seed) & M32
-    h = h ^ (h >> 15)
-    h = mul32(h, 0x2C1B3C6D)
-    h = h ^ (h >> 12)
-    h = mul32(h, 0x297A2D39)
-    h = h ^ (h >> 15)
-    return (h >> 8).to(torch.float32) * INV_2POW24
 
 
 def value_noise3_c(px, py, pz, seed: int):

@@ -51,6 +51,16 @@ def hash_combine(a, b):
     return hash_pcg(a ^ ((b + 0x9E3779B9 + ((a << 6) & M32) + (a >> 2)) & M32))
 
 
+def wang_hash(x):
+    """Wang hash (uint32 -> uint32), the reference's fallback RNG."""
+    x = u32(x)
+    x = (x ^ 61) ^ (x >> 16)
+    x = mul32(x, 9)
+    x = x ^ (x >> 4)
+    x = mul32(x, 0x27D4EB2D)
+    return x ^ (x >> 15)
+
+
 def reverse_bits32(x):
     x = ((x & 0x55555555) << 1) | ((x & 0xAAAAAAAA) >> 1)
     x = ((x & 0x33333333) << 2) | ((x & 0xCCCCCCCC) >> 2)
@@ -120,6 +130,17 @@ def rand2(pixel_id, frame, dim_pair):
     return torch.stack([u, v], dim=-1)
 
 
+def rand1(pixel_id, frame, dim):
+    return rand2(pixel_id, frame, dim)[..., 0]
+
+
+def white2(pixel_id, frame, dim_pair):
+    """(..., 2) hash white noise (the Wang-hash fallback path's pairs)."""
+    h = hash_combine(hash_combine(u32(pixel_id), u32(frame)), u32(dim_pair))
+    return torch.stack([_to_unit_float(hash_pcg(h ^ 0x1)),
+                        _to_unit_float(hash_pcg(h ^ 0x2))], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # inter-pixel blue-noise sample distribution
 # ---------------------------------------------------------------------------
@@ -182,6 +203,46 @@ def concentric_disk(u):
         (np.pi / 2.0) - (np.pi / 4.0) * (ox / torch.where(oy == 0, one, oy)))
     pt = torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
     return torch.where(zero[..., None], torch.zeros_like(pt), pt)
+
+
+def cosine_hemisphere(u):
+    """Cosine-weighted direction about +z; pdf cos(theta) / pi."""
+    d = concentric_disk(u)
+    z = torch.sqrt(torch.clamp(1.0 - d[..., 0] ** 2 - d[..., 1] ** 2,
+                               min=0.0))
+    return torch.stack([d[..., 0], d[..., 1], z], dim=-1)
+
+
+def uniform_hemisphere(u):
+    """Uniform direction about +z; pdf 1 / (2 pi)."""
+    z = u[..., 0]
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = TWO_PI * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def uniform_sphere(u):
+    """Uniform direction on the sphere; pdf 1 / (4 pi)."""
+    z = 1.0 - 2.0 * u[..., 0]
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = TWO_PI * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def uniform_cone(u, cos_theta_max):
+    """Uniform direction in the cone about +z of cos_theta_max (a float or
+    a tensor of u's leading shape); pdf `uniform_cone_pdf`."""
+    cos_t = (1.0 - u[..., 0]) + u[..., 0] * cos_theta_max
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    phi = TWO_PI * u[..., 1]
+    return torch.stack([torch.cos(phi) * sin_t, torch.sin(phi) * sin_t,
+                        cos_t], dim=-1)
+
+
+def uniform_cone_pdf(cos_theta_max):
+    if torch.is_tensor(cos_theta_max):
+        return 1.0 / (TWO_PI * torch.clamp(1.0 - cos_theta_max, min=1e-8))
+    return 1.0 / (TWO_PI * max(1.0 - cos_theta_max, 1e-8))
 
 
 def power_heuristic(nf, f_pdf, ng, g_pdf):

@@ -3,10 +3,10 @@
 rtrt_tpu/render/sky.py; `bake_sky_maps(model=...)` picks one).
 
 Baked once per sky-parameter change: the equal-area sky map, the sun-cone
-map, the transmittance toward the sun, and the host-solved Chebyshev fit
-that escaped rays evaluate per pixel (`env_radiance_fit`).  The
-importance-sampling CDF/alias tables of the JAX SkyMaps serve the env-light
-sampler, which this slice's path does not run, so they are not built.
+map, the transmittance toward the sun, their luminance CDFs and per-texel
+solid-angle pdfs, and on the host (`finalize_sky_maps`) the Walker alias
+tables of the environment-light sampler (render/light.py) and the
+Chebyshev fit that escaped rays evaluate per pixel (`env_radiance_fit`).
 
 The sun-disk constants are folded on the host in float64 exactly as the JAX
 module folds them: 1 - cos^2(theta) cancels catastrophically, and the
@@ -21,7 +21,9 @@ import math
 import numpy as np
 import torch
 
+from ..core.color import luminance
 from ..core.vecmath import dot, normalize, orthonormal_basis, vec3
+from ..ops.scan import pdf_to_cdf
 
 PLANET_RADIUS = 6360e3
 ATMOSPHERE_TOP = 6420e3
@@ -44,6 +46,11 @@ SUN_DISK_PDF = float(np.float32(1.0) / np.float32(SUN_DISK_OMEGA))
 # light.sun_pdf_dir's cone pdf: uniform_cone_pdf evaluated in f32
 SUN_CONE_PDF = float(np.float32(1.0) / (np.float32(TWO_PI) * (
     np.float32(1.0) - np.float32(SUN_COS_THETA_MAX))))
+
+# 1 / sin of the radius in float32: the sun map's uv scale
+_SUN_SIN_A = float(np.float32(math.sin(float(np.float32(
+    SUN_ANGULAR_RADIUS)))))
+_SUN_UV_SCALE = float(np.float32(1.0) / np.float32(_SUN_SIN_A))
 
 SKY_RES = (256, 512)   # (H, W) equal-area map
 SUN_RES = (32, 32)
@@ -270,6 +277,10 @@ def transmittance_to_sun(params: SkyParams):
 
 @dataclasses.dataclass
 class SkyMaps:
+    """The baked sky.  The sampling tables (after env_fit) are those of the
+    JAX SkyMaps: the CDFs, fluxes and pdfs from `bake_sky_maps`, the alias
+    tables from `finalize_sky_maps` (None before it)."""
+
     sky_map: torch.Tensor      # (H, W, 3) radiance, equal-area
     sun_map: torch.Tensor      # (Sh, Sw, 3) radiance across the sun cone
     sun_dir: torch.Tensor      # (3,)
@@ -278,6 +289,27 @@ class SkyMaps:
     params: SkyParams
     sun_trans: torch.Tensor    # (3,) transmittance toward the sun
     env_fit: torch.Tensor = None  # (2, ENV_FIT_DEG^2, 3) Chebyshev fit
+    sky_cdf: torch.Tensor = None   # (H*W,) inclusive luminance CDF
+    sky_flux: torch.Tensor = None  # () luminous flux of the sky map
+    sun_cdf: torch.Tensor = None   # (Sh*Sw,)
+    sun_flux: torch.Tensor = None  # ()
+    sky_pdf: torch.Tensor = None   # (H*W,) solid-angle pdf per texel
+    sun_pdf: torch.Tensor = None   # (Sh*Sw,)
+    sky_alias_p: torch.Tensor = None  # (H*W,) alias acceptance probability
+    sky_alias_j: torch.Tensor = None  # (H*W,) int32 alias partner
+    sun_alias_p: torch.Tensor = None  # (Sh*Sw,)
+    sun_alias_j: torch.Tensor = None  # (Sh*Sw,)
+
+
+def dir_to_equal_area_uv(d):
+    """Unit dirs (..., 3) -> uv (..., 2) in [0, 1), equal-area."""
+    u = torch.atan2(d[..., 2], d[..., 0]) / (2.0 * math.pi) + 0.5
+    v = (d[..., 1] + 1.0) * 0.5
+    return torch.stack([u, v], dim=-1)
+
+
+def texel_solid_angle(h: int, w: int) -> float:
+    return 4.0 * math.pi / (h * w)
 
 
 def equal_area_uv_to_dir(uv):
@@ -322,7 +354,24 @@ def bake_sky_maps(params: SkyParams, sky_res=SKY_RES, sun_res=SUN_RES,
     trans = transmittance_to_sun(params)
     sun_rad = (params.sun_intensity / SUN_DISK_OMEGA) * limb[..., None] \
         * trans
-    return SkyMaps(sky, sun_rad, params.sun_dir, t, bvec, params, trans)
+
+    # luminance CDFs and per-texel solid-angle pdfs (probability / texel
+    # solid angle); the disk's solid angle is spread over its texels
+    omega = texel_solid_angle(h, w)
+    sky_lum = luminance(sky) * omega
+    sky_cdf, sky_flux = pdf_to_cdf(sky_lum.reshape(-1))
+    n_disk = torch.clamp(in_disk.sum(), min=1).to(torch.float32)
+    sun_texel_omega = float(np.float32(SUN_DISK_OMEGA)) / n_disk
+    sun_lum = luminance(sun_rad) * torch.where(
+        in_disk, sun_texel_omega, torch.zeros_like(r2))
+    sun_cdf, sun_flux = pdf_to_cdf(sun_lum.reshape(-1))
+    sky_w = sky_lum.reshape(-1)
+    sky_pdf = sky_w / torch.clamp(sky_w.sum(), min=1e-20) / omega
+    sun_w = sun_lum.reshape(-1)
+    sun_pdf = sun_w / torch.clamp(sun_w.sum(), min=1e-20) / sun_texel_omega
+    return SkyMaps(sky, sun_rad, params.sun_dir, t, bvec, params, trans,
+                   sky_cdf=sky_cdf, sky_flux=sky_flux, sun_cdf=sun_cdf,
+                   sun_flux=sun_flux, sky_pdf=sky_pdf, sun_pdf=sun_pdf)
 
 
 # ---------------------------------------------------------------------------
@@ -381,12 +430,46 @@ def _fit_env_host(sky_map, sun_dir):
     return out.astype(np.float32)
 
 
+def build_alias_table(weights):
+    """Walker / Vose alias table of non-negative weights (host numpy, O(n),
+    the JAX function's steps in its order, so its tables bit for bit).
+    Returns (prob (n,) float32, alias (n,) int32): pick k = floor(u1 n),
+    keep k if u2 < prob[k], else take alias[k].  All-zero weights give the
+    uniform table."""
+    w = np.asarray(weights, np.float64).copy()
+    n = w.size
+    total = w.sum()
+    if total <= 0:
+        return np.ones(n, np.float32), np.arange(n, dtype=np.int32)
+    p = w * (n / total)
+    prob = np.ones(n, np.float32)
+    alias = np.arange(n, dtype=np.int32)
+    small = [i for i in range(n) if p[i] < 1.0]
+    large = [i for i in range(n) if p[i] >= 1.0]
+    while small and large:
+        s = small.pop()
+        g = large.pop()
+        prob[s] = p[s]
+        alias[s] = g
+        p[g] = (p[g] + p[s]) - 1.0
+        (small if p[g] < 1.0 else large).append(g)
+    for i in large + small:
+        prob[i] = 1.0
+    return prob, alias
+
+
 def finalize_sky_maps(maps: SkyMaps) -> SkyMaps:
-    """Attach the host-solved environment fit."""
+    """Attach the host-built alias tables of the sky and sun pdfs and the
+    host-solved environment fit."""
+    dev = maps.sky_map.device
+    on_dev = lambda a: torch.from_numpy(a).to(dev)
+    sp, sj = build_alias_table(np.maximum(maps.sky_pdf.cpu().numpy(), 0.0))
+    up, uj = build_alias_table(np.maximum(maps.sun_pdf.cpu().numpy(), 0.0))
     fit = _fit_env_host(maps.sky_map.cpu().numpy(),
                         maps.sun_dir.cpu().numpy())
     return dataclasses.replace(
-        maps, env_fit=torch.from_numpy(fit).to(maps.sky_map.device))
+        maps, sky_alias_p=on_dev(sp), sky_alias_j=on_dev(sj),
+        sun_alias_p=on_dev(up), sun_alias_j=on_dev(uj), env_fit=on_dev(fit))
 
 
 def _cheb_rows(x, deg):
@@ -448,3 +531,56 @@ def sun_disk_radiance(maps: SkyMaps, d):
     rad = (maps.params.sun_intensity / SUN_DISK_OMEGA) * limb[..., None] \
         * maps.sun_trans
     return torch.where(in_cone[..., None], rad, torch.zeros_like(rad))
+
+
+# ---------------------------------------------------------------------------
+# map lookups: escaped-ray radiance from the baked maps
+# ---------------------------------------------------------------------------
+
+
+def _bilinear_wrap_u(img, uv):
+    """Bilinear sample of (H, W, C) img at uv (..., 2), wrapping in u and
+    clamping in v."""
+    h, w = img.shape[0], img.shape[1]
+    x = uv[..., 0] * w - 0.5
+    y = torch.clamp(uv[..., 1] * h - 0.5, 0.0, h - 1.0)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = (x - x0)[..., None], (y - y0)[..., None]
+    x0i = torch.remainder(x0.to(torch.int64), w)
+    x1i = torch.remainder(x0i + 1, w)
+    y0i = torch.clamp(y0.to(torch.int64), 0, h - 1)
+    y1i = torch.clamp(y0i + 1, 0, h - 1)
+    return (img[y0i, x0i] * (1 - fx) + img[y0i, x1i] * fx) * (1 - fy) \
+        + (img[y1i, x0i] * (1 - fx) + img[y1i, x1i] * fx) * fy
+
+
+def _bilinear_clamp(img, uv):
+    h, w = img.shape[0], img.shape[1]
+    x = torch.clamp(uv[..., 0] * w - 0.5, 0.0, w - 1.0)
+    y = torch.clamp(uv[..., 1] * h - 0.5, 0.0, h - 1.0)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = (x - x0)[..., None], (y - y0)[..., None]
+    x0i = torch.clamp(x0.to(torch.int64), 0, w - 1)
+    x1i = torch.clamp(x0i + 1, 0, w - 1)
+    y0i = torch.clamp(y0.to(torch.int64), 0, h - 1)
+    y1i = torch.clamp(y0i + 1, 0, h - 1)
+    return (img[y0i, x0i] * (1 - fx) + img[y0i, x1i] * fx) * (1 - fy) \
+        + (img[y1i, x0i] * (1 - fx) + img[y1i, x1i] * fx) * fy
+
+
+def sky_radiance(maps: SkyMaps, d):
+    """Escaped-ray radiance from the baked maps: the sky map plus the sun
+    map inside the sun's cone."""
+    sky = _bilinear_wrap_u(maps.sky_map, dir_to_equal_area_uv(d))
+    cos_g = dot(d, maps.sun_dir.expand(d.shape))
+    in_cone = cos_g > SUN_COS_THETA_MAX
+    tx = dot(d, maps.sun_basis_t.expand(d.shape))
+    ty = dot(d, maps.sun_basis_b.expand(d.shape))
+    scale = _SUN_UV_SCALE
+    su = (tx * scale + 1.0) * 0.5
+    sv = (ty * scale + 1.0) * 0.5
+    inside_uv = (su >= 0) & (su < 1) & (sv >= 0) & (sv < 1)
+    sun = _bilinear_clamp(maps.sun_map, torch.stack(
+        [torch.clamp(su, 0.0, 1.0), torch.clamp(sv, 0.0, 1.0)], dim=-1))
+    return sky + torch.where((in_cone & inside_uv)[..., None], sun,
+                             torch.zeros_like(sun))

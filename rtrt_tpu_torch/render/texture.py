@@ -7,11 +7,10 @@
     so its texels equal JAX's bit for bit; each texture becomes a flat mip
     pyramid (`build_mip_pyramid`, 2x2 box filter down to 1x1).
   * `sample_trilinear`, `triplanar_sample`, `apply_normal_map`: the gather
-    path that the JAX wavefront integrator shades textured materials with.
-    The port's frame runs the megakernel, which shades them from the
-    procedural soil or from the Fourier fit of this set (render/ftex.py);
-    these wait for the wavefront integrator's port and are held to JAX's
-    in the tests meanwhile.
+    path that the wavefront integrator (render/integrator.py) shades
+    textured materials with when procedural_textures is off.  The
+    megakernel shades them from the procedural soil or from the Fourier
+    fit of this set (render/ftex.py).
 """
 
 from __future__ import annotations

@@ -75,12 +75,16 @@ def sky_from_jax(sky, device="cuda") -> SkyMaps:
         "sun_dir", "sun_intensity", "rayleigh_scale", "mie_scale", "mie_g",
         "altitude", "ground_albedo")))
     env_fit = None if sky.env_fit is None else _t(sky.env_fit, device)
+    tables = {f: _t(getattr(sky, f), device) for f in (
+        "sky_cdf", "sky_flux", "sun_cdf", "sun_flux", "sky_pdf", "sun_pdf",
+        "sky_alias_p", "sky_alias_j", "sun_alias_p", "sun_alias_j")}
     return SkyMaps(sky_map=_t(sky.sky_map, device),
                    sun_map=_t(sky.sun_map, device),
                    sun_dir=_t(sky.sun_dir, device),
                    sun_basis_t=_t(sky.sun_basis_t, device),
                    sun_basis_b=_t(sky.sun_basis_b, device), params=params,
-                   sun_trans=_t(sky.sun_trans, device), env_fit=env_fit)
+                   sun_trans=_t(sky.sun_trans, device), env_fit=env_fit,
+                   **tables)
 
 
 def materials_from_jax(m, device="cuda") -> Materials:

@@ -247,8 +247,8 @@ def test_headless_unported_flags_reach_the_engine(flag, monkeypatch):
     class Stop(Exception):
         pass
 
-    def engine(settings, flags, device):
-        seen.update(flags=flags, device=device)
+    def engine(settings, flags, trace, device):
+        seen.update(flags=flags, trace=trace, device=device)
         raise Stop
 
     monkeypatch.setattr(TE, "Engine", engine)
@@ -256,6 +256,7 @@ def test_headless_unported_flags_reach_the_engine(flag, monkeypatch):
         headless.main(["--device", "cpu", "--scene", "demo", flag])
     name = flag[2:]
     assert getattr(seen["flags"], name) and seen["device"] == "cpu"
+    assert seen["trace"] == "megakernel"  # the default route
     other = {"ocean": "stars", "stars": "ocean"}[name]
     assert not getattr(seen["flags"], other)
 

@@ -1408,3 +1408,65 @@ def test_sah2_and_ftex_kernels_refuse_other_layouts(sah2_engine,
             M.pack_sun_params(sc.sky), 0, rays.org, rays.dir,
             rays.cone_width, consts.pixel_ids, n_lights=0,
             ftex=upload_ftex(fit, "cpu"))
+
+
+def _scene_to_cpu(sc):
+    """A SceneData on the card -> the same tables on the CPU (the sky's
+    tensors and its parameters too)."""
+    import dataclasses
+
+    def tensors_cpu(obj):
+        return dataclasses.replace(obj, **{
+            f.name: getattr(obj, f.name).cpu()
+            for f in dataclasses.fields(obj)
+            if torch.is_tensor(getattr(obj, f.name))})
+
+    sky = tensors_cpu(sc.sky)
+    sky = dataclasses.replace(sky, params=tensors_cpu(sky.params))
+    return dataclasses.replace(
+        sc, tables=sc.tables.to("cpu"), materials=sc.materials.to("cpu"),
+        sky=sky, lights=None if sc.lights is None else sc.lights.to("cpu"))
+
+
+@pytest.mark.gpu
+def test_wavefront_frame_matches_plain(engine, cuda_device):
+    """The wavefront route (trace="packets": K1 once a bounce segment) on
+    the card against the same frame on the CPU, where K1's wrapper runs
+    its plain version, from the same tables, sky and camera: 96x48 of the
+    demo scene with its sphere light, the denoiser off.  K1 launches 5
+    times, K2 none.  Bounds as K2's above: mat id equal and depth rtol
+    1e-4 on >= 99% of pixels, mean demodulated colour per channel within
+    1%, every plane finite."""
+    import dataclasses
+
+    from rtrt_tpu_torch.engine.frame import FrameState, render_frame
+    from rtrt_tpu_torch.post.exposure import init_exposure_state
+
+    static = dataclasses.replace(engine.static, render_w=96, render_h=48,
+                                 screen_w=96, screen_h=48,
+                                 use_megakernel=False)
+    out = {}
+    for dev, sc in ((cuda_device, engine.scene_data),
+                    (torch.device("cpu"),
+                     _scene_to_cpu(engine.scene_data))):
+        cam = dataclasses.replace(engine.camera, **{
+            f.name: getattr(engine.camera, f.name).to(dev)
+            for f in dataclasses.fields(engine.camera)})
+        state = FrameState(exposure=init_exposure_state(dev), frame_idx=3)
+        cuda.reset_launch_counts()
+        _, _, g = render_frame(static, sc, state, cam, cam, default_params(),
+                               1 / 60)
+        out[dev.type] = (g, dict(cuda.launch_counts))
+    (a, counts), (b, _) = out["cuda"], out["cpu"]
+    assert counts["packet_intersect"] == 5 and counts["megakernel_trace"] \
+        == 0, counts
+    a = dataclasses.replace(a, **{f.name: getattr(a, f.name).cpu()
+                                  for f in dataclasses.fields(a)})
+    for f in ("color", "albedo", "normal", "motion"):
+        assert torch.isfinite(getattr(a, f)).all(), f
+    assert (a.mat_id == b.mat_id).float().mean() >= 0.99
+    same_d = torch.isclose(a.depth, b.depth, rtol=1e-4, atol=0) | (
+        torch.isinf(a.depth) & torch.isinf(b.depth))
+    assert same_d.float().mean() >= 0.99
+    ma, mb = a.color.mean((0, 1)), b.color.mean((0, 1))
+    assert ((ma - mb).abs() <= 0.01 * mb.abs()).all(), (ma, mb)

@@ -11,7 +11,12 @@ kernels round such steps differently (the densities of single points agree
 to 1e-7, the 8-step sun optical depths already only to 6e-6); the few
 texels above 1e-4 are near the sun, where Mie scattering dominates.
 
-The host-folded sun-disk constants must be EXACTLY the JAX module's."""
+The host-folded sun-disk constants must be EXACTLY the JAX module's.
+
+The sampling tables of the bakes (luminance CDFs, fluxes, per-texel pdfs)
+follow the sky map's bound, rtol 3e-4; the alias tables of the same pdfs
+are bit-equal (host numpy, the same steps in the same order), and each
+bake's alias tables are those of its own pdfs."""
 
 import jax
 import jax.numpy as jnp
@@ -102,3 +107,30 @@ def test_env_fit_and_eval_match(skies):
         TL.sun_pdf_dir(carried, torch.from_numpy(d)).numpy(), rtol=0)
     np.testing.assert_array_equal(np.asarray(jpack_sun(jm)),
                                   tpack_sun(carried).numpy())
+
+
+def test_sampling_tables_match(skies):
+    _, jm, _, tm = skies
+    for f in ("sky_cdf", "sun_cdf", "sky_pdf", "sun_pdf", "sky_flux",
+              "sun_flux"):
+        np.testing.assert_allclose(np.asarray(getattr(jm, f)),
+                                   getattr(tm, f).numpy(), rtol=3e-4,
+                                   atol=1e-7, err_msg=f)
+    rng = np.random.default_rng(6)
+    weights = [np.asarray(jm.sky_pdf), np.asarray(jm.sun_pdf),
+               rng.random(999, dtype=np.float32) ** 4,
+               np.zeros(7, np.float32),
+               np.array([0.0, 3.0, 0.0, 1.0], np.float32)]
+    for w in weights:
+        jp, jj = JS.build_alias_table(w)
+        tp, tj = TS.build_alias_table(w)
+        assert jp.dtype == tp.dtype and jj.dtype == tj.dtype
+        np.testing.assert_array_equal(jp.view(np.int32), tp.view(np.int32))
+        np.testing.assert_array_equal(jj, tj)
+    for m, pdf in ((jm, "sky"), (tm, "sky"), (jm, "sun"), (tm, "sun")):
+        prob, alias = JS.build_alias_table(np.maximum(np.asarray(
+            getattr(m, f"{pdf}_pdf")), 0.0))
+        np.testing.assert_array_equal(prob, np.asarray(
+            getattr(m, f"{pdf}_alias_p")))
+        np.testing.assert_array_equal(alias, np.asarray(
+            getattr(m, f"{pdf}_alias_j")))
