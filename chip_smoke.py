@@ -185,6 +185,21 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      equal on >= 99.9%; no traversal kernel launched); the packet route
      on the animated terrain, bvh="sah4" (refit) and "lbvh" (rebuild): 3
      frames each under sync debug "error", K1's instantiation 15, K2 0.
+ 20. the row-sharded frame (rtrt_tpu_torch/parallel/frame_spmd.py) on the
+     one card: K5's band instantiation (row0, rows) over each of 4 bands
+     of phase 3e's history, in both filters, bit-equal to the same rows of
+     the full launch, against its plain version, timed by events and graph
+     replay beside its bytes bound; the main path's 1080p terrain, 3
+     frames of phase 5's pan, over 4 ranks sharing cuda:0 over gloo
+     (spawned after phase 2's build): rank 0's gathered images within 1
+     u8 of the single-process frames on every pixel and differing on < 5%
+     (the count printed, with the stage of the first difference), each
+     rank's history (270, 1920) planes, its launches per frame K2 1, K5's
+     band instantiation 1, K4 4, K3 1, 0 dropped pushes; the same frames
+     under nccl at world size 1 in this process, bit-equal; the loop route
+     at 480x270 over 2 ranks, one frame held like the first; each rank's
+     ms/frame by host clock, device busy (torch.profiler, one frame) and
+     bytes fetched a frame, beside the single-process frame's ms.
   --profile adds 6: torch.profiler over 5 frames each of the main path,
      the north star's Engine at the 720 bucket and the interlaced Engine
      (device busy time, launches and synchronising calls per frame, top
@@ -192,7 +207,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 Prints the card's name and power limit, the per-kernel JSON line (K1-K16,
 K3's pre-mapped instantiation, K5's bilinear instantiation, K1's and K2's
 binary instantiations, their leaf-row instantiations, K2's
-Fourier-texture instantiation and K1's wavefront route),
+Fourier-texture instantiation, K1's wavefront route and K5's band
+instantiation),
 then as its last line
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX nor of the JAX package.  Exits 1 when CUDA is not
@@ -804,6 +820,10 @@ def main() -> int:
     print(f"-- phase 19 at {time.perf_counter() - t_start:.1f} s")
     wave = _wavefront(card, settings, main.scene, cam0, frame_ms, main)
 
+    # ---- 20. the row-sharded frame on the one card ----
+    print(f"-- phase 20 at {time.perf_counter() - t_start:.1f} s")
+    k5_band = _sharded(card, settings, k5_in)
+
     if "--profile" in sys.argv[1:]:
 
         def il_step(k):
@@ -872,13 +892,214 @@ def main() -> int:
              launches=counts["reproject"], max_abs_err=k5_err,
              ms=k5_ms, graph_ms=k5_graph, plain_ms=k5_plain,
              bound_ms=k5_bound[0], bound_by=k5_bound[1], library_ms=None),
-        k5_bl,
+        k5_bl, k5_band,
     ] + lbvh + optin + [wave] + probes + hw_probes
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _sharded(card, settings, k5_in):
+    """Phase 20: the row-sharded frame (rtrt_tpu_torch/parallel/
+    frame_spmd.py) on the one card.  (a) K5's band instantiation: on phase
+    3e's 1080p history and camera motion, the launch over each of 4 bands,
+    in both filters, equal to the same rows of the full launch bit for bit;
+    timed by events and graph replay beside its bound for the band's
+    bytes.  (b) The 1080p terrain with default flags, 3 frames of phase 5's
+    pan, 4 ranks sharing cuda:0 over gloo (spawned after phase 2's build,
+    so that they load the library): rank 0's gathered images within 1 u8
+    of the single-process frames of the same cameras on every pixel and
+    differing on < 5% (the pixels that differ printed, with the stage of
+    the first difference), each rank's history (270, 1920), its launches
+    per frame K2 1, K5's band instantiation 1, K4 4, K3 1, 0 dropped
+    pushes.  (c) The same frames under nccl at world size 1 in this
+    process: bit-equal to the single-process frames.  (d) The loop route
+    at 480x270, 2 ranks sharing the card, one frame against the
+    single-process loop frame as in (b).  Prints each rank's ms/frame by
+    host clock, its device busy ms (torch.profiler, one frame) and the
+    bytes it fetched a frame, beside the single-process frame's ms.
+    Returns the kernels-line entry of K5's band instantiation."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from rtrt_tpu_torch.denoise.reproject import reproject, reproject_plain
+    from rtrt_tpu_torch.engine.engine import Engine
+    from rtrt_tpu_torch.parallel import frame_spmd as S
+    from rtrt_tpu_torch.utils import cuda
+    from rtrt_tpu_torch.utils.config import FeatureFlags
+    from rtrt_tpu_torch.utils.timing import bound_ms, time_graph_ms, time_ms
+
+    # ---- (a) K5's band instantiation against the full launch ----
+    hist, motions = k5_in
+    mv = motions[0][1]
+    n_bands, fields = 4, ("color", "color2", "depth", "count", "mat_id",
+                          "ok")
+    for filt in ("catmull_rom", "bilinear"):
+        full = reproject(*hist, mv, history_filter=filt)
+        for b in range(n_bands):
+            r0, r1 = b * H // n_bands, (b + 1) * H // n_bands
+            got = reproject(*hist, mv[r0:r1].contiguous(),
+                            history_filter=filt, row0=r0)
+            torch.cuda.synchronize()
+            bad = [f for f in fields
+                   if not torch.equal(getattr(got, f),
+                                      getattr(full, f)[r0:r1])]
+            assert not bad, f"K5 band {b} ({filt}) differs in {bad}"
+    print(f"K5 band instantiation: each of {n_bands} bands of {H // n_bands} "
+          f"rows equal to the full launch's rows bit for bit, Catmull-Rom "
+          f"and bilinear, camera motion {card}")
+    r0, r1 = H // n_bands, 2 * H // n_bands
+    mv_b = mv[r0:r1].contiguous()
+    k5b = lambda: reproject(*hist, mv_b, row0=r0)
+    wide = [x.to(torch.float32) for x in hist]
+    k5b_plain = lambda: reproject_plain(*wide[:3], hist[3], wide[4], mv_b,
+                                        row0=r0)
+    k5b_err = _k5_check(f"K5 band, rows [{r0}, {r1}) of {H}", k5b(),
+                        k5b_plain())
+    k5b_plain_ms = time_ms(k5b_plain, 3)
+    k5b_ms = time_ms(k5b, 20)
+    k5b_graph = time_graph_ms(k5b, 20, 20)
+    k5_full = time_graph_ms(lambda: reproject(*hist, mv), 20, 20)
+    # the band's pixels: their 8 bf16 taps' planes, material and motion in
+    # (28 B), 9 f32 planes and ok out (37 B), as phase 3e's bound
+    k5b_bound = bound_ms((r1 - r0) * W * (28 + 37),
+                         (r1 - r0) * W * K5_PX_OPS)
+    print(f"K5 band ({r1 - r0} of {H} rows): {k5b_ms:.4f} ms by events, "
+          f"{k5b_graph:.4f} ms by graph replay (the full launch "
+          f"{k5_full:.4f} in this call), plain {k5b_plain_ms:.3f} ms; bound "
+          f"{k5b_bound[0]:.4f} ms ({k5b_bound[1]}) {card}")
+
+    # ---- the single-process frames of the same cameras ----
+    def single(sets, trace, frames):
+        """The frames of S.run_rank's pan in one process."""
+        sets = dataclasses.replace(sets, texture_size=S.TEXTURE_SIZE)
+        eng = Engine(sets, flags=FeatureFlags(), trace=trace, device="cuda")
+        cam0, out, ms = eng.camera, [], []
+        for k in range(frames):
+            eng.camera = dataclasses.replace(
+                cam0, yaw=cam0.yaw + S.PAN_STEP * k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = eng.render_frame_device(dt=1 / 60)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            hs = eng.state.history
+            out.append(dict(image=img.cpu(),
+                            trace=eng.last_gbuffer.color.cpu(),
+                            denoise_7x7=hs.color.cpu(),
+                            denoise=hs.color2.cpu()))
+        assert int(eng.overflow) == 0
+        return out, ms
+
+    def held(label, ref, recs):
+        """Rank 0's gathered images against the single-process ones: within
+        1 u8 everywhere, < 5% of pixels differing; the stage where a
+        difference first shows."""
+        for k, r in enumerate(ref):
+            d = (recs[0]["images"][k].int() - r["image"].int()).abs()
+            n = int((d.max(-1).values > 0).sum())
+            first = None
+            for st in ("trace", "denoise_7x7", "denoise"):
+                if n and first is None and st in r:
+                    whole = torch.cat([rec["stages"][k][st] for rec in recs])
+                    if not torch.equal(whole, r[st]):
+                        first = st
+            print(f"{label}, frame {k}: {n} pixels differ from the "
+                  f"single-process frame (max {int(d.max())} u8)"
+                  + (f"; first in stage {first or 'post'}" if n else ""))
+            assert d.max() <= 1 and n < 0.05 * d[..., 0].numel(), \
+                (label, k, int(d.max()), n)
+
+    cfg = dict(device="cuda", scene="terrain", width=W, height=H, frames=3,
+               trace="megakernel")
+    ref, ref_ms = single(settings, "megakernel", cfg["frames"])
+    cuda.library()  # built in phase 2: the ranks load it
+
+    def run(world, c):
+        with tempfile.TemporaryDirectory() as out:
+            t0 = time.perf_counter()
+            S.spawn(S.run_rank, world, (c, out), "cuda", share_device=True)
+            print(f"{world} ranks sharing cuda:0 over gloo: "
+                  f"{time.perf_counter() - t0:.1f} s with start-up")
+            return [torch.load(os.path.join(out, f"rank{r}.pt"),
+                               weights_only=False) for r in range(world)]
+
+    def report(label, recs, single_ms):
+        for rec in recs:
+            ms = rec["ms"][1:] or rec["ms"]
+            busy = ("not measured" if rec["busy_ms"] is None
+                    else f"{rec['busy_ms']:.3f} ms and {rec['launches']} "
+                         f"launches (one frame, torch.profiler; top ops "
+                         f"{rec['top_ops']})")
+            print(f"{label} rank {rec['rank']} ({rec['backend']}, rows "
+                  f"{rec['rows']}): {sum(ms) / len(ms):.2f} ms/frame by "
+                  f"host clock (frames {rec['ms']}), device busy {busy}, "
+                  f"fetched {rec['fetched']} bytes a frame; launches a "
+                  f"frame {rec['counts']} {card}")
+        print(f"{label}: the single-process frame {single_ms} ms by host "
+              f"clock in this call {card}")
+
+    # ---- (b) 4 ranks sharing the card over gloo, megakernel route ----
+    recs = run(4, cfg)
+    report("sharded 1080p, 4 ranks", recs, ref_ms)
+    held("sharded 1080p, 4 ranks", ref, recs)
+    print(f"sharded 1080p, 4 ranks: history planes "
+          f"{[rec['history_shapes'] for rec in recs][0]} on each rank")
+    for rec in recs:
+        assert all(v[:2] == (H // 4, W)
+                   for v in rec["history_shapes"].values()), \
+            rec["history_shapes"]
+        assert rec["band_shape"] == (H // 4, W, 3), rec["band_shape"]
+        assert rec["overflow"] == 0, rec["overflow"]
+        for k, c in enumerate(rec["counts"]):
+            want = dict(megakernel_trace=1, reproject_band=1, denoise_wide=4,
+                        post_tail=1)
+            assert c == want, (rec["rank"], k, c)
+    k5b_launches = sum(c.get("reproject_band", 0) for rec in recs
+                       for c in rec["counts"])
+
+    # ---- (c) nccl at world size 1 on cuda:0, in this process ----
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1, timeout=S.TIMEOUT)
+        try:
+            one = [S.run_rank(0, cfg)]
+        finally:
+            dist.destroy_process_group()
+    report("nccl, world size 1", one, ref_ms)
+    for k, r in enumerate(ref):
+        assert torch.equal(one[0]["images"][k], r["image"]), \
+            f"nccl world size 1, frame {k}: not bit-equal"
+    assert one[0]["counts"][0] == dict(megakernel_trace=1, reproject=1,
+                                       denoise_wide=4, post_tail=1), \
+        one[0]["counts"]
+    print(f"nccl, world size 1: {cfg['frames']} frames bit-equal to the "
+          f"single-process frames {card}")
+
+    # ---- (d) the loop route, 2 ranks sharing the card, 480x270 ----
+    small = dataclasses.replace(settings, render_width=480,
+                                render_height=270)
+    lcfg = dict(cfg, width=480, height=270, trace="loop", frames=1)
+    lref, lref_ms = single(small, "loop", 1)
+    lrecs = run(2, lcfg)
+    report("loop route 480x270, 2 ranks", lrecs, lref_ms)
+    held("loop route 480x270, 2 ranks", lref, lrecs)
+    for rec in lrecs:
+        assert rec["overflow"] == 0
+        assert rec["counts"][0].get("megakernel_trace", 0) == 0
+        assert rec["counts"][0]["reproject_band"] == 1, rec["counts"]
+    return dict(
+        name="K5 history reprojection, band instantiation (row0, rows: a "
+             "rank's rows of the row-sharded frame from the whole history; "
+             "Catmull-Rom; launches over phase 20's 4 ranks)",
+        route="cuda", source="rtrt_tpu_torch/csrc/reproject.cu",
+        replaces="rtrt_tpu/denoise/reproject.py:244",
+        launches=k5b_launches, max_abs_err=k5b_err, ms=k5b_ms,
+        graph_ms=k5b_graph, plain_ms=k5b_plain_ms, bound_ms=k5b_bound[0],
+        bound_by=k5b_bound[1], library_ms=None)
 
 
 def _k5_check(label, got, ref):

@@ -21,6 +21,14 @@
 // bilinear}.  The bilinear one is the same thread a pixel with 4 taps in
 // place of 16: the same bytes, about a quarter of the tap operations.
 //
+// The band instantiation (row0, rows), in both filters: the history planes
+// are the whole (h, w) image, the motion and the outputs (rows, w), and
+// output row r is image row y = row0 + r.  A rank of the row-sharded frame
+// (parallel/frame_spmd.py) reprojects its own rows from the whole history
+// (the motion can point anywhere).  Every pixel's arithmetic takes the
+// image row y, so a band's rows equal the same rows of the full launch bit
+// for bit, and row0 = 0, rows = h is the full launch.
+//
 // What bounds it on the H100: bytes.  Per pixel it reads 8 bfloat16
 // history planes, the int32 material id and 2 float32 motion components
 // (28 B) and writes 9 float32 planes and 1 byte of ok (37 B): 135 MB per
@@ -91,13 +99,15 @@ __global__ void __launch_bounds__(BW * BH)
                      const T* __restrict__ depth, const T* __restrict__ count,
                      const int* __restrict__ mat,
                      const float* __restrict__ motion, int h, int w,
-                     float* __restrict__ o_color, float* __restrict__ o_color2,
-                     float* __restrict__ o_depth, float* __restrict__ o_count,
-                     int* __restrict__ o_mat, uint8_t* __restrict__ o_ok) {
+                     int row0, int rows, float* __restrict__ o_color,
+                     float* __restrict__ o_color2, float* __restrict__ o_depth,
+                     float* __restrict__ o_count, int* __restrict__ o_mat,
+                     uint8_t* __restrict__ o_ok) {
   const int x = blockIdx.x * BW + threadIdx.x;
-  const int y = blockIdx.y * BH + threadIdx.y;
-  if (x >= w || y >= h) return;
-  const size_t i = (size_t)y * w + x;
+  const int r = blockIdx.y * BH + threadIdx.y;  // output row
+  if (x >= w || r >= rows) return;
+  const int y = row0 + r;                       // image row
+  const size_t i = (size_t)r * w + x;
   const float yh = __fadd_rn((float)y, __fmul_rn(motion[i * 2 + 1], (float)h));
   const float xh = __fadd_rn((float)x, __fmul_rn(motion[i * 2 + 0], (float)w));
   const float y0f = floorf(yh), x0f = floorf(xh);
@@ -145,48 +155,49 @@ __global__ void __launch_bounds__(BW * BH)
 template <typename T, int FILTER>
 void launch(const void* color, const void* color2, const void* depth,
             const void* count, const int* mat, const float* motion, int h,
-            int w, float* o_color, float* o_color2, float* o_depth,
-            float* o_count, int* o_mat, uint8_t* o_ok, cudaStream_t s) {
+            int w, int row0, int rows, float* o_color, float* o_color2,
+            float* o_depth, float* o_count, int* o_mat, uint8_t* o_ok,
+            cudaStream_t s) {
   dim3 block(BW, BH);
-  dim3 grid((w + BW - 1) / BW, (h + BH - 1) / BH);
+  dim3 grid((w + BW - 1) / BW, (rows + BH - 1) / BH);
   reproject_kernel<T, FILTER><<<grid, block, 0, s>>>(
       static_cast<const T*>(color), static_cast<const T*>(color2),
       static_cast<const T*>(depth), static_cast<const T*>(count), mat, motion,
-      h, w, o_color, o_color2, o_depth, o_count, o_mat, o_ok);
+      h, w, row0, rows, o_color, o_color2, o_depth, o_count, o_mat, o_ok);
 }
 
 }  // namespace
 
-// History planes are bfloat16 when is_bf16, else float32; filter is 0
-// (Catmull-Rom) or 1 (bilinear), and any other value is refused
+// History planes are (h, w), bfloat16 when is_bf16, else float32; motion
+// and the outputs are (rows, w), output row r at image row row0 + r (row0
+// = 0, rows = h: the whole image).  filter is 0 (Catmull-Rom) or 1
+// (bilinear); another filter, or rows that leave [0, h), is refused
 // (cudaErrorInvalidValue) before anything launches; o_ok is a bool (one
 // byte) plane.
 extern "C" int rtrt_reproject(const void* color, const void* color2,
                               const void* depth, const void* count,
                               const int* mat, const float* motion, int h,
-                              int w, int is_bf16, int filter, float* o_color,
-                              float* o_color2, float* o_depth, float* o_count,
-                              int* o_mat, uint8_t* o_ok, void* stream) {
-  if (filter != CATMULL_ROM && filter != BILINEAR)
+                              int w, int row0, int rows, int is_bf16,
+                              int filter, float* o_color, float* o_color2,
+                              float* o_depth, float* o_count, int* o_mat,
+                              uint8_t* o_ok, void* stream) {
+  if ((filter != CATMULL_ROM && filter != BILINEAR) || row0 < 0 ||
+      rows < 0 || row0 + rows > h)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (h > 0 && w > 0) {
+  if (rows > 0 && w > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RTRT_K5(T, F)                                                        \
+  launch<T, F>(color, color2, depth, count, mat, motion, h, w, row0, rows,  \
+               o_color, o_color2, o_depth, o_count, o_mat, o_ok, s)
     if (is_bf16 && filter == BILINEAR)
-      launch<__nv_bfloat16, BILINEAR>(color, color2, depth, count, mat,
-                                      motion, h, w, o_color, o_color2,
-                                      o_depth, o_count, o_mat, o_ok, s);
+      RTRT_K5(__nv_bfloat16, BILINEAR);
     else if (is_bf16)
-      launch<__nv_bfloat16, CATMULL_ROM>(color, color2, depth, count, mat,
-                                         motion, h, w, o_color, o_color2,
-                                         o_depth, o_count, o_mat, o_ok, s);
+      RTRT_K5(__nv_bfloat16, CATMULL_ROM);
     else if (filter == BILINEAR)
-      launch<float, BILINEAR>(color, color2, depth, count, mat, motion, h, w,
-                              o_color, o_color2, o_depth, o_count, o_mat,
-                              o_ok, s);
+      RTRT_K5(float, BILINEAR);
     else
-      launch<float, CATMULL_ROM>(color, color2, depth, count, mat, motion, h,
-                                 w, o_color, o_color2, o_depth, o_count,
-                                 o_mat, o_ok, s);
+      RTRT_K5(float, CATMULL_ROM);
+#undef RTRT_K5
   }
   return static_cast<int>(cudaGetLastError());
 }

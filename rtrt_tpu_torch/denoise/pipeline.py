@@ -17,6 +17,14 @@ the second pass takes the stencil too, as in JAX.  The JAX package's
 History is stored as bfloat16 when FeatureFlags.half_history is on (the
 default); all filter math runs in float32.  `valid` is a host bool (False
 only on the first frame), so no device scalar and no host sync is needed.
+
+With a band (a rank of the row-sharded frame, parallel/frame_spmd.py) the
+planes and the history are the band's rows [r0, r1) of the image, and the
+chain computes the same rows of the whole image's chain: K5 resamples the
+band's rows from the whole history, each stencil reads the whole image's
+planes of its input (one all-gather a stage: the G-buffer and history,
+then the colour after the first temporal pass and each spatial pass),
+and the tile-noise maps are the whole image's, computed on every rank.
 """
 
 from __future__ import annotations
@@ -64,9 +72,12 @@ def init_history(h: int, w: int, half: bool = True,
 
 def denoise(color, albedo, normal, depth, mat_id, motion,
             history: DenoiseHistory, p: DenoiseParams, flags: FeatureFlags,
-            frame_parity: int = 0, reproject_mode: str = "gather"):
+            frame_parity: int = 0, reproject_mode: str = "gather",
+            band=None):
     """Run the chain on demodulated radiance.  Returns
-    (final colour with albedo, new history)."""
+    (final colour with albedo, new history).  band: the rank's RowMesh
+    when the planes and the history are its band's rows (module
+    docstring)."""
     if reproject_mode not in REPROJECT_MODES:
         raise ValueError(f"reproject_mode={reproject_mode!r}: expected one "
                          f"of {REPROJECT_MODES}")
@@ -77,10 +88,37 @@ def denoise(color, albedo, normal, depth, mat_id, motion,
                                  motion))
     c = color
     hist_count = new_count = history.count.to(torch.float32)
+    # the whole image's colour, geometry and history (a band's gathered)
+    color_whole, geo, hist = color, (normal, depth, mat_id), history
+    if band is not None:
+        planes = [color, normal, depth, mat_id]
+        if flags.temporal_filter or flags.second_temporal:
+            planes += [history.color, history.color2, history.depth,
+                       history.mat_id, history.count]
+        g = band.gather(planes)
+        color_whole, geo = g[0], tuple(g[1:4])
+        if len(g) > 4:
+            hist = history._replace(color=g[4], color2=g[5], depth=g[6],
+                                    mat_id=g[7], count=g[8])
+
+    # a stage's planes and where they lie: the whole image, or the band
+    # with the k rows on each side of it that the stage's stencil reads
+    # (`at`: the stage's keywords that say so)
+    if band is None:
+        whole, ext = (lambda x: x), (lambda x, k: x)
+        at = lambda k: {}
+        t_at = {}
+    else:
+        whole = lambda x: band.gather([x])[0]
+        ext = band.extend
+        at = lambda k: dict(row0=band.r0, pad=k)
+        t_at = dict(at(1), full_h=band.h)
+
     rep1 = rep2 = None
     if flags.temporal_filter and reproject_mode == "gather":
-        rep = reproject(history.color, history.color2, history.depth,
-                        history.mat_id, history.count, motion)
+        rep = reproject(hist.color, hist.color2, hist.depth, hist.mat_id,
+                        hist.count, motion,
+                        row0=0 if band is None else band.r0)
         rep1 = (rep.color, rep.depth, rep.mat_id, rep.count, rep.ok)
         rep2 = (rep.color2, rep.depth, rep.mat_id, rep.count, rep.ok)
 
@@ -88,36 +126,48 @@ def denoise(color, albedo, normal, depth, mat_id, motion,
         """The stencil fetch's float32 history planes (unused with a
         reprojection)."""
         f = lambda x: x.to(torch.float32)
-        return dict(hist_color=f(hist_color), hist_depth=f(history.depth),
-                    hist_mat=history.mat_id, hist_count=hist_count)
+        return dict(hist_color=f(ext(hist_color, 1)),
+                    hist_depth=f(ext(hist.depth, 1)),
+                    hist_mat=ext(hist.mat_id, 1),
+                    hist_count=hist_count if band is None
+                    else f(ext(hist.count, 1)))
 
     if flags.temporal_filter:
-        kw = fetch(history.color) if rep1 is None else {}
-        c, new_count = temporal_filter(c, normal, depth, mat_id, motion,
-                                       history.valid, p, rep1, **kw)
+        kw = fetch(hist.color) if rep1 is None else {}
+        c, new_count = temporal_filter(ext(color_whole, 1), normal, depth,
+                                       mat_id, motion, history.valid, p,
+                                       rep1, **kw, **t_at)
 
     # the noise estimate decays with accumulation (variance ~ 1/N)
-    noise8 = tile_noise_level(c, depth, 8)
+    c_whole, count_whole = color_whole, None
+    if band is None:
+        c_whole, count_whole = c, new_count
+    elif flags.temporal_filter:
+        c_whole, count_whole = band.gather([c, new_count])
+    noise8 = tile_noise_level(c_whole, geo[1], 8)
     if flags.temporal_filter:
-        noise8 = noise8 / torch.clamp(box_pool(new_count, 8), min=1.0)
+        noise8 = noise8 / torch.clamp(box_pool(count_whole, 8), min=1.0)
 
     if flags.spatial_filter:
-        c = spatial_filter_7x7(c, normal, depth, mat_id, noise8, p,
-                               frame_parity)
+        c = spatial_filter_7x7(*(ext(x, 3) for x in (c_whole, *geo)),
+                               noise8, p, frame_parity, **at(3))
     hist_color = c
 
     if flags.spatial_filter:
-        noise16 = tile_noise_downsample(tile_noise_level(c, depth, 8))
-        for stride in (3, 6, 12):
-            c = spatial_filter_wide(c, normal, depth, mat_id, noise16, p,
-                                    stride)
+        c_whole = whole(c)
+        noise16 = tile_noise_downsample(tile_noise_level(c_whole, geo[1], 8))
+        for i, stride in enumerate((3, 6, 12)):
+            k = 2 * stride  # the 5x5 pass's reach
+            c = spatial_filter_wide(
+                *(ext(x, k) for x in (c_whole if i == 0 else whole(c),
+                                      *geo)), noise16, p, stride, **at(k))
 
     c = nan_guard(c * albedo, "denoise.remodulated")  # remodulate
 
     if flags.second_temporal:
-        kw = fetch(history.color2) if rep2 is None else {}
-        c, _ = temporal_filter(c, normal, depth, mat_id, motion,
-                               history.valid, p, rep2, **kw)
+        kw = fetch(hist.color2) if rep2 is None else {}
+        c, _ = temporal_filter(ext(whole(c), 1), normal, depth, mat_id,
+                               motion, history.valid, p, rep2, **kw, **t_at)
 
     store = (lambda x: x.to(torch.bfloat16)) if flags.half_history \
         else (lambda x: x)

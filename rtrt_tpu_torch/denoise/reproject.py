@@ -17,6 +17,12 @@ JAX package's switch; `reproject` and `reproject_plain` read it when their
 `history_filter` is None.  Another value raises ValueError where JAX
 quietly takes bilinear weights over the Catmull-Rom taps.
 
+Band form (`row0`): the history is the whole (h, w) image and the motion
+(rows, w) covers image rows [row0, row0 + rows); the result has the
+motion's rows, each equal to the same row of the whole image's result.
+A rank of the row-sharded frame (parallel/frame_spmd.py) reprojects its
+own rows so.
+
 `reproject` launches, for CUDA tensors, K5 (csrc/reproject.cu; one
 instantiation per history dtype and filter), which reads bfloat16 history
 directly and widens it in registers (widening is exact, so the function is
@@ -76,13 +82,17 @@ def _filter(history_filter):
 
 
 def reproject_plain(color, color2, depth, mat_id, count, motion,
-                    history_filter: str | None = None) -> Reprojection:
+                    history_filter: str | None = None,
+                    row0: int = 0) -> Reprojection:
     """Per-pixel gather form on float32 history (the XLA function of the
-    JAX package's reproject_gather)."""
+    JAX package's reproject_gather); the motion's rows are image rows
+    row0, row0 + 1, ..."""
     bilinear = _filter(history_filter) == "bilinear"
     h, w = depth.shape
     dev = depth.device
-    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+    rows = motion.shape[0]
+    yy, xx = torch.meshgrid(torch.arange(row0, row0 + rows,
+                                         dtype=torch.float32, device=dev),
                             torch.arange(w, dtype=torch.float32, device=dev),
                             indexing="ij")
     yh = yy + motion[..., 1] * h
@@ -117,19 +127,26 @@ def reproject_plain(color, color2, depth, mat_id, count, motion,
 
 
 def reproject(color, color2, depth, mat_id, count, motion,
-              history_filter: str | None = None) -> Reprojection:
+              history_filter: str | None = None,
+              row0: int = 0) -> Reprojection:
     """Resample the history set (colour, colour2 (H,W,3); depth, count
     (H,W), all bfloat16 or all float32; mat_id (H,W) int32) at uv + motion
-    ((H,W,2) float32) with the history filter (None: HISTORY_FILTER).  CPU
+    ((rows,W,2) float32, image rows row0 .. row0 + rows - 1; the whole
+    image by default) with the history filter (None: HISTORY_FILTER).  CPU
     tensors run the plain version on the widened history; CUDA tensors
-    launch K5's instantiation of the filter."""
+    launch K5's instantiation of the filter, its band instantiation where
+    the rows are not the whole image (counted apart: "_band")."""
     filt = _filter(history_filter)
+    h, w = depth.shape
+    rows = motion.shape[0]
+    if row0 < 0 or row0 + rows > h:
+        raise ValueError(f"rows [{row0}, {row0 + rows}) leave the history's "
+                         f"{h} rows")
     if color.device.type == "cpu":
         f = lambda x: x.to(torch.float32)
         return reproject_plain(f(color), f(color2), f(depth), mat_id,
-                               f(count), motion, filt)
+                               f(count), motion, filt, row0)
     dev = color.device
-    h, w = depth.shape
     dt = color.dtype
     if dt not in (torch.bfloat16, torch.float32):
         raise ValueError(f"K5 takes bfloat16 or float32 history, got {dt}")
@@ -138,19 +155,22 @@ def reproject(color, color2, depth, mat_id, count, motion,
                        depth=(depth, dt, (h, w)),
                        count=(count, dt, (h, w)),
                        mat_id=(mat_id, torch.int32, (h, w)),
-                       motion=(motion, torch.float32, (h, w, 2)))
+                       motion=(motion, torch.float32, (rows, w, 2)))
     f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
-    out = Reprojection(color=f32(h, w, 3), color2=f32(h, w, 3),
-                       depth=f32(h, w),
-                       mat_id=torch.empty((h, w), dtype=torch.int32,
+    out = Reprojection(color=f32(rows, w, 3), color2=f32(rows, w, 3),
+                       depth=f32(rows, w),
+                       mat_id=torch.empty((rows, w), dtype=torch.int32,
                                           device=dev),
-                       count=f32(h, w),
-                       ok=torch.empty((h, w), dtype=torch.bool, device=dev))
-    cuda.launch(cuda.library().rtrt_reproject,
-                "reproject_bilinear" if filt == "bilinear" else "reproject",
+                       count=f32(rows, w),
+                       ok=torch.empty((rows, w), dtype=torch.bool,
+                                      device=dev))
+    name = "reproject_bilinear" if filt == "bilinear" else "reproject"
+    if rows != h:
+        name += "_band"
+    cuda.launch(cuda.library().rtrt_reproject, name,
                 dev, color, color2, depth, count, mat_id, motion,
-                ctypes.c_int(h), ctypes.c_int(w),
-                ctypes.c_int(int(dt == torch.bfloat16)),
+                ctypes.c_int(h), ctypes.c_int(w), ctypes.c_int(row0),
+                ctypes.c_int(rows), ctypes.c_int(int(dt == torch.bfloat16)),
                 ctypes.c_int(HISTORY_FILTERS.index(filt)), out.color,
                 out.color2, out.depth, out.count, out.mat_id, out.ok)
     return out

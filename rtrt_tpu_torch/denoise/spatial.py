@@ -17,6 +17,14 @@ sky/surface edge; the centre is kept where the weights sum to <= 1e-6.
     four launches per denoised frame.
   * `_gate_by_noise` lerps the filtered image toward the input by the tile
     noise level, as a torch op after the kernel.
+
+Some rows of the image (a rank's band of the row-sharded frame,
+parallel/frame_spmd.py): `row0` is the image row of the first row filtered
+and the planes carry `pad` rows on each side, at least radius * stride (3
+for the 7x7 pass, 6 / 12 / 24 for the strides 3 / 6 / 12; the image's edge
+rows repeated beyond its edges, as the pass clamps its taps).  The pass
+runs on them all and is cropped; the gate reads the tile map at the rows'
+place on the image's tile grid.  row0 0 and pad 0 are the whole image.
 """
 
 from __future__ import annotations
@@ -26,7 +34,8 @@ import ctypes
 import numpy as np
 import torch
 
-from ..ops.stencil import gaussian_weights, gaussian_weights_np, shifted
+from ..ops.stencil import (crop_rows, gaussian_weights, gaussian_weights_np,
+                           shifted)
 from ..utils import cuda
 from ..utils.config import DenoiseParams
 
@@ -109,38 +118,59 @@ def edge_aware_pass(color, normal, depth, mat_id, p: DenoiseParams,
     return out
 
 
-def _upsample_tiles(noise, h, w, tile):
-    """Nearest-upsample a tile map to (h, w); rows and columns beyond the
-    last whole tile repeat the last tile (the edge padding of the JAX
-    function)."""
-    ys = torch.clamp(torch.arange(h, device=noise.device) // tile,
-                     max=noise.shape[0] - 1)
+def _upsample_tiles(noise, h, w, tile, row0: int = 0):
+    """Nearest-upsample a tile map to rows row0 .. row0 + h - 1 and w
+    columns of its image; rows and columns beyond the last whole tile
+    repeat the last tile (the edge padding of the JAX function)."""
+    ys = torch.clamp(torch.arange(row0, row0 + h, device=noise.device)
+                     // tile, max=noise.shape[0] - 1)
     xs = torch.clamp(torch.arange(w, device=noise.device) // tile,
                      max=noise.shape[1] - 1)
     return noise.index_select(0, ys).index_select(1, xs)
 
 
-def _gate_by_noise(filtered, original, noise, threshold, tile: int):
-    """Noise-level gating as a smooth lerp."""
+def _gate_by_noise(filtered, original, noise, threshold, tile: int,
+                   row0: int = 0):
+    """Noise-level gating as a smooth lerp; the rows are image rows row0,
+    row0 + 1, ..."""
     h, w = original.shape[0], original.shape[1]
-    up = _upsample_tiles(noise, h, w, tile)
+    up = _upsample_tiles(noise, h, w, tile, row0)
     gate = torch.clamp(up / max(threshold, 1e-8), 0.0, 1.0)[..., None]
     return original + (filtered - original) * gate
 
 
+def _gated_pass(color, normal, depth, mat_id, noise, threshold, tile,
+                p: DenoiseParams, radius, stride, half_taps=False, parity=0,
+                row0: int = 0, pad: int = 0):
+    """The pass gated by the tile noise, on rows row0, row0 + 1, ... of
+    planes that carry `pad` rows on each side (module docstring)."""
+    if 0 < pad < radius * stride:
+        raise ValueError(f"pad={pad}: the pass reads {radius * stride} rows "
+                         "on each side")
+    filtered = edge_aware_pass(color, normal, depth, mat_id, p, radius,
+                               stride, half_taps, parity)
+    return _gate_by_noise(crop_rows(filtered, pad), crop_rows(color, pad),
+                          noise, threshold, tile, row0)
+
+
 def spatial_filter_7x7(color, normal, depth, mat_id, noise8,
-                       p: DenoiseParams, frame_parity: int = 0):
+                       p: DenoiseParams, frame_parity: int = 0,
+                       row0: int = 0, pad: int = 0):
     """Full 7x7 joint-bilateral, gated by the 8x8 tile noise level,
-    alternating half-kernels per frame."""
-    filtered = edge_aware_pass(color, normal, depth, mat_id, p, radius=3,
-                               stride=1, half_taps=True, parity=frame_parity)
-    return _gate_by_noise(filtered, color, noise8, p.noise_threshold, 8)
+    alternating half-kernels per frame.  row0, pad: some rows of the
+    image (module docstring)."""
+    return _gated_pass(color, normal, depth, mat_id, noise8,
+                       p.noise_threshold, 8, p, radius=3, stride=1,
+                       half_taps=True, parity=frame_parity, row0=row0,
+                       pad=pad)
 
 
 def spatial_filter_wide(color, normal, depth, mat_id, noise16,
-                        p: DenoiseParams, stride: int):
+                        p: DenoiseParams, stride: int, row0: int = 0,
+                        pad: int = 0):
     """5x5 taps at the given stride (3/6/12 -> 15/30/60 px footprints),
-    gated by the 16x16 tile noise level."""
-    filtered = edge_aware_pass(color, normal, depth, mat_id, p, radius=2,
-                               stride=stride)
-    return _gate_by_noise(filtered, color, noise16, p.noise_threshold_16, 16)
+    gated by the 16x16 tile noise level.  row0, pad as
+    spatial_filter_7x7."""
+    return _gated_pass(color, normal, depth, mat_id, noise16,
+                       p.noise_threshold_16, 16, p, radius=2, stride=stride,
+                       row0=row0, pad=pad)

@@ -21,14 +21,18 @@ import torch
 
 from ..core.color import luminance, rgb_to_ycocg, ycocg_to_rgb
 from ..ops.resize import box_pool
-from ..ops.stencil import bicubic_catmull_rom_sample, neighborhood, shifted
+from ..ops.stencil import (bicubic_catmull_rom_sample, crop_rows,
+                           neighborhood, shifted)
 from ..utils.config import DenoiseParams
 
 _SHIFTS = (-1, 0, 1)
 
 
-def _uv_grid(h, w, device):
-    ys = (torch.arange(h, dtype=torch.float32, device=device) + 0.5) / h
+def _uv_grid(h, w, device, row0: int = 0, full_h: int | None = None):
+    """Pixel-centre uv of rows row0 .. row0 + h - 1 of an image of full_h
+    (default h) rows and w columns: (h, w, 2)."""
+    ys = (torch.arange(row0, row0 + h, dtype=torch.float32, device=device)
+          + 0.5) / (h if full_h is None else full_h)
     xs = (torch.arange(w, dtype=torch.float32, device=device) + 0.5) / w
     yy, xx = torch.meshgrid(ys, xs, indexing="ij")
     return torch.stack([xx, yy], dim=-1)  # (H,W,2)
@@ -40,13 +44,13 @@ def count_cap(p: DenoiseParams) -> float:
                                               np.float32(1e-3)))
 
 
-def _shift_pick(img, ry, rx):
+def _shift_pick(img, ry, rx, pad: int = 0):
     """Per pixel, `shifted(img, ry, rx)` with the pixel's own shift (ry, rx
     in {-1, 0, 1}): the nearest-shift history of JAX's 9 selects, as one
-    gather."""
+    gather.  pad: rows of img above (and below) the pixels' rows."""
     h, w = img.shape[0], img.shape[1]
     dev = img.device
-    yy = torch.arange(h, device=dev)[:, None]
+    yy = torch.arange(pad, pad + ry.shape[0], device=dev)[:, None]
     xx = torch.arange(w, device=dev)[None, :]
     return img[torch.clamp(yy + ry, 0, h - 1), torch.clamp(xx + rx, 0, w - 1)]
 
@@ -54,7 +58,8 @@ def _shift_pick(img, ry, rx):
 def temporal_filter(color, normal, depth, mat_id, motion, hist_valid: bool,
                     p: DenoiseParams, reproj=None, *, hist_color=None,
                     hist_depth=None, hist_mat=None, bicubic: bool = False,
-                    hist_count=None):
+                    hist_count=None, row0: int = 0, full_h: int | None = None,
+                    pad: int = 0):
     """One temporal accumulation pass.
 
     color/normal (H,W,3); depth (H,W); mat_id (H,W) i32; motion (H,W,2) uv
@@ -68,9 +73,23 @@ def temporal_filter(color, normal, depth, mat_id, motion, hist_valid: bool,
     With a count (reproj's, or hist_count) the blend is 1/N accumulation,
     alpha = max(1/(N+1), temporal_blend), and the pass returns (filtered,
     new_count); without one (hist_count=None and no reproj) it is the
-    luma-weighted EMA and returns the filtered colour alone."""
-    h, w = color.shape[0], color.shape[1]
-    prev_uv = _uv_grid(h, w, color.device) + motion
+    luma-weighted EMA and returns the filtered colour alone.
+
+    Some rows of an image of full_h rows (a rank's band of the row-sharded
+    frame): the H rows of normal, depth, mat_id, motion and reproj are
+    image rows row0, row0 + 1, ...; color, which the neighbourhood clamp
+    reads, and the stencil fetch's history planes carry `pad` (1) rows on
+    each side of them (the image's edge rows repeated beyond its edges).
+    The result is the H rows.  row0 0, pad 0 and full_h None are the whole
+    image."""
+    h, w = normal.shape[0], normal.shape[1]
+    full_h = h if full_h is None else full_h
+    if pad and bicubic:
+        raise ValueError("the bicubic history fetch takes the whole image")
+    if pad not in (0, 1):
+        raise ValueError(f"pad={pad}: the pass reads 1 row on each side")
+    prev_uv = _uv_grid(h, w, color.device, row0, full_h) + motion
+    ext, color = color, crop_rows(color, pad)
     counted = reproj is not None or hist_count is not None
 
     # --- history fetch ---
@@ -87,7 +106,7 @@ def temporal_filter(color, normal, depth, mat_id, motion, hist_valid: bool,
             n_prev_raw = hist_count[hy, hx]
         small_motion = None
     else:
-        mx, my = motion[..., 0] * w, motion[..., 1] * h  # pixels
+        mx, my = motion[..., 0] * w, motion[..., 1] * full_h  # pixels
         small_motion = (torch.abs(mx) <= 1.0) & (torch.abs(my) <= 1.0)
         fx = torch.clamp(mx, -1.0, 1.0)
         fy = torch.clamp(my, -1.0, 1.0)
@@ -98,19 +117,20 @@ def temporal_filter(color, normal, depth, mat_id, motion, hist_valid: bool,
         for iy, sy in enumerate(_SHIFTS):
             for ix, sx in enumerate(_SHIFTS):
                 wgt = (wy[iy] * wx[ix])[..., None]
-                hist = hist + wgt * shifted(hist_color, sy, sx)
+                tap = crop_rows(shifted(hist_color, sy, sx), pad)
+                hist = hist + wgt * tap
         # nearest shift for material, depth and count (round half to even)
         rx = torch.round(fx).to(torch.int64)
         ry = torch.round(fy).to(torch.int64)
-        hist_mat_s = _shift_pick(hist_mat, ry, rx)
-        hd = _shift_pick(hist_depth, ry, rx)
+        hist_mat_s = _shift_pick(hist_mat, ry, rx, pad)
+        hd = _shift_pick(hist_depth, ry, rx, pad)
         if counted:
-            n_prev_raw = _shift_pick(hist_count, ry, rx)
+            n_prev_raw = _shift_pick(hist_count, ry, rx, pad)
 
     # --- neighbourhood min/max clamp in YCoCg ---
-    taps, _ = neighborhood(rgb_to_ycocg(color), 1)  # (9,H,W,3)
-    box_min = taps.amin(0)
-    box_max = taps.amax(0)
+    taps, _ = neighborhood(rgb_to_ycocg(ext), 1)  # (9,H,W,3)
+    box_min = crop_rows(taps.amin(0), pad)
+    box_max = crop_rows(taps.amax(0), pad)
     center = 0.5 * (box_min + box_max)
     extent = 0.5 * (box_max - box_min) * p.anti_flicker + 1e-4
     clamped = torch.minimum(torch.maximum(rgb_to_ycocg(hist),

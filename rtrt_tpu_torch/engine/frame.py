@@ -45,6 +45,18 @@ K2 shades textured materials from it (render/ftex.py).
 The port runs eagerly: each frame is a sequence of torch ops and kernel
 launches (K2, K5, four K4, K3 with the default flags), with every tensor
 on the scene's device and no host sync.
+
+A band (render_frame's `band`, a RowMesh of parallel/frame_spmd.py: the
+port's counterpart of the JAX frame's row_sharding / trace_mesh) renders
+one rank's rows [r0, r1) of the row-sharded frame: its rays, pixel ids
+and blue-noise rows are the band's rows of the frame's constants (global
+ids, so K2's random numbers are the whole frame's), K2 or the wavefront
+traces them, the interlace fill takes the traced rows of the whole field,
+the denoiser and the post chain read the rows they need beyond the band
+from the other ranks (denoise/pipeline.py, post/pipeline.py), and the
+sun's visibility is the depth at its pixel on the rank that holds it,
+shared by an all-reduce.  The result is the band's rows of the whole
+frame's image, state and G-buffer.  band=None is the whole frame.
 """
 
 from __future__ import annotations
@@ -63,7 +75,8 @@ from ..denoise.pipeline import DenoiseHistory, denoise
 from ..ops.gather import onehot_permute
 from ..ops.reduce import segment_sum
 from ..ops.resize import upscale_catmull_rom
-from ..post.pipeline import dither_mask, postprocess
+from ..post.pipeline import (band_halo, dither_mask, postprocess,
+                             upscale_band)
 from ..render.environment import env_radiance_scene
 from ..render.ftex import FtexTable
 from ..render.integrator import GBuffer, SceneData, path_trace
@@ -110,7 +123,8 @@ class FrameConsts:
 
     pixel_ids: torch.Tensor   # (h, w) int32
     bn: torch.Tensor          # (h, w, 2) blue-noise offsets, or None
-    mask: torch.Tensor        # (64, 64) dither mask
+    mask: torch.Tensor        # (64, 64) dither mask (a band's: rolled so
+    #   that K3's first row is the screen row above the band)
     # interlaced frames: per field parity p, the traced rows' (pixel ids,
     # blue-noise offsets): rows p, p + 2, ... of the two above; else None
     fields: tuple = None
@@ -278,21 +292,29 @@ def interlaced(static: FrameStatic) -> bool:
             and static.render_h % 2 == 0)
 
 
-def make_frame_consts(static: FrameStatic, device) -> FrameConsts:
+def make_frame_consts(static: FrameStatic, device,
+                      band=None) -> FrameConsts:
+    """The frame's constants, or a band's (a RowMesh): its rows of them."""
     w, h = static.render_w, static.render_h
-    ys = torch.arange(h, dtype=torch.int32, device=device)
+    r0, r1 = (0, h) if band is None else (band.r0, band.r1)
+    ys = torch.arange(r0, r1, dtype=torch.int32, device=device)
     xs = torch.arange(w, dtype=torch.int32, device=device)
     pixel_ids = ys[:, None] * w + xs[None, :]
     bn = None
     if static.flags.blue_noise:
         bn = torch.from_numpy(blue_offsets_flat(w, h, w * h).reshape(
-            h, w, 2)).to(device)
+            h, w, 2)[r0:r1]).to(device)
     fields = None
     if interlaced(static):
+        # a band starts on an even row (frame_spmd's rule), so its rows
+        # of parity p are its rows p, p + 2, ...
         fields = tuple(
             (pixel_ids[p::2].contiguous(),
              None if bn is None else bn[p::2].contiguous()) for p in (0, 1))
-    return FrameConsts(pixel_ids, bn, dither_mask(device), fields)
+    mask = dither_mask(device)
+    if band is not None:
+        mask = torch.roll(mask, -(band.s0 - 1), 0)
+    return FrameConsts(pixel_ids, bn, mask, fields)
 
 
 def interleave_rows(a, b):
@@ -323,10 +345,23 @@ def fill_nearest(c):
     return interleave_rows(c, c)
 
 
+def _fill_band(gbuf: GBuffer, parity: int, band) -> GBuffer:
+    """A band's rows of the full-height planes of the interlaced frame: the
+    fill of the whole field (gathered from the ranks' traced rows), cut to
+    the band."""
+    names = [f.name for f in dataclasses.fields(gbuf)]
+    field = dict(zip(names, band.gather([getattr(gbuf, n) for n in names])))
+    cut = lambda x: x[band.r0:band.r1]
+    return GBuffer(color=cut(fill_linear(field["color"], parity)),
+                   albedo=cut(fill_linear(field["albedo"], parity)),
+                   **{n: cut(fill_nearest(field[n]))
+                      for n in ("normal", "depth", "motion", "mat_id")})
+
+
 def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
                  camera: Camera, prev_camera: Camera, params: RenderParams,
                  dt: float, consts: FrameConsts = None, overflow=None,
-                 stack_depth=None, rest: RestPose = None):
+                 stack_depth=None, rest: RestPose = None, band=None):
     """One full frame.  Returns (u8 image (screen_h, screen_w, 3),
     new FrameState, GBuffer).  The G-buffer is the traced one: with
     interlace, the field's (h/2, w) planes.  overflow: optional (1,) int32
@@ -335,13 +370,17 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
     wavefront route leaves it as it is); rest: a scene
     animated by the travelling wave, whose frame writes scene.tables in
     place — a RestPose refits the BVH4, a MeshPose rebuilds the two-level
-    LBVH (None: a static scene)."""
+    LBVH (None: a static scene).  band: a rank's RowMesh of the
+    row-sharded frame (module docstring; parallel/frame_spmd.py::
+    make_spmd_frame_fn checks the configuration): the image, the state's
+    history and the G-buffer are then its band's rows, and consts, if
+    given, the band's (make_frame_consts(..., band))."""
     w, h = static.render_w, static.render_h
     dev = scene.tables.nodes.device
     if rest is not None:
         rest.animate(scene.tables, state.time)
     if consts is None:
-        consts = make_frame_consts(static, dev)
+        consts = make_frame_consts(static, dev, band)
     frame = state.frame_idx
     parity = frame & 1
     if interlaced(static):
@@ -378,7 +417,8 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
             overflow=overflow, stack_depth=stack_depth, env_fn=env_fn,
             ftex=static.ftex)
     else:
-        flat = lambda x: x.reshape((h * w,) + tuple(x.shape[2:]))
+        lead = tuple(pixel_ids.shape)  # (h, w), or the band's (rows, w)
+        flat = lambda x: x.reshape((-1,) + tuple(x.shape[2:]))
         g = path_trace(
             scene, dataclasses.replace(rays, **{
                 f.name: flat(getattr(rays, f.name)).contiguous()
@@ -389,10 +429,12 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
             bn=None if bn is None else flat(bn), env_fn=env_fn,
             leaf_width=scene.tables.leaf_width, overflow=overflow)
         gbuf = GBuffer(**{f.name: getattr(g, f.name).reshape(
-            (h, w) + tuple(getattr(g, f.name).shape[1:]))
+            lead + tuple(getattr(g, f.name).shape[1:]))
             for f in dataclasses.fields(g)})
     full = gbuf
-    if interlaced(static):
+    if interlaced(static) and band is not None:
+        full = _fill_band(gbuf, parity, band)
+    elif interlaced(static):
         full = GBuffer(color=fill_linear(gbuf.color, parity),
                        albedo=fill_linear(gbuf.albedo, parity),
                        normal=fill_nearest(gbuf.normal),
@@ -414,7 +456,7 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
         final, new_history = denoise(
             full.color, full.albedo, full.normal, full.depth, full.mat_id,
             full.motion, state.history, params.denoise, static.flags,
-            frame_parity=parity)
+            frame_parity=parity, band=band)
     else:
         final = full.color * full.albedo
         new_history = state.history
@@ -427,18 +469,30 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
         torch.int64), 0, w - 1)
     sy = torch.clamp(torch.clamp(sun_uv[1] * h, -1.0, float(h)).to(
         torch.int64), 0, h - 1)
-    d_sun = full.depth.reshape(-1).index_select(0, (sy * w + sx).reshape(1))
+    if band is None:
+        d_sun = full.depth.reshape(-1).index_select(0, (sy * w + sx)
+                                                    .reshape(1))
+    else:
+        # the rank whose band holds the pixel gives its depth, the others 0
+        own = (sy >= band.r0) & (sy < band.r1)
+        ly = torch.clamp(sy - band.r0, 0, band.r1 - band.r0 - 1)
+        d_sun = band.all_reduce_sum(torch.where(
+            own, full.depth.reshape(-1).index_select(0, (ly * w + sx)
+                                                     .reshape(1)), 0.0))
     sun_visible = ((sun_z > 0) & ~torch.isfinite(d_sun[0])).to(torch.float32)
 
     sw, sh = static.screen_w, static.screen_h
     if static.flags.postprocess:
         image, new_exposure = postprocess(
             final, state.exposure, dt, sun_uv, sun_visible, params.post,
-            static.flags, sh, sw, frame, mask=consts.mask)
+            static.flags, sh, sw, frame, mask=consts.mask, band=band)
     else:
         ldr = torch.clamp(final, 0.0, 1.0) ** (1.0 / 2.2)
-        if (sh, sw) != (h, w):
+        if (sh, sw) != (h, w) and band is None:
             ldr = torch.clamp(upscale_catmull_rom(ldr, sh, sw), 0.0, 1.0)
+        elif (sh, sw) != (h, w):
+            ldr = upscale_band(band.extend(band.gather([ldr])[0],
+                                           band_halo(h, sh)), band, sh, sw)
         image = (ldr * 255.0 + 0.5).to(torch.uint8)
         new_exposure = state.exposure
 

@@ -49,7 +49,8 @@ def _cr_axis(n_in: int, n_out: int, device):
     return idx, _catmull_rom_w(t - t0)
 
 
-def upscale_catmull_rom(img, out_h: int, out_w: int):
+def upscale_catmull_rom(img, out_h: int, out_w: int, out_rows=None,
+                        row0: int = 0, in_h: int | None = None):
     """Catmull-Rom bicubic resample of an (H, W, ...) image to (out_h,
     out_w) — the reference's render-res -> screen-res BicubicScale.
 
@@ -57,11 +58,27 @@ def upscale_catmull_rom(img, out_h: int, out_w: int):
     output grid's pixel centres (the JAX module's form), computed
     separably: the four x taps of every input row first, then four of
     those rows.  Each output value takes the same products and sums in
-    the same order as the 16-tap form."""
+    the same order as the 16-tap form.
+
+    Some rows of the image (a band of the row-sharded frame): out_rows
+    (lo, hi) are the output rows lo .. hi - 1 (clamped to out_h) of the
+    upscale of an image of in_h rows, of which img holds rows row0, row0
+    + 1, ... (each clamped to it; 2 rows beyond the output rows' own
+    suffice)."""
     h, w = img.shape[0], img.shape[1]
     tail = (1,) * (img.ndim - 2)
     xi, wx = _cr_axis(w, out_w, img.device)
-    yi, wy = _cr_axis(h, out_h, img.device)
+    if out_rows is None:
+        yi, wy = _cr_axis(h, out_h, img.device)
+        n = out_h
+    else:
+        lo, hi = out_rows
+        yi, wy = _cr_axis(h if in_h is None else in_h, out_h, img.device)
+        sel = torch.clamp(torch.arange(lo, hi, device=img.device), 0,
+                          out_h - 1)
+        yi = [y.index_select(0, sel) - row0 for y in yi]
+        wy = [x.index_select(0, sel) for x in wy]
+        n = hi - lo
     rows = 0.0
     for i in range(4):
         rows = rows + img.index_select(1, xi[i]) * wx[i].reshape(
@@ -69,5 +86,5 @@ def upscale_catmull_rom(img, out_h: int, out_w: int):
     acc = 0.0
     for j in range(4):
         acc = acc + rows.index_select(0, yi[j]) * wy[j].reshape(
-            (out_h, 1) + tail)
+            (n, 1) + tail)
     return acc

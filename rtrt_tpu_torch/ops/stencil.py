@@ -1,6 +1,7 @@
 """2D stencil helpers and resampling (port of rtrt_tpu/ops/stencil.py::
 shifted, neighborhood, bilinear_sample, bicubic_catmull_rom_sample,
-gaussian_weights).  Images are (H, W, C) or (H, W)."""
+gaussian_weights; `clamp_rows` and `crop_rows` serve the row-sharded
+frame).  Images are (H, W, C) or (H, W)."""
 
 from __future__ import annotations
 
@@ -15,6 +16,21 @@ def _edge_pad(img, py: int, px: int):
     ys = torch.clamp(torch.arange(-py, h + py, device=img.device), 0, h - 1)
     xs = torch.clamp(torch.arange(-px, w + px, device=img.device), 0, w - 1)
     return img.index_select(0, ys).index_select(1, xs)
+
+
+def clamp_rows(img, lo: int, hi: int):
+    """Rows lo .. hi - 1 of an (H, ...) image, each clamped to [0, H - 1]:
+    a band of rows with the rows around it that a stencil reads, the
+    image's edge rows repeated beyond its edges as the stencils clamp."""
+    ys = torch.clamp(torch.arange(lo, hi, device=img.device), 0,
+                     img.shape[0] - 1)
+    return img.index_select(0, ys)
+
+
+def crop_rows(img, pad: int):
+    """img without its first and last `pad` rows (itself for pad 0): a
+    stage's own rows of planes that carry its stencil's rows around them."""
+    return img if pad == 0 else img[pad:img.shape[0] - pad]
 
 
 def shifted(img, dy: int, dx: int):

@@ -27,15 +27,24 @@ def bright_pass(img, threshold):
     return img * scale
 
 
-def bloom(img, bright_lum, strength):
+def bloom(img, bright_lum, strength, whole=None, row0: int = 0):
     """img: (H,W,3) pre-tonemap linear colour; bright_lum: adaptation bright
     luminance (the threshold, exposure state [2]); strength: composite
-    weight."""
-    quarter = downsample4(img)
+    weight.  For some rows of an image (a band of the row-sharded frame):
+    whole, the whole image, whose pyramid the blurs read; img holds its
+    rows row0, row0 + 1, ... (each clamped to the image)."""
+    src = img if whole is None else whole
+    quarter = downsample4(src)
     sixteenth = downsample4(quarter)
     q = _gauss5(bright_pass(quarter, bright_lum))
     s = _gauss5(_gauss5(bright_pass(sixteenth, bright_lum)))
-    h, w = img.shape[0], img.shape[1]
+    h, w = src.shape[0], src.shape[1]
     q_up = upsample_linear(q, h, w)
     s_up = upsample_linear(s, h, w)
+    if whole is not None:
+        # the upsample's taps are a function of the image row: the rows of
+        # the whole image's upsample (a few device microseconds at 1080p)
+        rows = torch.clamp(torch.arange(row0, row0 + img.shape[0],
+                                        device=img.device), 0, h - 1)
+        q_up, s_up = q_up.index_select(0, rows), s_up.index_select(0, rows)
     return img + strength * (q_up + s_up)

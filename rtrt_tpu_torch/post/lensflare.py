@@ -15,13 +15,21 @@ def _smooth_circle(d2, radius, soft):
         0.0, 1.0)
 
 
-def lens_flare(h: int, w: int, sun_uv, sun_visible, strength):
+def lens_flare(h: int, w: int, sun_uv, sun_visible, strength,
+               row0: int = 0, n: int | None = None):
     """Returns an additive (H,W,3) flare layer.
 
     sun_uv: (2,) sun position in screen uv; sun_visible: 0-d 0/1 tensor
-    (depth-at-sun-pixel test done by the caller); strength: user gain."""
+    (depth-at-sun-pixel test done by the caller); strength: user gain;
+    n: the layer's image rows row0 .. row0 + n - 1 only (each clamped to
+    the image; default all h)."""
     dev = sun_uv.device
-    ys = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / h
+    if n is None:
+        ys = torch.arange(h, dtype=torch.float32, device=dev)
+    else:
+        ys = torch.clamp(torch.arange(row0, row0 + n, device=dev), 0,
+                         h - 1).to(torch.float32)
+    ys = (ys + 0.5) / h
     xs = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w
     yy, xx = torch.meshgrid(ys, xs, indexing="ij")
     aspect = w / h
@@ -40,7 +48,7 @@ def lens_flare(h: int, w: int, sun_uv, sun_visible, strength):
                         + [g[2] for g in ghost_params],
                         dtype=torch.float32).to(dev, non_blocking=True)
 
-    acc = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
+    acc = torch.zeros((ys.shape[0], w, 3), dtype=torch.float32, device=dev)
 
     # halo around the sun
     d2s = (px - sx) ** 2 + (py - sy) ** 2

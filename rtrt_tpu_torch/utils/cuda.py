@@ -40,6 +40,7 @@ launch_counts = {"packet_intersect": 0, "megakernel_trace": 0,
                  "megakernel_trace_sah2_ftex": 0,
                  "post_tail": 0, "post_tail_mapped": 0, "denoise_wide": 0,
                  "reproject": 0, "reproject_bilinear": 0,
+                 "reproject_band": 0, "reproject_bilinear_band": 0,
                  "probe_step": 0, "probe_leaf": 0, "probe_cores": 0,
                  "probe_cores_grid": 0, "probe_cond": 0,
                  "probe_smem_alloc": 0, "probe_smem_consume": 0,
@@ -62,7 +63,7 @@ _SIGNATURES = {
     "rtrt_post_tail": [_P, _I, _I, _P, _P, _I, _I, _I, _P] + [_P],
     "rtrt_denoise_wide": [_P] * 4 + [_I, _I, _P] + [_I] * 4 + [_F] * 3
     + [_P] + [_P],
-    "rtrt_reproject": [_P] * 6 + [_I] * 4 + [_P] * 6 + [_P],
+    "rtrt_reproject": [_P] * 6 + [_I] * 6 + [_P] * 6 + [_P],
     "rtrt_probe_step": [_I, _P, _P, _P, _P, _I, _I] + [_P],
     "rtrt_probe_leaf": [_I, _P, _P, _P, _I, _I] + [_P],
     "rtrt_probe_cores": [_I] + [_P] * 5 + [_I, _I] + [_P],

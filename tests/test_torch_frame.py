@@ -22,7 +22,17 @@ tables and are held tighter: within 1 LSB of JAX's on every pixel where
 JAX's compiled program follows its own op-by-op values, and within 1 LSB
 of the port's megakernel frame on every pixel of every frame (the
 wavefront tests below say where and why JAX's compiled frame leaves
-them)."""
+them).
+
+The row-sharded frame (rtrt_tpu_torch/parallel/frame_spmd.py) renders
+the two denoised fixtures' frames over 2 and over 4 gloo ranks on the CPU
+(and the loop route's first frame over 2), each rank carrying its band of
+the history: within 1 u8 of the port's single-process frames on every
+pixel with < 5% differing (measured: bit-equal), and held to JAX's images
+at this file's bound; and the default frame shown at a larger screen
+(the band's upscale rows), with and without the post chain, and
+interlaced, against the port's single-process frame.  No new JAX compile: the fixtures hold JAX's
+images."""
 
 import dataclasses
 import os
@@ -54,11 +64,14 @@ from rtrt_tpu_torch.engine import frame as TF
 from rtrt_tpu_torch.engine.engine import Engine
 from rtrt_tpu_torch.engine.scene import build_demo_scene as tdemo
 from rtrt_tpu_torch.engine.scene import padded_arrays as tpadded
+from rtrt_tpu_torch.parallel.frame_spmd import spawn
 from rtrt_tpu_torch.render.integrator import SceneData
 from rtrt_tpu_torch.utils import interop
 from rtrt_tpu_torch.utils.config import DynamicResolution, GlobalSettings
 from rtrt_tpu_torch.utils.config import FeatureFlags as TFlags
 from rtrt_tpu_torch.utils.config import default_params as tparams
+
+import torch_spmd_cases as spmd_cases
 
 torch.set_num_threads(1)
 W, H = 32, 16
@@ -72,8 +85,10 @@ def _render_both(jflags, tflags, cams, screen=(W, H), sah2=False):
     Returns (JAX images, the port's megakernel images, the port's last
     megakernel G-buffer, more): `more` maps "packets" and "loop" to the
     port's wavefront images (trace routes of engine/engine.py, over the
-    BVH4 tables and over the flat SAH tree they collapse) and, with sah2,
-    "sah2" to its megakernel images over the flat binary tables."""
+    BVH4 tables and over the flat SAH tree they collapse), with sah2,
+    "sah2" to its megakernel images over the flat binary tables, and
+    "inputs" to the port's frame inputs (the megakernel and loop
+    FrameStatic, the scene, the first FrameState, cameras and params)."""
     sw, sh = screen
     host = build_demo_scene()
     pad = padded_arrays(host)
@@ -116,15 +131,15 @@ def _render_both(jflags, tflags, cams, screen=(W, H), sah2=False):
                 tstatic, use_megakernel=False, use_packets=False))]
     if sah2:
         runs.append(("sah2", pack_tables_sah2(bvh, nrm, mat), tstatic))
-    imgs, gbufs = {}, {}
+    imgs, gbufs, scenes = {}, {}, {}
     for name, tables, static in runs:
-        scene = SceneData(tables=tables, materials=th.materials,
-                          sky=interop.sky_from_jax(sky, "cpu"),
-                          lights=th.lights, bvh=bvh, tri_nrm_t=nrm,
-                          tri_mat=mat)
+        scene = scenes[name] = SceneData(
+            tables=tables, materials=th.materials,
+            sky=interop.sky_from_jax(sky, "cpu"), lights=th.lights, bvh=bvh,
+            tri_nrm_t=nrm, tri_mat=mat)
         history = (tinit_history(H, W, half=tflags.half_history,
                                  device="cpu") if tflags.denoise else None)
-        tstate = TF.FrameState(exposure=interop.exposure_from_jax(
+        tstate = first = TF.FrameState(exposure=interop.exposure_from_jax(
             init_exposure_state(), "cpu"), history=history)
         ovf = overflow_counter("cpu")
         got = []
@@ -136,6 +151,9 @@ def _render_both(jflags, tflags, cams, screen=(W, H), sah2=False):
         assert int(ovf) == 0
         imgs[name] = got
     more = {k: v for k, v in imgs.items() if k != "megakernel"}
+    more["inputs"] = dict(static=tstatic, loop_static=runs[2][2],
+                          scene=scenes["megakernel"], state=first,
+                          cams=tcams, params=tparams())
     return ref, imgs["megakernel"], gbufs["megakernel"], more
 
 
@@ -278,6 +296,118 @@ def test_wavefront_no_temporal_frame_matches_jax(frames_no_temporal, route):
     port's megakernel frame (within 1 LSB on every pixel) and to JAX's at
     the mean bound."""
     _assert_wavefront(frames_no_temporal, route, jitted_ok=(0, 1))
+
+
+@pytest.fixture(scope="module")
+def sharded(frames_default, frames_no_temporal, tmp_path_factory):
+    """The two denoised fixtures' frames through the row-sharded frame
+    (parallel/frame_spmd.py) over 2 and over 4 gloo ranks on the CPU
+    (tests/torch_spmd_cases.py::sharded_frames), with the history carried
+    band-sharded, with 2 ranks the first loop-route frame of
+    frames_default, and frames_default's frames at a larger screen and
+    interlaced (_variants).  {ranks: [each rank's results]}."""
+    tmp = tmp_path_factory.mktemp("sharded")
+    out = {}
+    for world in (2, 4):
+        runs = {}
+        for name, fx in (("default", frames_default),
+                         ("no_temporal", frames_no_temporal)):
+            inp = fx[3]["inputs"]
+            runs[name] = dict(inp, frames=3)
+        if world == 2:
+            inp = frames_default[3]["inputs"]
+            runs["loop"] = dict(inp, static=inp["loop_static"], frames=1)
+        for name, static in _variants(frames_default).items():
+            runs[name] = dict(frames_default[3]["inputs"], static=static,
+                              frames=VARIANT_FRAMES[name])
+        torch.save(runs, tmp / f"in{world}.pt")
+        spawn(spmd_cases.sharded_frames, world,
+              (str(tmp / f"in{world}.pt"), str(tmp / f"out{world}_")),
+              device="cpu")
+        out[world] = [torch.load(tmp / f"out{world}_{r}", weights_only=False)
+                      for r in range(world)]
+    return out
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("fixture,name", [("frames_default", "default"),
+                                          ("frames_no_temporal",
+                                           "no_temporal")])
+def test_sharded_frame_matches_single(sharded, request, fixture, name,
+                                      world):
+    """The row-sharded frame: rank 0's gathered images within 1 u8 of the
+    port's single-process frames on every pixel and differing on < 5%
+    (measured: bit-equal), over the three frames of the slow pan; each
+    rank's history (H / ranks, W) rows, 0 dropped pushes; and held to
+    JAX's images at this file's bound over the frames that the fixture's
+    own test holds (all three; the first two without the first temporal
+    pass, as test_no_temporal_filter_frame_matches_jax says why)."""
+    ref, mega, _, _ = request.getfixturevalue(fixture)
+    recs = sharded[world]
+    got = [g.numpy() for g in recs[0][name]["images"]]
+    assert len(got) == len(mega) == 3
+    for k, (m, g) in enumerate(zip(mega, got)):
+        d = _lsb(m, g)
+        assert d.max() <= 1 and (d > 0).mean() < 0.05, (k, d.max())
+    for rec in recs:
+        assert rec[name]["history"] == (H // world, W, 3)
+        assert rec[name]["overflow"] == 0
+    _assert_images_close(ref if name == "default" else ref[:2],
+                         got if name == "default" else got[:2])
+
+
+VARIANT_FRAMES = {"upscale": 2, "upscale_nopost": 1, "interlace": 2}
+
+
+def _variants(frames_default):
+    """frames_default's megakernel frame shown at a 48x24 screen (the
+    Catmull-Rom upscale from 32x16), with and without the post chain, and
+    interlaced (half the rows traced a frame)."""
+    st = frames_default[3]["inputs"]["static"]
+    up = dataclasses.replace(st, screen_w=48, screen_h=24)
+    return {"upscale": up,
+            "upscale_nopost": dataclasses.replace(
+                up, flags=dataclasses.replace(up.flags, postprocess=False)),
+            "interlace": dataclasses.replace(st, interlace=True)}
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", sorted(VARIANT_FRAMES))
+def test_sharded_frame_variants_match_single(sharded, frames_default, world,
+                                             name):
+    """What a band reads beyond its rows in the other shapes of the frame:
+    below the screen size the upscale's rows (3 render rows a side at 16
+    -> 24 rows; over 4 ranks the bands are 4 render and 6 screen rows),
+    and interlaced the traced rows of the whole field that the fill
+    reads.  Rank 0's gathered images within 1 u8 of the port's
+    single-process frames of the same static on every pixel, < 5%
+    differing (bit-equality expected), over the fixture's slow pan."""
+    inp = frames_default[3]["inputs"]
+    static = _variants(frames_default)[name]
+    cams = inp["cams"][:VARIANT_FRAMES[name] + 1]
+    state, want = inp["state"], []
+    for prev, cam in zip(cams, cams[1:]):
+        img, state, _ = TF.render_frame(static, inp["scene"], state, cam,
+                                        prev, inp["params"], 1 / 60)
+        want.append(img.numpy())
+    got = [g.numpy() for g in sharded[world][0][name]["images"]]
+    assert len(got) == len(want)
+    for k, (w, g) in enumerate(zip(want, got)):
+        assert g.shape == (static.screen_h, static.screen_w, 3), g.shape
+        d = _lsb(w, g)
+        assert d.max() <= 1 and (d > 0).mean() < 0.05, (k, d.max())
+
+
+def test_sharded_loop_frame_matches_single(sharded, frames_default):
+    """The wavefront's loop route row-sharded over 2 ranks: the first
+    frame within 1 u8 of the port's single-process loop frame on every
+    pixel (measured: bit-equal) and of JAX's (test_wavefront_default_
+    frame_matches_jax holds frame index 0 so)."""
+    ref, _, _, more = frames_default
+    got = sharded[2][0]["loop"]["images"]
+    assert len(got) == 1
+    assert _lsb(more["loop"][0], got[0].numpy()).max() <= 1
+    assert _lsb(ref[0], got[0].numpy()).max() <= 1
 
 
 def test_gbuffer_sane(frames):

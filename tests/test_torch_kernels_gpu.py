@@ -55,7 +55,12 @@ Tolerances:
     over a 60-pixel window) and the two side by side.  Its bilinear
     instantiation (RTRT_HISTORY_FILTER=bilinear) at the same bounds, at
     1x1, 37x5 and 140x232 in both history dtypes; a filter without an
-    instantiation refused by the wrapper and by the C entry.
+    instantiation refused by the wrapper and by the C entry.  Its band
+    instantiation (row0, rows) bit-equal to the same rows of the full
+    launch, in both filters and dtypes.
+  * The row-sharded frame (parallel/frame_spmd.py) over 2 gloo ranks that
+    share the card: within 1 u8 of the single-process frame on every
+    pixel and differing on < 5% (bit-equal expected).
   * K1 under a step cap (max_steps / count_steps): as K1, and each ray's
     visit count equal on >= 99.9% of rays and never above the cap.
   * K1 and K2 on the chain scene (engine/scene.py::build_chain_scene, 12
@@ -626,8 +631,91 @@ def test_reproject_refuses_unknown_filter(cuda_device):
     with pytest.raises(RuntimeError, match="cudaError 1"):
         cuda.launch(cuda.library().rtrt_reproject, "reproject_bilinear",
                     cuda_device, *planes, ctypes.c_int(4), ctypes.c_int(4),
-                    ctypes.c_int(0), ctypes.c_int(2), *outs)
+                    ctypes.c_int(0), ctypes.c_int(4), ctypes.c_int(0),
+                    ctypes.c_int(2), *outs)
     assert cuda.launch_counts["reproject_bilinear"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("half", [True, False])
+@pytest.mark.parametrize("history_filter", ["catmull_rom", "bilinear"])
+def test_reproject_band_kernel_matches_full(cuda_device, history_filter,
+                                            half):
+    """K5's band instantiation (row0, rows): the launch over each band of
+    a ragged image (and a 1-row band) equal to the same rows of the full
+    launch bit for bit, its own launch counter; rows beyond the history
+    refused by the wrapper."""
+    rng = np.random.default_rng(17)
+    h, w = 140, 232
+    dt = torch.bfloat16 if half else torch.float32
+    f = lambda *s: torch.from_numpy(rng.uniform(0, 3, s).astype(
+        np.float32)).to(cuda_device, dt)
+    hist = (f(h, w, 3), f(h, w, 3), f(h, w),
+            torch.from_numpy(rng.integers(-1, 4, (h, w)).astype(
+                np.int32)).to(cuda_device), f(h, w))
+    motion = torch.from_numpy((_motion_field("mixed", h, w, rng) / [w, h])
+                              .astype(np.float32)).to(cuda_device)
+    full = reproject(*hist, motion, history_filter=history_filter)
+    name = ("reproject_bilinear" if history_filter == "bilinear"
+            else "reproject") + "_band"
+    cuda.reset_launch_counts()
+    bands = ((0, 35), (35, 70), (70, 105), (105, 140), (77, 78))
+    for r0, r1 in bands:
+        got = reproject(*hist, motion[r0:r1].contiguous(),
+                        history_filter=history_filter, row0=r0)
+        torch.cuda.synchronize()
+        for fld in got._fields:
+            assert torch.equal(getattr(got, fld),
+                               getattr(full, fld)[r0:r1]), (r0, fld)
+    assert cuda.launch_counts[name] == len(bands)
+    with pytest.raises(ValueError, match="rows"):
+        reproject(*hist, motion[:10].contiguous(), row0=h - 5)
+
+
+@pytest.mark.gpu
+def test_sharded_frame_two_ranks_on_one_card(cuda_device, tmp_path):
+    """The row-sharded frame (parallel/frame_spmd.py) over 2 gloo ranks
+    that share cuda:0: the demo Engine's 480x270 frame out at 128x72 (the
+    Catmull-Rom upscale and K3's pre-mapped instantiation), three frames of
+    a slow pan with the history carried band-sharded: rank 0's gathered
+    images within 1 u8 of the single-process frames on every pixel and
+    differing on < 5% (bit-equal expected), each rank's history (135, 480,
+    3), 0 dropped pushes."""
+    import dataclasses
+
+    from rtrt_tpu_torch.engine import frame as F
+    from rtrt_tpu_torch.parallel.frame_spmd import spawn
+
+    import torch_spmd_cases as spmd_cases
+
+    eng = Engine(GlobalSettings(scene="demo", render_width=W, render_height=H,
+                                dynamic_resolution=DynamicResolution(
+                                    enabled=False)),
+                 flags=FeatureFlags(), device=cuda_device)
+    cam0 = eng.camera
+    cams = [dataclasses.replace(cam0, yaw=cam0.yaw + 0.01 * k)
+            for k in range(4)]
+    state, want = eng.state, []
+    for prev, cam in zip(cams, cams[1:]):
+        img, state, _ = F.render_frame(eng.static, eng.scene_data, state,
+                                       cam, prev, eng.params, 1 / 60)
+        want.append(img.cpu())
+    torch.save(dict(frame=dict(static=eng.static, scene=eng.scene_data,
+                               state=eng.state, cams=cams, params=eng.params,
+                               frames=3)), tmp_path / "in.pt")
+    cuda.library()  # the ranks load the built library
+    spawn(spmd_cases.sharded_frames, 2,
+          (str(tmp_path / "in.pt"), str(tmp_path / "out")), "cuda",
+          share_device=True)
+    recs = [torch.load(tmp_path / f"out{r}", weights_only=False)["frame"]
+            for r in range(2)]
+    assert len(recs[0]["images"]) == 3
+    for k, (g, w) in enumerate(zip(recs[0]["images"], want)):
+        assert g.shape == (H, W, 3)
+        d = (g.int() - w.int()).abs().amax(-1)
+        assert d.max() <= 1 and (d > 0).float().mean() < 0.05, k
+    for rec in recs:
+        assert rec["history"] == (135, 480, 3) and rec["overflow"] == 0
 
 
 @pytest.mark.gpu
