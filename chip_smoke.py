@@ -200,6 +200,28 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      at 480x270 over 2 ranks, one frame held like the first; each rank's
      ms/frame by host clock, device busy (torch.profiler, one frame) and
      bytes fetched a frame, beside the single-process frame's ms.
+ 21. the frame's cut points and the JAX package's tools: (a) K2's
+     traversal-step instantiation (kSteps) on phase 3's view and rays: its
+     18 planes bit-equal to the default instantiation's, its (6, N) step
+     planes equal to the plain version's on >= 99.9% of pixels (segments
+     summing to the total), both timed by CUDA events in turns beside its
+     bound (K2's operations plus 24 B a pixel of step planes), the ptxas
+     registers and spill stores of both (the default BVH4 instantiation
+     held at 64 registers and 212 B, as before the flag); (b)
+     tools/profile_frame.py's main over the five cuts (bvh, trace, steps,
+     denoise, full) of the 1080p terrain, default FeatureFlags(): the full
+     cut's image bit-equal to render_frame's image of the same state and
+     camera, the trace cut equal to that frame's G-buffer, the denoise
+     cut's history equal to its new history and its colour to the
+     denoiser on the trace cut's planes; launches per cut (bvh: no K2;
+     trace and steps: K2 alone; denoise: K5 1, K4 4; full: K3 1);
+     cumulative and delta ms and device busy per cut; then --rebuild (the
+     static LBVH rebuilt in every frame) and --trace-steps; (c)
+     tools/fps_demo.py, a few frames a bucket from 1080 rows against the
+     30-fps target; (d) tools/sky_preview.py's PNGs, sky_compare at 1000
+     samples, mesh_baker on an OBJ of the block mesher's output with one
+     Loop subdivision, bluenoise_gen at 32x32; the K2 step launches are
+     those of --trace-steps' one frame, counted from 0 just before it.
   --profile adds 6: torch.profiler over 5 frames each of the main path,
      the north star's Engine at the 720 bucket and the interlaced Engine
      (device busy time, launches and synchronising calls per frame, top
@@ -207,8 +229,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 Prints the card's name and power limit, the per-kernel JSON line (K1-K16,
 K3's pre-mapped instantiation, K5's bilinear instantiation, K1's and K2's
 binary instantiations, their leaf-row instantiations, K2's
-Fourier-texture instantiation, K1's wavefront route and K5's band
-instantiation),
+Fourier-texture instantiation, K1's wavefront route, K5's band
+instantiation and K2's traversal-step instantiation),
 then as its last line
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX nor of the JAX package.  Exits 1 when CUDA is not
@@ -824,6 +846,12 @@ def main() -> int:
     print(f"-- phase 20 at {time.perf_counter() - t_start:.1f} s")
     k5_band = _sharded(card, settings, k5_in)
 
+    # ---- 21. the cut points, K2's step planes, the tools ----
+    print(f"-- phase 21 at {time.perf_counter() - t_start:.1f} s")
+    k2_steps = _cuts_and_tools(
+        card, args, dict(n_lights=n_lights, bn=consts.bn),
+        W * H * (40 + 72) + _table_bytes(tables), sum(k2_ops.values()))
+
     if "--profile" in sys.argv[1:]:
 
         def il_step(k):
@@ -892,13 +920,192 @@ def main() -> int:
              launches=counts["reproject"], max_abs_err=k5_err,
              ms=k5_ms, graph_ms=k5_graph, plain_ms=k5_plain,
              bound_ms=k5_bound[0], bound_by=k5_bound[1], library_ms=None),
-        k5_bl, k5_band,
+        k5_bl, k5_band, k2_steps,
     ] + lbvh + optin + [wave] + probes + hw_probes
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _ptxas(name):
+    """(registers, spill stores in bytes) of the kernel whose mangled name
+    holds `name`, from the build's ptxas log."""
+    import re
+
+    from rtrt_tpu_torch.utils import cuda
+    lines = cuda.build_info["log"].splitlines()
+    at = next(i for i, line in enumerate(lines)
+              if "Compiling entry" in line and name in line)
+    spill = next(line for line in lines[at:] if "spill stores" in line)
+    regs = next(line for line in lines[at:] if "registers" in line)
+    return (int(re.search(r"Used (\d+) registers", regs).group(1)),
+            int(re.search(r"(\d+) bytes spill stores", spill).group(1)))
+
+
+def _cuts_and_tools(card, args, kw, k2_bytes, k2_ops):
+    """Phase 21 (module docstring): K2's step instantiation on phase 3's
+    view (args, kw: its megakernel_trace arguments; k2_bytes, k2_ops: the
+    default K2's bound inputs), the profile_frame cuts, fps_demo and the
+    tools.  Returns the kernel line's entry for K2's step instantiation."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from rtrt_tpu_torch.content.mesher import voxels_to_mesh
+    from rtrt_tpu_torch.content.meshio import load_mesh, save_obj
+    from rtrt_tpu_torch.denoise.pipeline import denoise
+    from rtrt_tpu_torch.engine.frame import render_frame
+    from rtrt_tpu_torch.render import megakernel as M
+    from rtrt_tpu_torch.tools import (bluenoise_gen, fps_demo, mesh_baker,
+                                      profile_frame, sky_compare,
+                                      sky_preview)
+    from rtrt_tpu_torch.utils import cuda
+    from rtrt_tpu_torch.utils.timing import bound_ms, time_ms
+
+    t_phase = time.perf_counter()
+    dev = args[5].device
+    n = W * H
+    seg = M.SEGMENTS
+
+    # (a) K2's step instantiation against the default one and the plain
+    out_d = torch.empty((18, n), device=dev)
+    out_s = torch.empty((18, n), device=dev)
+    steps = torch.full((seg + 1, n), -1, dtype=torch.int32, device=dev)
+    plain = torch.zeros((seg + 1, n), dtype=torch.int32, device=dev)
+    M.megakernel_trace(*args, **kw, out=out_d)
+    M.megakernel_trace(*args, **kw, out=out_s, steps=steps)
+    visits = [0, 0]
+    M.megakernel_trace_plain(*args, **kw, steps=plain, visits=visits)
+    torch.cuda.synchronize()
+    gbuf_equal = torch.equal(out_d, out_s)
+    same = (steps == plain).all(0).float().mean().item()
+    err = int((steps - plain).abs().max())
+    print(f"K2 steps {W}x{H}: G-buffer planes bit-equal to the default "
+          f"instantiation's: {gbuf_equal}; step planes equal to the plain "
+          f"version's on {same:.6f} of pixels (max |d| {err}); visits "
+          f"{int(steps[0].sum())} (plain {int(plain[0].sum())}, its "
+          f"counter {visits[0] + visits[1]}); per pixel mean "
+          f"{[round(x, 3) for x in steps.double().mean(1).tolist()]} "
+          f"[total, seg0..seg4]")
+    assert gbuf_equal, "K2 steps: G-buffer differs from the default's"
+    assert (steps >= 0).all() and torch.equal(steps[1:].sum(0), steps[0])
+    assert same >= 0.999, f"K2 steps agree with plain on {same}"
+    assert int(plain[0].sum()) == visits[0] + visits[1]
+    run_d = lambda: M.megakernel_trace(*args, **kw, out=out_d)
+    run_s = lambda: M.megakernel_trace(*args, **kw, out=out_s, steps=steps)
+    t_d, t_s = [], []
+    for run, acc in ((run_d, t_d), (run_s, t_s), (run_s, t_s),
+                     (run_d, t_d)):
+        acc.append(time_ms(run, 10))
+    s_ms, d_ms = sum(t_s) / 2, sum(t_d) / 2
+    s_plain = time_ms(lambda: M.megakernel_trace_plain(
+        *args, **kw, steps=plain), 1)
+    s_bound = bound_ms(k2_bytes + n * 4 * (seg + 1), k2_ops)
+    regs = {label: _ptxas(f"megakernelILi32ELi0ELb0ELb{flag}E")
+            for label, flag in (("default", 0), ("steps", 1))}
+    print(f"K2 steps time, {W}x{H}: kernel {s_ms:.4f} ms ({t_s}), the "
+          f"default instantiation {d_ms:.4f} ms ({t_d}) in turns by CUDA "
+          f"events; plain {s_plain:.1f} ms; bound {s_bound[0]:.4f} ms "
+          f"({s_bound[1]}); BVH4 (stack 32) registers / spill stores: "
+          f"{regs} {card}")
+    assert regs["default"] == (64, 212), regs
+
+    # (b) the cut points through profile_frame's entry point
+    five = "bvh,trace,steps,denoise,full"
+    r = profile_frame.main(["--stages", five, "--frames", "3"])
+    eng = r["engine"]
+    img, st, gb = render_frame(eng.static, eng.scene_data, r["state"],
+                               eng.camera, eng.prev_camera, eng.params,
+                               1 / 60, eng.consts, eng.overflow,
+                               eng.stack_depth, eng.rest)
+    outs = r["outputs"]
+    assert torch.equal(outs["full"][0], img), "full cut != render_frame"
+    planes = outs["trace"][0]
+    for got, ref in zip(planes, (gb.color, gb.albedo, gb.normal, gb.depth,
+                                 gb.mat_id, gb.motion), strict=True):
+        assert torch.equal(got, ref), "trace cut != the frame's G-buffer"
+    final, hist = outs["denoise"][0]
+    for f in hist._fields:
+        a, b = getattr(hist, f), getattr(st.history, f)
+        assert (torch.equal(a, b) if torch.is_tensor(a) else a == b), f
+    ref_final, _ = denoise(*planes, r["state"].history, eng.params.denoise,
+                           eng.flags, frame_parity=0)
+    assert torch.equal(final, ref_final), "denoise cut != the denoiser"
+    (sp,), _ = outs["steps"]
+    assert tuple(sp.shape) == (seg + 1, H, W)
+    assert torch.equal(sp[1:].sum(0), sp[0])
+    want = dict(trace={"megakernel_trace": 1},
+                steps={"megakernel_trace_steps": 1},
+                denoise={"megakernel_trace": 1, "reproject": 1,
+                         "denoise_wide": 4},
+                full={"megakernel_trace": 1, "reproject": 1,
+                      "denoise_wide": 4, "post_tail": 1})
+    assert not any(k.startswith("megakernel") for k in r["launches"]["bvh"])
+    for stop, counts in want.items():
+        assert r["launches"][stop] == counts, (stop, r["launches"][stop])
+    print(f"profile_frame cuts of one frame: full image bit-equal to "
+          f"render_frame's, trace cut = its G-buffer, denoise cut = its "
+          f"history and the denoiser on the trace planes; launches "
+          f"{r['launches']} {card}")
+    del eng, r, outs, planes, img, st, gb
+    rb = profile_frame.main(["--rebuild", "--frames", "3"])
+    assert not any(k.startswith("megakernel")
+                   for k in rb["launches"]["bvh"]), rb["launches"]["bvh"]
+    assert rb["launches"]["trace"] == {"megakernel_trace_binary": 1}
+    del rb
+    cuda.reset_launch_counts()  # the kernel line's launches: this run's
+    ts = profile_frame.main(["--trace-steps"])
+    steps_launches = cuda.launch_counts["megakernel_trace_steps"]
+    assert steps_launches == 1, steps_launches  # its one steps-cut frame
+    assert ts["rows"][0][1] == sum(row[1] for row in ts["rows"][1:])
+    del ts
+
+    # (c) the dynamic-resolution demo
+    recs = fps_demo.run(height=H, frames=4)
+    print(f"fps_demo: buckets {[x['bucket_h'] for x in recs[:-1]]}, "
+          f"sustained {recs[-1]['res']} {recs[-1]['ms_per_frame']} ms/frame "
+          f"{card}")
+
+    # (d) the tools on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        assert sky_preview.main([tmp, "--sweep", "3"]) == 0
+        pngs = sorted(f for f in os.listdir(tmp) if f.endswith(".png"))
+        assert pngs == ["sky_map.png", "sky_pdf.png", "sun_map.png",
+                        "sweep.png"], pngs
+        assert sky_compare.main(["--samples", "1000"]) == 0
+        solid = np.random.default_rng(21).uniform(size=(6, 4, 6)) < 0.5
+        v, f = voxels_to_mesh(solid)
+        save_obj(os.path.join(tmp, "blocks.obj"), v, f)
+        baked = os.path.join(tmp, "blocks.npz")
+        assert mesh_baker.main([os.path.join(tmp, "blocks.obj"), baked,
+                                "--subdivide", "1"]) == 0
+        bv, bf = load_mesh(baked)
+        assert len(bf) == 4 * len(f) and bf.max() < len(bv)
+        bn = os.path.join(tmp, "bn.npy")
+        t0 = time.perf_counter()
+        assert bluenoise_gen.main(["--out", bn, "--size", "32"]) == 0
+        m = np.load(bn)
+        assert m.shape == (32, 32, len(bluenoise_gen.SEEDS))
+        for c in range(m.shape[-1]):  # a rank mask: every rank once
+            ranks = np.sort(np.round(m[..., c].reshape(-1) * 1024 - 0.5)
+                            .astype(int))
+            assert (ranks == np.arange(1024)).all()
+        print(f"tools: sky_preview {pngs}, mesh_baker {len(f)} -> "
+              f"{len(bf)} tris, bluenoise_gen 32x32 in "
+              f"{time.perf_counter() - t0:.2f} s {card}")
+    print(f"phase 21 took {time.perf_counter() - t_phase:.1f} s {card}")
+    return dict(
+        name="K2 megakernel, traversal-step instantiation (kSteps: each "
+        "path's node + leaf visits a segment, the frame's steps cut; "
+        "launches: the steps-cut frame of profile_frame --trace-steps, "
+        "phase 21)",
+        route="cuda", source="rtrt_tpu_torch/csrc/megakernel.cu",
+        replaces="rtrt_tpu/render/megakernel.py:707",
+        launches=steps_launches, max_abs_err=float(err), ms=s_ms,
+        plain_ms=s_plain, bound_ms=s_bound[0], bound_by=s_bound[1],
+        library_ms=None)
 
 
 def _sharded(card, settings, k5_in):

@@ -1,6 +1,7 @@
-"""Vector helpers on (..., 3) torch tensors (port of the vector part of
-rtrt_tpu/core/vecmath.py: what the renderer calls; the matrix and
-quaternion helpers serve only the JAX package's content tools)."""
+"""Vector, matrix and quaternion helpers on torch tensors (port of
+rtrt_tpu/core/vecmath.py): vectors (..., 3) with the components on the
+trailing axis, matrices (..., 3, 3) / (..., 4, 4), quaternions (..., 4) as
+(w, x, y, z)."""
 
 from __future__ import annotations
 
@@ -43,6 +44,14 @@ def lerp(a, b, t):
     return a + (b - a) * t
 
 
+def clamp(x, lo=0.0, hi=1.0):
+    return torch.clamp(x, lo, hi)
+
+
+def saturate(x):
+    return torch.clamp(x, 0.0, 1.0)
+
+
 def normalize(a, eps: float = 1e-20):
     """Safe normalize; zero vectors map to zero (not NaN)."""
     n2 = dotk(a, a)
@@ -70,6 +79,17 @@ def refract(d, n, eta):
     cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
     refr = eta * d + (eta * cos_i - cos_t) * n
     return torch.where(tir[..., None], reflect(d, n), refr), tir
+
+
+def project(a, b):
+    """Project a onto b."""
+    return b * (dotk(a, b) / torch.clamp(dotk(b, b), min=1e-20))
+
+
+def abs_max_component_index(v):
+    """Index (0/1/2) of the largest-|.| component: (...,) int32 (the first
+    on a tie, as argmax)."""
+    return torch.argmax(torch.abs(v), dim=-1).to(torch.int32)
 
 
 def permute3(v, kx, ky, kz):
@@ -103,3 +123,106 @@ def spherical_to_dir(theta, phi):
     """(theta from +z, phi around z) -> unit vector."""
     st = torch.sin(theta)
     return vec3(st * torch.cos(phi), st * torch.sin(phi), torch.cos(theta))
+
+
+# ---------------------------------------------------------------------------
+# matrices
+# ---------------------------------------------------------------------------
+
+
+def matvec(m, v):
+    """(..., N, N) @ (..., N) -> (..., N)."""
+    return torch.einsum("...ij,...j->...i", m, v)
+
+
+def mat3_from_axis_angle(axis, angle):
+    """Rodrigues rotation matrix, axis (..., 3) unit, angle (...,)
+    radians."""
+    axis = torch.as_tensor(axis, dtype=torch.float32)
+    angle = torch.as_tensor(angle, dtype=torch.float32, device=axis.device)
+    x, y, z = axis[..., 0], axis[..., 1], axis[..., 2]
+    c, s = torch.cos(angle), torch.sin(angle)
+    t = 1.0 - c
+    rows = [
+        torch.stack([t * x * x + c, t * x * y - s * z, t * x * z + s * y], -1),
+        torch.stack([t * x * y + s * z, t * y * y + c, t * y * z - s * x], -1),
+        torch.stack([t * x * z - s * y, t * y * z + s * x, t * z * z + c], -1),
+    ]
+    return torch.stack(rows, dim=-2)
+
+
+def rotate_axis_angle(v, axis, angle):
+    return matvec(mat3_from_axis_angle(axis, angle), v)
+
+
+def mat4_translate(t):
+    t = torch.as_tensor(t, dtype=torch.float32)
+    m = torch.eye(4, dtype=torch.float32, device=t.device)
+    m[:3, 3] = t
+    return m
+
+
+def mat4_scale(s):
+    s = torch.as_tensor(s, dtype=torch.float32)
+    return torch.diag(torch.cat([torch.broadcast_to(s, (3,)),
+                                 torch.ones(1, device=s.device)]))
+
+
+def mat4_from_mat3(m3):
+    m3 = torch.as_tensor(m3, dtype=torch.float32)
+    m = torch.eye(4, dtype=torch.float32, device=m3.device)
+    m[:3, :3] = m3
+    return m
+
+
+def transform_point(m4, p):
+    """Apply a (..., 4, 4) homogeneous transform to (..., 3) points."""
+    return matvec(m4[..., :3, :3], p) + m4[..., :3, 3]
+
+
+def transform_dir(m4, d):
+    return matvec(m4[..., :3, :3], d)
+
+
+# ---------------------------------------------------------------------------
+# quaternions (w, x, y, z)
+# ---------------------------------------------------------------------------
+
+
+def quat_from_axis_angle(axis, angle):
+    axis = torch.as_tensor(axis, dtype=torch.float32)
+    half = torch.as_tensor(angle, dtype=torch.float32,
+                           device=axis.device) * 0.5
+    return torch.cat([torch.cos(half)[..., None],
+                      axis * torch.sin(half)[..., None]], dim=-1)
+
+
+def quat_mul(q1, q2):
+    w1, x1, y1, z1 = (q1[..., i] for i in range(4))
+    w2, x2, y2, z2 = (q2[..., i] for i in range(4))
+    return torch.stack([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+    ], dim=-1)
+
+
+def quat_rotate(q, v):
+    """Rotate (..., 3) v by unit quaternion q."""
+    qv = q[..., 1:4]
+    w = q[..., 0:1]
+    t = 2.0 * cross(qv, v)
+    return v + w * t + cross(qv, t)
+
+
+# ---------------------------------------------------------------------------
+# compensated (Kahan) accumulation
+# ---------------------------------------------------------------------------
+
+
+def kahan_add(total, comp, value):
+    """One Kahan step; returns (new_total, new_comp)."""
+    y = value - comp
+    t = total + y
+    return t, (t - total) - y

@@ -70,12 +70,26 @@
 //     and nothing caches which fit the symbol holds.  Like c_sun it
 //     is one copy a process: launches on two streams at once would race
 //     (ROADMAP.md, multi-device).
+//   * Traversal-step telemetry (the TPU kernel's debug_steps planes, which
+//     profile_frame's --trace-steps reads) is a template flag of its own
+//     (kSteps): an instantiation with it counts each segment's node + leaf
+//     visits with K1's counting traversal (traverse.cuh kCount, uncapped;
+//     pops pruned by their entry distance do not count) and writes an
+//     int32 (SEGMENTS + 1, n) plane: row 0 the path's total, row 1 + s
+//     segment s's visits, 0 for the segments after the path ended.  One
+//     running total a lane; a segment's count is stored when it ends.  The
+//     count is per path (one thread a path); the TPU kernel's is uniform
+//     over a 32x128 ray tile, whose lanes share one stack.  The
+//     instantiations without it compile as before (no pointer test in the
+//     loop); the G-buffer planes are the same either way.
 // The TPU kernel's VMEM table staging, state parking, 32-row strips,
 // per-tile segment skips and i1/i32 mask round trips are TPU artifacts and
 // are not carried over.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <climits>
 
 #include "kshade.cuh"
 #include "traverse.cuh"
@@ -116,6 +130,7 @@ struct MegaParams {
   int width;           // the pixel grid's row length
   int tile_w, tiles;   // warp tiles of tile_w x 32 / tile_w pixels
   int tlas_internal;   // TLAS rows of binary two-level tables
+  int* steps;          // (SEGMENTS + 1, n) int32 step planes (kSteps)
 };
 
 // the sun's direction, basis, transmittance and intensity (pack_sun_params'
@@ -371,11 +386,35 @@ __device__ __forceinline__ void write_planes(const PathState& st,
   for (int k = 0; k < COLD; ++k) p.out[(3 + k) * n + i] = cold.get(k);
 }
 
+// one segment's scene intersect of a live path on the tables' tree; with
+// kSteps the traversal counts its node + leaf visits into `visits`
+template <int STACK, int TREE, bool kSteps>
+__device__ __forceinline__ rtrt::TraceHit trace_segment(
+    const MegaParams& p, const PathState& st, int& deepest, int& visits) {
+  const float t_cap = st.is_shadow ? st.shadow_tmax : CUDART_INF_F;
+  const float3 o = make_float3(st.org.x, st.org.y, st.org.z);
+  const float3 d = make_float3(st.dir.x, st.dir.y, st.dir.z);
+  const int cap = kSteps ? INT_MAX : 0;
+  int* const out = kSteps ? &visits : nullptr;
+  if constexpr (TREE == rtrt::TREE_LBVH)
+    return rtrt::traverse2<STACK, kSteps>(p.nodes, p.tris, p.tlas_internal,
+                                          o, d, t_cap, st.is_shadow,
+                                          p.overflow, deepest, cap, out);
+  else if constexpr (TREE == rtrt::TREE_SAH2)
+    return rtrt::traverse2<STACK, kSteps, rtrt::LEAF_WIDTH>(
+        p.nodes, p.tris, 0, o, d, t_cap, st.is_shadow, p.overflow, deepest,
+        cap, out);
+  else
+    return rtrt::traverse<STACK, kSteps>(p.nodes, p.tris, o, d, t_cap,
+                                         st.is_shadow, p.overflow, deepest,
+                                         cap, out);
+}
+
 // STACK: the traversal stack's depth; TREE: the tables' tree (traverse.cuh
 // Tree): the BVH4 (traverse), the two-level LBVH (traverse2) or the flat
 // binary SAH tree (traverse2 with 8-slot leaf rows); kFtex: textured
-// materials from the Fourier fit
-template <int STACK, int TREE, bool kFtex>
+// materials from the Fourier fit; kSteps: the step planes (p.steps)
+template <int STACK, int TREE, bool kFtex, bool kSteps>
 __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
     megakernel(const MegaParams p) {
   __shared__ float4 table[rtrt::SAMPLER_SLOTS];
@@ -400,6 +439,7 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
   const int tile_h = 32 / p.tile_w;
   const int tiles_x = (p.width + p.tile_w - 1) / p.tile_w;
   int pix = -1, seg = 0, deepest = 0;
+  int total = 0;  // kSteps: the path's visits so far
   PathState st;
   while (true) {
     __syncwarp();
@@ -414,27 +454,17 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
         pix = i;
         seg = 0;
         start_path(st, cold, rng, p, pix);
+        if constexpr (kSteps) total = 0;
       }
     }
     if (pix >= 0) {
-      const float t_cap = st.is_shadow ? st.shadow_tmax : CUDART_INF_F;
-      rtrt::TraceHit h;
-      if constexpr (TREE == rtrt::TREE_LBVH)
-        h = rtrt::traverse2<STACK>(
-            p.nodes, p.tris, p.tlas_internal,
-            make_float3(st.org.x, st.org.y, st.org.z),
-            make_float3(st.dir.x, st.dir.y, st.dir.z), t_cap, st.is_shadow,
-            p.overflow, deepest);
-      else if constexpr (TREE == rtrt::TREE_SAH2)
-        h = rtrt::traverse2<STACK, false, rtrt::LEAF_WIDTH>(
-            p.nodes, p.tris, 0, make_float3(st.org.x, st.org.y, st.org.z),
-            make_float3(st.dir.x, st.dir.y, st.dir.z), t_cap, st.is_shadow,
-            p.overflow, deepest);
-      else
-        h = rtrt::traverse<STACK>(
-            p.nodes, p.tris, make_float3(st.org.x, st.org.y, st.org.z),
-            make_float3(st.dir.x, st.dir.y, st.dir.z), t_cap, st.is_shadow,
-            p.overflow, deepest);
+      int visits = 0;
+      const rtrt::TraceHit h =
+          trace_segment<STACK, TREE, kSteps>(p, st, deepest, visits);
+      if constexpr (kSteps) {
+        p.steps[(size_t)(seg + 1) * p.n + pix] = visits;
+        total += visits;
+      }
       int hmat;
       float3 ns, ng;
       rtrt::hit_attrs(p.nrm, p.ng, p.mat, h, hmat, ns, ng);
@@ -442,6 +472,11 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
                     v3(ng.x, ng.y, ng.z), p, rng, seg, seg == SEGMENTS - 1);
       if (st.done || ++seg == SEGMENTS) {
         write_planes(st, cold, p, pix);
+        if constexpr (kSteps) {  // the total; 0 for the segments not run
+          p.steps[pix] = total;
+          for (int r = seg + 2; r <= SEGMENTS; ++r)
+            p.steps[(size_t)r * p.n + pix] = 0;
+        }
         pix = -1;
       }
     }
@@ -454,14 +489,14 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
 
 // one wave of persistent blocks: resident blocks a SM (from the kernel's
 // registers and shared memory, queried once per instantiation: each
-// <STACK, TREE, kFtex> has its own per_sm) times the SMs, fewer for a
-// small n
-template <int STACK, int TREE, bool kFtex>
+// <STACK, TREE, kFtex, kSteps> has its own per_sm) times the SMs, fewer for
+// a small n
+template <int STACK, int TREE, bool kFtex, bool kSteps>
 int launch(const MegaParams& p, cudaStream_t s) {
   static int per_sm = 0;
   if (per_sm == 0) {
     cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, megakernel<STACK, TREE, kFtex>, BLOCK, 0);
+        &per_sm, megakernel<STACK, TREE, kFtex, kSteps>, BLOCK, 0);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   int dev = 0, sms = 0;
@@ -471,21 +506,24 @@ int launch(const MegaParams& p, cudaStream_t s) {
   if (e != cudaSuccess) return static_cast<int>(e);
   const int warps = BLOCK / 32;
   const int grid = min(per_sm * sms, (p.tiles + warps - 1) / warps);
-  megakernel<STACK, TREE, kFtex><<<grid, BLOCK, 0, s>>>(p);
+  megakernel<STACK, TREE, kFtex, kSteps><<<grid, BLOCK, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the instantiation of the tables' tree (tree_kind) and stack
-template <bool kFtex>
+template <bool kFtex, bool kSteps>
 int launch_tree(const MegaParams& p, int tree, int stack, cudaStream_t s) {
-  const bool small = stack == rtrt::STACK_SMALL;
+  using rtrt::STACK_DEEP;
+  using rtrt::STACK_SMALL;
+  const bool small = stack == STACK_SMALL;
   if (tree == rtrt::TREE_LBVH)
-    return launch<rtrt::STACK_DEEP, rtrt::TREE_LBVH, kFtex>(p, s);
+    return launch<STACK_DEEP, rtrt::TREE_LBVH, kFtex, kSteps>(p, s);
   if (tree == rtrt::TREE_SAH2)
-    return small ? launch<rtrt::STACK_SMALL, rtrt::TREE_SAH2, kFtex>(p, s)
-                 : launch<rtrt::STACK_DEEP, rtrt::TREE_SAH2, kFtex>(p, s);
-  return small ? launch<rtrt::STACK_SMALL, rtrt::TREE_BVH4, kFtex>(p, s)
-               : launch<rtrt::STACK_DEEP, rtrt::TREE_BVH4, kFtex>(p, s);
+    return small
+               ? launch<STACK_SMALL, rtrt::TREE_SAH2, kFtex, kSteps>(p, s)
+               : launch<STACK_DEEP, rtrt::TREE_SAH2, kFtex, kSteps>(p, s);
+  return small ? launch<STACK_SMALL, rtrt::TREE_BVH4, kFtex, kSteps>(p, s)
+               : launch<STACK_DEEP, rtrt::TREE_BVH4, kFtex, kSteps>(p, s);
 }
 
 }  // namespace
@@ -495,6 +533,8 @@ int launch_tree(const MegaParams& p, int tree, int stack, cudaStream_t s) {
 // row length (n for a flat batch); ftex: the Fourier fit's (2, FTEX_ROW)
 // coefficient table on the device (render/ftex.py::pack_ftex), copied to
 // c_ftex on the stream, or nullptr for the instantiations without it;
+// steps: the (SEGMENTS + 1, n) int32 step planes, written by the kSteps
+// instantiations (no Fourier fit: steps with ftex is refused), or nullptr;
 // arity, leaf_width, tlas_internal, stack: the tables' layout
 // (bvh/packet.py::layout_args; traverse.cuh tree_kind): any triple without
 // an instantiation is refused (cudaErrorInvalidValue) before anything is
@@ -506,8 +546,8 @@ extern "C" int rtrt_megakernel(
     float disk_omega, float disk_pdf, unsigned frame, const float* org,
     const float* dir, const float* cone, const int* pix, const float* bn,
     int use_bn, int use_proctex, int n, float* out, int* overflow,
-    int* depth, int* work, int width, const float* ftex, int arity,
-    int leaf_width, int tlas_internal, int stack, void* stream) {
+    int* depth, int* work, int width, const float* ftex, int* steps,
+    int arity, int leaf_width, int tlas_internal, int stack, void* stream) {
   MegaParams p{nodes,    tris,     nrm,        ng,       mat,
                mat_rows, n_mat,    light_rows, n_lights,
                cos_max,  sin2_max, disk_omega, disk_pdf, frame,
@@ -515,8 +555,10 @@ extern "C" int rtrt_megakernel(
                use_bn,   use_proctex, n,       out,      overflow,
                depth,    work,     width};
   const int tree = rtrt::tree_kind(arity, leaf_width, stack);
-  if (tree < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (tree < 0 || (steps != nullptr && ftex != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   p.tlas_internal = tlas_internal;
+  p.steps = steps;
   if (n <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
   // 8x4 tiles where the grid has 4 rows or more, else runs of 32 pixels
   const int rows = (n + width - 1) / width;
@@ -533,6 +575,7 @@ extern "C" int rtrt_megakernel(
     e = cudaMemcpyToSymbolAsync(rtrt::c_ftex, ftex, sizeof(rtrt::c_ftex), 0,
                                 cudaMemcpyDeviceToDevice, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return ftex != nullptr ? launch_tree<true>(p, tree, stack, s)
-                         : launch_tree<false>(p, tree, stack, s);
+  if (steps != nullptr) return launch_tree<false, true>(p, tree, stack, s);
+  return ftex != nullptr ? launch_tree<true, false>(p, tree, stack, s)
+                         : launch_tree<false, false>(p, tree, stack, s);
 }

@@ -272,18 +272,36 @@ class Engine:
         """The two-level LBVH's binary tables, built on the device, and the
         tree (SceneBvh, sorted normals, materials); an animated scene keeps
         its rest mesh there and rebuilds every frame."""
-        dev = self.device
-        mesh = MeshPose(
-            vertices=torch.from_numpy(self.scene.vertices).to(dev),
-            indices=torch.from_numpy(pad["indices"]).to(dev, torch.int64),
-            tri_mat=torch.from_numpy(pad["tri_mat"]).to(dev, torch.int32),
-            valid=torch.from_numpy(pad["valid"]).to(dev))
+        mesh = self._mesh_pose(pad)
         if animation == "wave":
             self.rest = mesh
         tree = build_scene_tables(
             self.scene.num_batches, mesh.indices, mesh.tri_mat, mesh.valid,
-            mesh.vertices, torch.from_numpy(self.scene.normals).to(dev))
+            mesh.vertices,
+            torch.from_numpy(self.scene.normals).to(self.device))
         return pack_tables_binary(*tree), tree
+
+    def _mesh_pose(self, pad, normals=None) -> MeshPose:
+        dev = self.device
+        return MeshPose(
+            vertices=torch.from_numpy(self.scene.vertices).to(dev),
+            indices=torch.from_numpy(pad["indices"]).to(dev, torch.int64),
+            tri_mat=torch.from_numpy(pad["tri_mat"]).to(dev, torch.int32),
+            valid=torch.from_numpy(pad["valid"]).to(dev), normals=normals)
+
+    def static_rebuild(self):
+        """From the next frame on, rebuild the static scene's two-level
+        LBVH in every frame (the JAX frame without the Engine's prebuilt
+        tables, which profile_frame's --rebuild forces): `rest` becomes a
+        MeshPose of the unmoved scene with its normals.  Needs
+        bvh="lbvh" (the binary tables the rebuild writes) and a static
+        scene."""
+        if self.bvh != "lbvh" or self.rest is not None:
+            raise ValueError("static_rebuild needs Engine(bvh='lbvh') with "
+                             "animation='none'")
+        self.rest = self._mesh_pose(
+            padded_arrays(self.scene),
+            normals=torch.from_numpy(self.scene.normals).to(self.device))
 
     # ------------------------------------------------------------------
     # resolution buckets / dynamic resolution

@@ -35,7 +35,10 @@ frame's two branches for animation="wave", chosen by the type of `rest`:
     (`animate_tables`);
   * a MeshPose (the rebuild branch): displace the rest mesh's vertices,
     recompute its smooth normals, rebuild the two-level LBVH on the device
-    (bvh/build.py) and repack the binary tables (`rebuild_tables`).
+    (bvh/build.py) and repack the binary tables (`rebuild_tables`).  A
+    MeshPose that holds its normals does not move: its frames rebuild the
+    static scene's LBVH in the frame (the JAX frame's branch without
+    prebuilt tables, animation="none"; profile_frame's --rebuild).
 With FeatureFlags ocean / stars, escaped rays take their radiance from
 render/environment.py instead of the sky fit alone.  Both read the
 animation clock, FrameState.time, which accumulates in float32 as the JAX
@@ -57,6 +60,20 @@ from the other ranks (denoise/pipeline.py, post/pipeline.py), and the
 sun's visibility is the depth at its pixel on the rank that holds it,
 shared by an all-reduce.  The result is the band's rows of the whole
 frame's image, state and G-buffer.  band=None is the whole frame.
+
+Cut points (FrameStatic.stop_after, the JAX frame's profiling cuts that
+tools/profile_frame.py times): the frame ends after the named stage and
+returns (outputs, state) with the state it was given:
+  "bvh"     after the animation or rebuild stage: (scene.tables,);
+  "trace"   (color, albedo, normal, depth, mat_id, motion) after the
+            interlace fill and the NaN guards;
+  "steps"   (steps,): K2's (SEGMENTS + 1, traced rows, w) int32
+            traversal-step planes (megakernel route only; half height
+            under interlace, as JAX's);
+  "denoise" (final, new_history);
+  "full"    the whole frame (render_frame's usual result).
+The port refuses what the JAX frame renders in full without a word: a
+"steps" cut on the wavefront route and any cut of a band (ValueError).
 """
 
 from __future__ import annotations
@@ -80,7 +97,8 @@ from ..post.pipeline import (band_halo, dither_mask, postprocess,
 from ..render.environment import env_radiance_scene
 from ..render.ftex import FtexTable
 from ..render.integrator import GBuffer, SceneData, path_trace
-from ..render.megakernel import path_trace_mega
+from ..render.megakernel import (SEGMENTS, path_trace_mega,
+                                   trace_scene_mega)
 from ..render.raygen import generate_rays_padded
 from ..render.sampling import blue_offsets_flat, rand2, rand2_bn
 from ..utils.config import FeatureFlags, RenderParams
@@ -96,6 +114,9 @@ class FrameState:
     frame_idx: int = 0      # uint32 frame counter
     time: float = 0.0       # accumulated time (s): a float32 value
     #   (advance_clock), held on the host so that reading it never syncs
+
+
+STOP_AFTER = ("full", "bvh", "trace", "steps", "denoise")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +136,16 @@ class FrameStatic:
     use_megakernel: bool = True  # K2; False: the wavefront path_trace
     use_packets: bool = True  # the wavefront's traversal: K1 on
     #   scene.tables; False: the loop traverser on scene.bvh
+    stop_after: str = "full"  # the cut point (module docstring):
+    #   full | bvh | trace | steps | denoise
+
+    def __post_init__(self):
+        if self.stop_after not in STOP_AFTER:
+            raise ValueError(f"stop_after={self.stop_after!r}: expected one "
+                             f"of {STOP_AFTER}")
+        if self.stop_after == "steps" and not self.use_megakernel:
+            raise ValueError("stop_after='steps' reads K2's step planes: "
+                             "it needs use_megakernel")
 
 
 @dataclasses.dataclass
@@ -149,14 +180,16 @@ class MeshPose:
     """The animated scene's rest mesh (on the device), whose frames rebuild
     the two-level LBVH: the vertices (V, 3), the padded triangle indices
     (B * 1024, 3), materials (B * 1024,) and valid mask (B, 1024) of
-    engine/scene.py::padded_arrays.  The normals are recomputed from the
-    displaced vertices every frame, so none are kept.  A frame given one
-    rebuilds."""
+    engine/scene.py::padded_arrays.  Without normals the pose moves: the
+    normals are recomputed from the displaced vertices every frame.  With
+    the vertex normals (V, 3) the pose is the static scene, unmoved, and
+    keeps them.  A frame given one rebuilds."""
 
     vertices: torch.Tensor
     indices: torch.Tensor
     tri_mat: torch.Tensor
     valid: torch.Tensor
+    normals: torch.Tensor | None = None
 
     def animate(self, tables, time: float):
         rebuild_tables(tables, self, time)
@@ -275,11 +308,15 @@ def build_scene_tables(num_batches: int, indices, tri_mat, valid, verts,
 
 
 def rebuild_tables(tables, mesh: MeshPose, time: float):
-    """The rebuild stage of an animated frame: displace the rest mesh at
-    `time`, recompute its smooth normals, rebuild the two-level LBVH and
-    write the frame's binary tables into `tables` in place."""
-    verts = displace_wave(mesh.vertices, time)
-    nrm = compute_smooth_normals(verts, mesh.indices)
+    """The rebuild stage of a frame: displace the rest mesh at `time` and
+    recompute its smooth normals (a static pose, which holds its normals:
+    neither), rebuild the two-level LBVH and write the frame's binary
+    tables into `tables` in place."""
+    if mesh.normals is not None:
+        verts, nrm = mesh.vertices, mesh.normals
+    else:
+        verts = displace_wave(mesh.vertices, time)
+        nrm = compute_smooth_normals(verts, mesh.indices)
     write_tables_binary(tables, *build_scene_tables(
         mesh.valid.shape[0], mesh.indices, mesh.tri_mat, mesh.valid, verts,
         nrm))
@@ -374,11 +411,19 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
     row-sharded frame (module docstring; parallel/frame_spmd.py::
     make_spmd_frame_fn checks the configuration): the image, the state's
     history and the G-buffer are then its band's rows, and consts, if
-    given, the band's (make_frame_consts(..., band))."""
+    given, the band's (make_frame_consts(..., band)).  static.stop_after
+    other than "full" ends the frame at that cut and returns (outputs,
+    state) (module docstring)."""
     w, h = static.render_w, static.render_h
     dev = scene.tables.nodes.device
+    stop = static.stop_after
+    if stop != "full" and band is not None:
+        raise ValueError(f"stop_after={stop!r} with a band: the cut points "
+                         "time the whole frame")
     if rest is not None:
         rest.animate(scene.tables, state.time)
+    if stop == "bvh":
+        return (scene.tables,), state
     if consts is None:
         consts = make_frame_consts(static, dev, band)
     frame = state.frame_idx
@@ -410,6 +455,14 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
             scene.sky, o, d, state.time, ocean=flags.ocean,
             stars=flags.stars)
 
+    if stop == "steps":  # traced without ftex, as the JAX cut is
+        lead = tuple(rays.cone_width.shape)
+        steps = torch.empty((SEGMENTS + 1, rays.cone_width.numel()),
+                            dtype=torch.int32, device=rays.org.device)
+        trace_scene_mega(scene, rays, pixel_ids, frame,
+                         static.flags.procedural_textures, bn, overflow,
+                         stack_depth, steps=steps)
+        return (steps.reshape((SEGMENTS + 1,) + lead),), state
     if static.use_megakernel:
         gbuf: GBuffer = path_trace_mega(
             scene, rays, pixel_ids, frame, prev_basis, w / h,
@@ -448,6 +501,9 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
         albedo=nan_guard(full.albedo, "trace.albedo"),
         normal=nan_guard(full.normal, "trace.normal"),
         motion=nan_guard(full.motion, "trace.motion"))
+    if stop == "trace":
+        return (full.color, full.albedo, full.normal, full.depth,
+                full.mat_id, full.motion), state
 
     if static.flags.denoise:
         if state.history is None:
@@ -460,6 +516,8 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
     else:
         final = full.color * full.albedo
         new_history = state.history
+    if stop == "denoise":
+        return (final, new_history), state
 
     # sun screen position; visible where the depth at its pixel is sky
     # (read on the device: no host sync)

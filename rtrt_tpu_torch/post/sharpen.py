@@ -1,5 +1,5 @@
-"""3x3 sharpening with a clamp to the neighbourhood min/max (port of
-rtrt_tpu/post/sharpen.py::sharpen)."""
+"""3x3 sharpening with a clamp to the neighbourhood min/max, and a 9-tap
+median (port of rtrt_tpu/post/sharpen.py)."""
 
 from __future__ import annotations
 
@@ -26,3 +26,8 @@ def sharpen(img, amount):
     blur = taps.sum(0) / 9.0
     sharp = img + (img - blur) * (2.0 * amount)
     return torch.minimum(torch.maximum(sharp, taps.amin(0)), taps.amax(0))
+
+
+def median3(img):
+    """9-tap per-channel median of the edge-clamped 3x3 neighbourhood."""
+    return torch.sort(neighborhood3(img), dim=0).values[4]

@@ -15,9 +15,11 @@ and the 1e-3 ray offset along ng.
     function (csrc/traverse.cuh) for the tables' tree: the BVH4, the
     two-level LBVH or the flat binary SAH tree, each its own
     instantiation, and with a Fourier fit (`ftex=`) the instantiation
-    that shades from it; each is counted apart (`kernel_name`:
-    "megakernel_trace", "_binary", "_sah2", each with "_ftex"); for CPU
-    tensors it runs `megakernel_trace_plain`;
+    that shades from it, and with step planes (`steps=`) the
+    instantiation that counts each segment's traversal visits; each is
+    counted apart (`kernel_name`: "megakernel_trace", "_binary", "_sah2",
+    each with "_ftex" or "_steps"); for CPU tensors it runs
+    `megakernel_trace_plain`;
   * `megakernel_trace_plain` is the torch twin of the JAX
     `simulate_megakernel`, on the port's traversal (bvh/packet.py);
   * `finish_gbuffer` is the deferred-environment / MIS / demodulation /
@@ -315,16 +317,17 @@ def megakernel_trace_plain(tables, mat_rows, light_rows, sun_vec, frame_idx,
                            org, dir, cone, pixel_ids, *, n_lights,
                            use_proctex=True, bn=None, overflow=None,
                            stack_depth=None, visits=None,
-                           hits=None, ftex=None) -> MegaOut:
+                           hits=None, ftex=None, steps=None) -> MegaOut:
     """Torch twin of the JAX simulate_megakernel on the port's traversal.
     The work this run's data needs, for a kernel's bound: visits, optional
     [node visits, leaf visits] over all segments (as in
     bvh.packet.traverse_plain); hits, optional [shaded, textured, sampled]
     counts: hits that reach the surface interaction (normals, material),
     those that evaluate the procedural soil or the Fourier fit, those that
-    sample the BSDF and the lights (not emissive).  stack_depth as in
-    megakernel_trace; ftex: the FourierTextures fit itself (an FtexTable's
-    `fit`), or None."""
+    sample the BSDF and the lights (not emissive).  stack_depth and steps as
+    in megakernel_trace (steps: each ray's node + leaf visits of each
+    segment, as bvh.packet.traverse_plain counts them); ftex: the
+    FourierTextures fit itself (an FtexTable's `fit`), or None."""
     lead = org.shape[:-1]
     if overflow is None:
         overflow = overflow_counter(org.device)
@@ -350,12 +353,19 @@ def megakernel_trace_plain(tables, mat_rows, light_rows, sun_vec, frame_idx,
         fh = st.is_shadow & ~st.done
         ro = torch.stack(list(st.org), dim=1)
         rd = torch.stack(list(st.dir), dim=1)
+        seg_steps = None if steps is None else torch.zeros_like(
+            cone_f, dtype=torch.int64)
         t, tri, u, v = traverse_plain(tables, ro, rd, t_cap, fh, overflow,
-                                      visits, depth=stack_depth)
+                                      visits, steps=seg_steps,
+                                      depth=stack_depth)
+        if steps is not None:
+            steps[seg + 1] = seg_steps.to(steps.dtype)
         h = _resolve(tables, t, tri, u, v)
         hit = (h.t, h.tri, h.mat, V3(*h.ns.unbind(1)), V3(*h.ng.unbind(1)))
         st = shade_segment(st, hit, ctx, seg, is_last=(seg == SEGMENTS - 1))
 
+    if steps is not None:
+        steps[0] = steps[1:].sum(0)
     s3 = lambda v: torch.stack(list(v), dim=-1).reshape(lead + (3,))
     s1 = lambda x: x.reshape(lead)
     return MegaOut(
@@ -368,7 +378,7 @@ def megakernel_trace_plain(tables, mat_rows, light_rows, sun_vec, frame_idx,
 def megakernel_trace(tables, mat_rows, light_rows, sun_vec, frame_idx, org,
                      dir, cone, pixel_ids, *, n_lights, use_proctex=True,
                      bn=None, overflow=None, stack_depth=None,
-                     out=None, ftex=None) -> MegaOut:
+                     out=None, ftex=None, steps=None) -> MegaOut:
     """Trace full paths for image-shaped (..., 3) primary rays.  CPU tensors
     run the plain version; CUDA tensors launch K2 (csrc/megakernel.cu).
 
@@ -382,13 +392,21 @@ def megakernel_trace(tables, mat_rows, light_rows, sun_vec, frame_idx, org,
     planes are views of it); ftex: an FtexTable (render/ftex.py::
     upload_ftex, its table on the rays' device) whose fit shades the
     textured materials in place of the procedural soil (whatever
-    use_proctex says), or None."""
+    use_proctex says), or None; steps: an optional (SEGMENTS + 1, N) int32
+    tensor (N the rays) that receives the traversal-step planes: row 1 + s
+    each ray's node + leaf visits in segment s (0 where its path ended
+    before it), row 0 their sum (K2's step instantiation; not with ftex).
+    A count is per path: the JAX kernel's (debug_steps) is uniform over a
+    32x128 ray tile, whose lanes share one traversal stack."""
+    if steps is not None and ftex is not None:
+        raise ValueError("megakernel_trace: steps= takes no Fourier fit "
+                         "(the JAX frame's steps cut traces without one)")
     if org.device.type == "cpu":
         return megakernel_trace_plain(
             tables, mat_rows, light_rows, sun_vec, frame_idx, org, dir, cone,
             pixel_ids, n_lights=n_lights, use_proctex=use_proctex, bn=bn,
             overflow=overflow, stack_depth=stack_depth,
-            ftex=None if ftex is None else ftex.fit)
+            ftex=None if ftex is None else ftex.fit, steps=steps)
     dev = org.device
     lead = tuple(org.shape[:-1])
     n = math.prod(lead)
@@ -412,13 +430,16 @@ def megakernel_trace(tables, mat_rows, light_rows, sun_vec, frame_idx, org,
     if out is None:
         out = torch.empty((18, n), dtype=torch.float32, device=dev)
     specs["out"] = (out, torch.float32, (18, n))
+    if steps is not None:
+        specs["steps"] = (steps, torch.int32, (SEGMENTS + 1, n))
     cuda.check_tensors(dev, **specs)
     _check_tables(tables, dev)
     work = torch.empty(1, dtype=torch.int32, device=dev)  # zeroed by K2
     cuda.launch(
         cuda.library().rtrt_megakernel,
         kernel_name("megakernel_trace", tables)
-        + ("" if ftex is None else "_ftex"), dev,
+        + ("" if ftex is None else "_ftex")
+        + ("" if steps is None else "_steps"), dev,
         tables.nodes, tables.tris, tables.nrm, tables.ng, tables.mat,
         mat_rows, ctypes.c_int(mat_rows.shape[0]), light_rows,
         ctypes.c_int(n_lights), sun_vec,
@@ -431,6 +452,7 @@ def megakernel_trace(tables, mat_rows, light_rows, sun_vec, frame_idx, org,
         stack_depth if stack_depth is not None else ctypes.c_void_p(0), work,
         ctypes.c_int(lead[-1] if len(lead) > 1 else n),
         ftex.table if ftex is not None else ctypes.c_void_p(0),
+        steps if steps is not None else ctypes.c_void_p(0),
         *layout_args(tables))
     p = out.reshape((18,) + lead)
     s3 = lambda k: p[k:k + 3].movedim(0, -1)
@@ -460,22 +482,32 @@ def finish_gbuffer(sky, rays, out: MegaOut, prev_basis, aspect,
                    depth=out.depth, motion=mv, mat_id=out.mat_id)
 
 
+def trace_scene_mega(scene, rays, pixel_ids, frame_idx,
+                     use_proctex: bool = True, bn=None, overflow=None,
+                     stack_depth=None, ftex=None, steps=None) -> MegaOut:
+    """megakernel_trace of image-shaped rays over a SceneData: its
+    materials, lights and sun packed into K2's rows.  steps as in
+    megakernel_trace, (SEGMENTS + 1, N) for the N rays (the frame's steps
+    cut)."""
+    dev = rays.org.device
+    n_lights = 0 if scene.lights is None else scene.lights.center.shape[0]
+    return megakernel_trace(
+        scene.tables, pack_materials_rows(scene.materials).to(dev),
+        pack_light_rows(scene.lights, dev), pack_sun_params(scene.sky),
+        frame_idx, rays.org.contiguous(), rays.dir.contiguous(),
+        rays.cone_width.contiguous(), pixel_ids.to(torch.int32).contiguous(),
+        n_lights=n_lights, use_proctex=use_proctex,
+        bn=None if bn is None else bn.contiguous(), overflow=overflow,
+        stack_depth=stack_depth, ftex=ftex, steps=steps)
+
+
 def path_trace_mega(scene, rays, pixel_ids, frame_idx, prev_basis, aspect,
                     use_proctex: bool = True, bn=None, overflow=None,
                     stack_depth=None, env_fn=None, ftex=None) -> GBuffer:
     """Path-trace image-shaped rays through the megakernel and finish the
     G-buffer.  scene: render.integrator.SceneData; env_fn as in
     finish_gbuffer; ftex as in megakernel_trace."""
-    dev = rays.org.device
-    mat_rows = pack_materials_rows(scene.materials).to(dev)
-    light_rows = pack_light_rows(scene.lights, dev)
-    n_lights = 0 if scene.lights is None else scene.lights.center.shape[0]
-    out = megakernel_trace(
-        scene.tables, mat_rows, light_rows, pack_sun_params(scene.sky),
-        frame_idx, rays.org.contiguous(), rays.dir.contiguous(),
-        rays.cone_width.contiguous(), pixel_ids.to(torch.int32).contiguous(),
-        n_lights=n_lights, use_proctex=use_proctex,
-        bn=None if bn is None else bn.contiguous(), overflow=overflow,
-        stack_depth=stack_depth, ftex=ftex)
+    out = trace_scene_mega(scene, rays, pixel_ids, frame_idx, use_proctex,
+                           bn, overflow, stack_depth, ftex)
     return finish_gbuffer(scene.sky, rays, out, prev_basis, aspect,
                           env_fn=env_fn)

@@ -123,6 +123,18 @@ def sobol_owen_pair(index, seed):
     return _to_unit_float(x), _to_unit_float(y)
 
 
+def sobol_owen_2d(index, seed):
+    """One decorrelated 2D low-discrepancy point per element: uint32 sample
+    index and per-(pixel, dimension-pair) seed (integer tensors or ints,
+    broadcast) -> (..., 2) float32 in [0, 1)."""
+    u, v = sobol_owen_pair(u32(index), u32(seed))
+    dev = next((x.device for x in (u, v) if torch.is_tensor(x)), None)
+    u, v = torch.broadcast_tensors(
+        *(torch.as_tensor(x, dtype=torch.float32, device=dev)
+          for x in (u, v)))
+    return torch.stack([u, v], dim=-1)
+
+
 def rand2(pixel_id, frame, dim_pair):
     """(..., 2) LD floats for integer pixel ids, frame and dim pair."""
     u, v = sobol_owen_pair(u32(frame), pixel_seed(u32(pixel_id),

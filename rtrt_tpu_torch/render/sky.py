@@ -521,6 +521,12 @@ def env_radiance_fit(maps: SkyMaps, d):
     return torch.clamp(out, min=0.0) + sun_disk_radiance(maps, d)
 
 
+def env_radiance_analytic(maps: SkyMaps, d):
+    """Escaped-ray radiance evaluated analytically: the atmosphere's
+    raymarch plus the sun disk, no map lookups (the model the maps bake)."""
+    return atmosphere_radiance(d, maps.params) + sun_disk_radiance(maps, d)
+
+
 def sun_disk_radiance(maps: SkyMaps, d):
     """Analytic limb-darkened sun disk radiance along dirs (..., 3)."""
     cos_g = dot(d, maps.sun_dir.expand(d.shape))

@@ -38,6 +38,9 @@ launch_counts = {"packet_intersect": 0, "megakernel_trace": 0,
                  "megakernel_trace_ftex": 0,
                  "megakernel_trace_binary_ftex": 0,
                  "megakernel_trace_sah2_ftex": 0,
+                 "megakernel_trace_steps": 0,
+                 "megakernel_trace_binary_steps": 0,
+                 "megakernel_trace_sah2_steps": 0,
                  "post_tail": 0, "post_tail_mapped": 0, "denoise_wide": 0,
                  "reproject": 0, "reproject_bilinear": 0,
                  "reproject_band": 0, "reproject_bilinear_band": 0,
@@ -59,7 +62,8 @@ _SIGNATURES = {
     + [_I] * 4 + [_P],
     "rtrt_traverse_stack": [ctypes.POINTER(_I), _I, _I, _I],
     "rtrt_megakernel": [_P] * 6 + [_I, _P, _I, _P] + [_F] * 4 + [_U]
-    + [_P] * 5 + [_I, _I, _I] + [_P] * 4 + [_I, _P] + [_I] * 4 + [_P],
+    + [_P] * 5 + [_I, _I, _I] + [_P] * 4 + [_I, _P, _P] + [_I] * 4
+    + [_P],
     "rtrt_post_tail": [_P, _I, _I, _P, _P, _I, _I, _I, _P] + [_P],
     "rtrt_denoise_wide": [_P] * 4 + [_I, _I, _P] + [_I] * 4 + [_F] * 3
     + [_P] + [_P],

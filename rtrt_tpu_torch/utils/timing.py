@@ -137,6 +137,15 @@ def bound_ms(nbytes: float, ops: float, share: float = 1.0,
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def device_line(device) -> str:
+    """The line a tool prints first: on the card its name and power limit
+    (`card()`, which raises without a card), on the CPU a note that its
+    numbers are not device numbers."""
+    if str(device) == "cpu":
+        return "the CPU (plain versions): host numbers, not device numbers"
+    return card()
+
+
 def card() -> str:
     """The first card's name and power limit, as `nvidia-smi
     --query-gpu=name,power.limit --format=csv,noheader` prints them.

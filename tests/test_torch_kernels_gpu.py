@@ -109,6 +109,9 @@ Tolerances:
     flat tree, the BVH4 and the LBVH at K2's bounds; a leaf width or stack
     without an instantiation refused by the C entries, a fit that is not
     in cos / sin pairs by K2's wrapper.
+  * K2's step instantiation (kSteps, the demo view above): its G-buffer
+    bit-equal to the default instantiation's, its step planes equal to
+    the plain version's on >= 99.9% of pixels.
 """
 
 import numpy as np
@@ -220,6 +223,49 @@ def test_megakernel_matches_plain(engine, cuda_device, use_bn):
     torch.testing.assert_close(got.radiance.mean((0, 1)),
                                ref.radiance.mean((0, 1)), rtol=1e-2,
                                atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_megakernel_steps_matches_plain(engine, cuda_device):
+    """K2's step instantiation (kSteps): its G-buffer planes bit-equal to
+    the default instantiation's on the same rays, its (SEGMENTS + 1, N)
+    step planes equal to the plain version's on >= 99.9% of pixels (a
+    path that branches apart at the bounds above counts other visits), the
+    segments summing to the total, 0 after a path ends."""
+    sc, consts = engine.scene_data, engine.consts
+    rw, rh = engine.render_w, engine.render_h
+    pix = consts.pixel_ids
+    rays = generate_rays_padded(camera_basis(engine.camera), rw, rh, pix,
+                                rand2_bn(consts.bn, 3, 0),
+                                rand2_bn(consts.bn, 3, 256))
+    args = (sc.tables, pack_materials_rows(sc.materials).to(cuda_device),
+            M.pack_light_rows(sc.lights, cuda_device),
+            M.pack_sun_params(sc.sky), 3, rays.org, rays.dir,
+            rays.cone_width, pix)
+    n = rw * rh
+    out_a, out_b = (torch.full((18, n), float("nan"), device=cuda_device)
+                    for _ in range(2))
+    steps = torch.full((M.SEGMENTS + 1, n), -1, dtype=torch.int32,
+                       device=cuda_device)
+    plain = torch.zeros((M.SEGMENTS + 1, n), dtype=torch.int32,
+                        device=cuda_device)
+    cuda.reset_launch_counts()
+    M.megakernel_trace(*args, n_lights=1, bn=consts.bn, out=out_a)
+    M.megakernel_trace(*args, n_lights=1, bn=consts.bn, out=out_b,
+                       steps=steps)
+    M.megakernel_trace_plain(*args, n_lights=1, bn=consts.bn, steps=plain)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["megakernel_trace_steps"] == 1
+    assert cuda.launch_counts["megakernel_trace"] == 1
+    assert torch.equal(out_a, out_b)
+    assert (steps >= 0).all()
+    assert torch.equal(steps[1:].sum(0), steps[0])
+    assert (steps[1] > 0).float().mean() > 0.3  # primaries traverse
+    same = (steps == plain).all(0)
+    assert same.float().mean() >= 0.999
+    with pytest.raises(ValueError, match="Fourier"):
+        M.megakernel_trace(*args, n_lights=1, bn=consts.bn, steps=steps,
+                           ftex=object())
 
 
 @pytest.mark.gpu
