@@ -39,16 +39,21 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      checks;
   7. the traversal-step probes (rtrt_tpu_torch/tools): K6 ubench_step,
      K7 probe_leaf, K8 probe_cores and K9 its 8-tile grid, each against
-     its plain version on the card in every mode, at the tools' default
-     rows and a cut step count, on the tools' own inputs and (K7-K9) on
-     rays that hit every record; K1 under step caps 2, 4, 8, 16 against
+     its plain version on the card in every mode, on the tools' own
+     inputs and (K7-K9) on rays that hit every record: K6 at rows 8, 24,
+     64 (clusters of 1, 2, 4 blocks) and steps 1 and PROBE_CUT, and at 64
+     rows 1025 steps (the record index wraps at 1024), K7 at rows 8, 16,
+     32 and steps 1 and PROBE_CUT, and at 32 rows 129 steps (the stack
+     wraps at 128; tests/test_torch_kernels_gpu.py runs every row count
+     across the wraps), K8-K9 at the tools' default rows and PROBE_CUT;
+     K1 under step caps 2, 4, 8, 16 against
      the plain traversal under the same cap on every 16th 1080p primary
      (0 dropped pushes);
      then, with the launch counters reset, the tools' entry points at
      their full default steps and reps (ubench_step, probe_leaf,
      probe_cores, probe_traverse; every mode timed, ns/step beside its
      floor and the card), and every probe kernel and K1's launcher must
-     read launches;
+     read launches; each bound with the share of the SMs it fills;
   8. the hardware probes (rtrt_tpu_torch/tools): K10 probe_cond, K11 /
      K12 probe_smem, K13 probe_pressure, K14 probe_broadcast, K15
      probe_xpose, K16 probe_bf16, every mode against its plain version on
@@ -304,6 +309,8 @@ def ftex_ops(atoms):
 # rates are the H100 SXM data sheet's at 700 W)
 CAPS = (2, 4, 8, 16)  # K1 step caps of phase 7 (probe_traverse's)
 PROBE_CUT = 40  # steps of phase 7's kernel-vs-plain checks
+K6_ROWS = (8, 24, 64)  # K6's clusters of 1, 2 and 4 blocks
+K7_ROWS = (8, 16, 32)
 
 
 def _table_bytes(tables):
@@ -2931,7 +2938,7 @@ def _probes(card, tables, org, dirs):
     from rtrt_tpu_torch.tools import probe_traverse as PT
     from rtrt_tpu_torch.tools import ubench_step as U
     from rtrt_tpu_torch.utils import cuda
-    from rtrt_tpu_torch.utils.timing import time_ms
+    from rtrt_tpu_torch.utils.timing import SMS, time_ms
 
     dev = "cuda"
     t0 = time.perf_counter()
@@ -2946,20 +2953,28 @@ def _probes(card, tables, org, dirs):
         err[key] = max(err[key], e.max().item())
         assert bad == 0, f"{key} {label}: {bad} values beyond rtol {rtol}"
 
-    # 7a. every mode of each probe kernel against its plain version, at
-    # the tools' default rows and a cut step count
-    tab, ox = U.tool_inputs(64, dev)
-    for m in U.MODES:
-        same("K6", m, U.step_probe(m, tab, ox, PROBE_CUT),
-             U.step_probe_plain(m, tab, ox, PROBE_CUT),
-             0.0 if m in ("loop", "fetch") else 2.0 ** -20)
+    # 7a. every mode of each probe kernel against its plain version: K6 on
+    # clusters of 1, 2 and 4 blocks, K7 on 8 to 32 rows, each across the
+    # wrap of its record index or stack at the tools' default rows (the
+    # plain versions' long runs set phase 7's time); K8-K9 at the tools'
+    # default rows
+    for rows in K6_ROWS:
+        tab, ox = U.tool_inputs(rows, dev)
+        for steps in (1, PROBE_CUT) + ((1025,) if rows == 64 else ()):
+            for m in U.MODES:
+                same("K6", f"{m} rows {rows} steps {steps}",
+                     U.step_probe(m, tab, ox, steps),
+                     U.step_probe_plain(m, tab, ox, steps),
+                     0.0 if m in ("loop", "fetch") else 2.0 ** -20)
     for recipe in ("tool", "hit"):
         make = PL.tool_inputs if recipe == "tool" else PL.hit_inputs
-        tab, planes = make(32, dev)
-        for m in PL.MODES:
-            same("K7", f"{recipe} {m}",
-                 PL.leaf_probe(m, tab, planes, PROBE_CUT),
-                 PL.leaf_probe_plain(m, tab, planes, PROBE_CUT))
+        for rows in K7_ROWS:
+            tab, planes = make(rows, dev)
+            for steps in (1, PROBE_CUT) + ((129,) if rows == 32 else ()):
+                for m in PL.MODES:
+                    same("K7", f"{recipe} {m} rows {rows} steps {steps}",
+                         PL.leaf_probe(m, tab, planes, steps),
+                         PL.leaf_probe_plain(m, tab, planes, steps))
         make = PC.tool_inputs if recipe == "tool" else PC.hit_inputs
         ntab, ttab, planes = make(32, device=dev)
         p1 = planes[:, 0].contiguous()
@@ -2974,10 +2989,13 @@ def _probes(card, tables, org, dirs):
                                       PC.cores_probe_grid_plain))
         same("K9", recipe, g, r)
         assert torch.equal(gv, rv), f"K9 {recipe}: visits differ"
-    print(f"K6-K9 vs plain on the card, every mode, the tools' rows, "
-          f"{PROBE_CUT} steps (K9 8 tiles, {PROBE_CUT // 2}), the tools' "
-          f"inputs and (K7-K9) rays that hit every record: max abs err "
-          f"{err}")
+    print(f"K6-K9 vs plain on the card, every mode: K6 rows {K6_ROWS} "
+          f"(clusters {[U.launch_geometry(r)[0] for r in K6_ROWS]}) x steps "
+          f"1, {PROBE_CUT}, and 1025 at 64 rows; K7 rows {K7_ROWS} x steps "
+          f"1, {PROBE_CUT}, and 129 at 32 rows; K8 32 rows, {PROBE_CUT} "
+          f"steps (K9 8 tiles, "
+          f"{PROBE_CUT // 2}); the tools' inputs and (K7-K9) rays that hit "
+          f"every record: max abs err {err}")
 
     # 7b. K1 under step caps against the plain traversal under the same cap
     o, d = org[::16].contiguous(), dirs[::16].contiguous()
@@ -3036,9 +3054,19 @@ def _probes(card, tables, org, dirs):
     k9_plain = time_ms(lambda: PC.cores_probe_grid_plain("both", *big, 200),
                        1, 0)
     k9_bound = PC.bound(*big, PC.cores_probe_grid("both", *big, 200)[1])
+    k6_bound, k7_bound = U.bound("cond12", 64, 4000), PL.bound("full", 32,
+                                                                400)
+    c6 = U.launch_geometry(64)[0]
     print(f"plain versions at the defaults: K6 cond12 {k6_plain:.1f} ms, K7 "
           f"full {k7_plain:.1f} ms, K8 both {k8_plain:.1f} ms, K9 both "
           f"{k9_plain:.1f} ms; phase 7 took {time.perf_counter() - t0:.1f} s "
+          f"{card}")
+    print(f"bounds at the defaults: K6 cond12 {k6_bound[0]:.4f} ms "
+          f"({k6_bound[1]}, {c6} of {SMS} SMs: its cluster), "
+          f"{res6['cond12']['ns'] * 4000 / 1e6 / k6_bound[0]:.2f}x; K7 full "
+          f"{k7_bound[0]:.4f} ms ({k7_bound[1]}, 1 of {SMS} SMs), "
+          f"{res7['full']['ns'] * 400 / 1e6 / k7_bound[0]:.2f}x; K8 both "
+          f"{k8_bound[0]:.4f} ms (1 SM); K9 both {k9_bound[0]:.4f} ms (8 SMs) "
           f"{card}")
 
     def entry(name, source, replaces, key, count, ms, plain, bound):
@@ -3049,16 +3077,15 @@ def _probes(card, tables, org, dirs):
                     bound_ms=bound[0], bound_by=bound[1], library_ms=None)
 
     entries = [
-        entry("K6 ubench_step (traversal-step microbenchmark, one block per "
-              "64x128 tile; ms per launch in mode cond12, 4000 steps)",
-              "probe_step.cu", "tools/ubench_step.py:152", "K6", "probe_step",
-              res6["cond12"]["ns"] * 4000 / 1e6, k6_plain,
-              U.bound("cond12", 64, 4000)),
+        entry(f"K6 ubench_step (traversal-step microbenchmark, one cluster "
+              f"of {c6} blocks per 64x128 tile; ms per launch in mode "
+              f"cond12, 4000 steps)", "probe_step.cu",
+              "tools/ubench_step.py:152", "K6", "probe_step",
+              res6["cond12"]["ns"] * 4000 / 1e6, k6_plain, k6_bound),
         entry("K7 probe_leaf (leaf-visit replica, one block per 32x128 tile; "
               "ms per launch in mode full, 400 steps)", "probe_leaf.cu",
               "tools/probe_leaf.py:179", "K7", "probe_leaf",
-              res7["full"]["ns"] * 400 / 1e6, k7_plain,
-              PL.bound("full", 32, 400)),
+              res7["full"]["ns"] * 400 / 1e6, k7_plain, k7_bound),
         entry("K8 probe_cores (full traversal step, one 32x128 tile; ms per "
               "launch in mode both, 400 steps)", "probe_cores.cu",
               "tools/probe_cores.py:218", "K8", "probe_cores",

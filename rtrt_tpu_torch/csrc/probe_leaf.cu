@@ -21,13 +21,24 @@
 // out = best + bound.
 //
 // What bounds it on the H100: float issue of 8 x ~60 operations per lane
-// per visit on the one SM that runs the tile, plus the barriers of one
-// tile-wide max; the record row is a uniform load that hits L1.
+// per visit (__fmul_rn keeps every product out of an FMA: at most half the
+// card's float32 rate, which counts an FMA as two) on the one SM that runs
+// the tile, plus the barrier of one tile-wide max; the record row is read
+// by every thread (an L1 hit).
 //
 // Design: 4 lanes per thread, rows * 32 threads (1024 at the default 32
-// rows); the stack lives in shared memory; bound is the same in every
-// thread after the reduction, so every branch on it is uniform.
-#include "probe_common.cuh"
+// rows), so a thread holds 4 x 8 words of state and the record in its 64
+// registers; the stack lives in shared memory; bound is the same in every
+// thread after the reduction, so every branch on it is uniform.  A record
+// (9 floats at a 16-float stride, 64-byte aligned) is two 16-byte loads
+// and one scalar load from global memory (L1).  Staging the next visit's
+// row in shared memory a step ahead (cp.async into a double-buffered row a
+// warp, no block barrier added) measured 5% slower than these loads in
+// mode full (NVIDIA H100 80GB HBM3, 700 W; PERF.md, K7), so the kernel
+// does not stage.  The tile-wide max is probe_tile.cuh's
+// one-barrier reduction.  The step loop is not unrolled, so its SASS is one
+// step.
+#include "probe_tile.cuh"
 
 namespace {
 
@@ -40,14 +51,24 @@ struct Ray {
   float ox, oy, oz, dx, dy, dz;
 };
 
-// the 8-record visit of row `base`: best per lane, bound (tile max)
+// record rec of a row: two 16-byte loads and one scalar
+__device__ __forceinline__ void record(const float* __restrict__ row,
+                                       int rec, float (&v)[9]) {
+  const float* p = row + 16 * rec;
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p + 4));
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+  v[8] = __ldg(p + 8);
+}
+
+// the 8-record visit of `row`: best per lane, bound (tile max)
 template <int kMode>
-__device__ __forceinline__ void leaf_visit(const float* __restrict__ tab,
-                                           int base, const Ray (&r)[L],
+__device__ __forceinline__ void leaf_visit(const float* __restrict__ row,
+                                           const Ray (&r)[L],
                                            float (&best)[L], float& bound,
-                                           float* red) {
+                                           probe::TileRed& red) {
   constexpr int NREC = kMode == REC2 ? 2 : 8;
-  const float* row = tab + base * 128;
   float gt[L];
 #pragma unroll
   for (int j = 0; j < L; ++j) gt[j] = CUDART_INF_F;
@@ -60,8 +81,7 @@ __device__ __forceinline__ void leaf_visit(const float* __restrict__ tab,
 #pragma unroll
       for (int c = 0; c < 9; ++c) v[c] = lit[c];
     } else {
-#pragma unroll
-      for (int c = 0; c < 9; ++c) v[c] = __ldg(row + 16 * rec + c);
+      record(row, rec, v);
     }
 #pragma unroll
     for (int j = 0; j < L; ++j) {
@@ -87,7 +107,7 @@ __device__ __forceinline__ void leaf_visit(const float* __restrict__ tab,
     m[0] = fmaxf(m[0], best[j]);
   }
   if constexpr (kMode != NORED) {
-    probe::block_reduce<1, true>(m, red);
+    probe::tile_reduce<1, true, false>(m, red);
     bound = m[0];
   }
 }
@@ -98,7 +118,7 @@ __device__ __forceinline__ void leaf_visit(const float* __restrict__ tab,
 __device__ __forceinline__ void slab_like(const float* __restrict__ tab,
                                           const Ray (&r)[L],
                                           const float (&best)[L],
-                                          float& bound, float* red) {
+                                          float& bound, probe::TileRed& red) {
   float m[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
@@ -117,7 +137,7 @@ __device__ __forceinline__ void slab_like(const float* __restrict__ tab,
       if (tn <= tf && tn < best[j]) m[c] = fminf(m[c], tn);
     }
   }
-  probe::block_reduce<4, false>(m, red);
+  probe::tile_reduce<4, false, false>(m, red);
   bound = fminf(bound, m[0] + m[1] + m[2] + m[3]);
 }
 
@@ -127,7 +147,7 @@ __global__ void __launch_bounds__(1024)
                 const float* __restrict__ planes, float* __restrict__ out,
                 int steps) {
   __shared__ int stack[128];
-  __shared__ float red[probe::RED_FLOATS];
+  __shared__ float slots[probe::TILE_RED_FLOATS];
   const int n = blockDim.x, lanes = n * L;
   for (int i = threadIdx.x; i < 128; i += n) stack[i] = (i * 7) % 120;
   __syncthreads();
@@ -140,15 +160,18 @@ __global__ void __launch_bounds__(1024)
                p[5 * lanes]};
     best[j] = 1e9f;
   }
+  probe::TileRed red{slots, nullptr, 0};
   float bound = 1e9f;
+#pragma unroll 1
   for (int k = 0; k < steps; ++k) {
     // dep: the index depends on the previous visit's tile-wide max (a
     // truncating cast of |bound|, as jnp.int32)
     const int base =
         kMode == DEP ? stack[(k + static_cast<int>(fabsf(bound)) % 7) % 128]
                      : stack[k % 128];
+    const float* row = tab + base * 128;
     if constexpr (kMode == NOCOND) {
-      leaf_visit<kMode>(tab, base, r, best, bound, red);
+      leaf_visit<kMode>(row, r, best, bound, red);
     } else if constexpr (kMode == FAT || kMode == CARRY4) {
       // carry4's three planes (best x 1.01, 1.02, 1.03) pass through the
       // branches and are dropped after them: they are dead in the function,
@@ -158,11 +181,11 @@ __global__ void __launch_bounds__(1024)
         if (base >= 120)
           slab_like(tab, r, best, bound, red);
         else
-          leaf_visit<kMode>(tab, base, r, best, bound, red);
+          leaf_visit<kMode>(row, r, best, bound, red);
       }
     } else {
       if (bound > -1e30f && base >= 0)
-        leaf_visit<kMode>(tab, base, r, best, bound, red);
+        leaf_visit<kMode>(row, r, best, bound, red);
     }
   }
 #pragma unroll

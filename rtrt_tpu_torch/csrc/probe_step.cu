@@ -1,4 +1,5 @@
-// K6: the traversal-step microbenchmark, one thread block per ray tile.
+// K6: the traversal-step microbenchmark, one thread-block cluster per ray
+// tile.
 //
 // Replaces: tools/ubench_step.py::make_kernel (pallas_call at
 // ubench_step.py:152).  Nine stripped-down while loops over a (rows, 128)
@@ -19,20 +20,33 @@
 // reach out, and without a store ptxas would delete them (and all their
 // per-step work), as the first JAX version lost its work to XLA.
 //
-// What bounds it on the H100: one block runs on one SM, so a step costs
-// the issue time of rows * 128 lanes of float work on one SM's 128 lanes
-// (plus two barriers per tile-wide reduction); the record fetch is a
-// uniform load that hits L1.  The tile's carried state does not fit one
-// SM's 64 K registers at 64 rows (12 planes x 8192 lanes), so carry12
-// spills to local memory: that cost is what the mode measures.
+// What bounds it on the H100: the issue of rows * 128 lanes of float work
+// a step (sub, mul, min/max, compare, select; __fmul_rn keeps every product
+// out of an FMA, so the work issues at most at half the card's float32
+// rate, which counts an FMA as two) on the SMs that hold the tile, plus one
+// wait a tile-wide reduction.  The record is one 64-byte line that every
+// thread reads (an L1 hit).
 //
-// Design: 8 lanes per thread, rows * 16 threads (1024 at the default 64
-// rows).
-#include "probe_common.cuh"
+// Design: the tile is split over a thread-block cluster of c blocks, the
+// smallest c of 1, 2, 4 with rows <= 16 c (ubench_step.py::
+// launch_geometry, which passes c): block b takes rows / c rows, 4 lanes a
+// thread, 32 threads a row, at most 512 threads, so a thread may hold 128
+// registers and a 64-row tile keeps its rays, its 12 carried planes and
+// two records in registers on 4 SMs (the one-block port, 8 lanes a thread
+// in 64 registers, spilled in every mode with a slab test).  The record of step k is the 15
+// floats at tab + 16 (k & 1023) (16 (i % 8) + 14 <= 126: no wrap), 64-byte
+// aligned: four 16-byte loads, issued one step ahead.  Tile-wide minima go
+// through probe_tile.cuh: shuffles, then on a cluster one st.async into
+// every block's slots (distributed shared memory) that counts its bytes on
+// that block's mbarrier, and one wait on the own block's mbarrier (on a lone
+// block: a store and __syncthreads).  The step loop is not unrolled, so its
+// SASS is one step.
+#include "probe_tile.cuh"
 
 namespace {
 
-constexpr int L = 8;  // lanes per thread
+constexpr int L = 4;             // lanes per thread
+constexpr int MAX_THREADS = 512;  // 16 rows of 128 lanes at L = 4
 
 enum Mode { LOOP, FETCH, SLAB, EXTRACT2, REDUCE2, REDUCE4, CARRY4, CARRY12,
             COND12, NMODES };
@@ -40,6 +54,25 @@ enum Mode { LOOP, FETCH, SLAB, EXTRACT2, REDUCE2, REDUCE4, CARRY4, CARRY12,
 struct Lane {
   float ox, oy, oz, ix, iy, iz;
 };
+
+// the record of step k as four 16-byte loads
+__device__ __forceinline__ void fetch(const float* __restrict__ tab, int k,
+                                      float4 (&q)[4]) {
+  const float4* p = reinterpret_cast<const float4*>(tab + 16 * (k & 1023));
+#pragma unroll
+  for (int c = 0; c < 4; ++c) q[c] = __ldg(p + c);
+}
+
+__device__ __forceinline__ void unpack(const float4 (&q)[4],
+                                       float (&nf)[15]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    nf[4 * c] = q[c].x;
+    nf[4 * c + 1] = q[c].y;
+    nf[4 * c + 2] = q[c].z;
+    if (c < 3) nf[4 * c + 3] = q[c].w;
+  }
+}
 
 // slab test of the box nf[lo .. lo + 5] (lo xyz, hi xyz) against best 1e9
 __device__ __forceinline__ bool slab(const float (&nf)[15], int lo,
@@ -51,8 +84,8 @@ __device__ __forceinline__ bool slab(const float (&nf)[15], int lo,
 // ...; out = best + the first of them, state = the others
 template <int kMode>
 __device__ __forceinline__ void carry(const float* __restrict__ tab,
-                                      const Lane (&r)[L],
-                                      float* __restrict__ out,
+                                      const Lane (&r)[L], int first,
+                                      int lanes, float* __restrict__ out,
                                       float* __restrict__ state, int steps) {
   const int n = blockDim.x;
   constexpr int NC = kMode == CARRY4 ? 4 : 12;
@@ -63,12 +96,13 @@ __device__ __forceinline__ void carry(const float* __restrict__ tab,
 #pragma unroll
     for (int c = 0; c < NC - 1; ++c) rest[c][j] = static_cast<float>(c);
   }
+  float4 q[4];
+  fetch(tab, 0, q);
+#pragma unroll 1
   for (int k = 0; k < steps; ++k) {
-    const int i = k & 1023;
     float nf[15];
-#pragma unroll
-    for (int c = 0; c < 15; ++c)
-      nf[c] = __ldg(tab + (i >> 3) * 128 + ((c + 16 * (i & 7)) & 127));
+    unpack(q, nf);
+    fetch(tab, k + 1, q);
     if (kMode == COND12 && !(nf[0] < 1e30f)) continue;
 #pragma unroll
     for (int j = 0; j < L; ++j) {
@@ -83,24 +117,30 @@ __device__ __forceinline__ void carry(const float* __restrict__ tab,
   }
 #pragma unroll
   for (int j = 0; j < L; ++j) {
-    out[threadIdx.x + j * n] = best[j] + rest[0][j];
+    out[first + j * n] = best[j] + rest[0][j];
 #pragma unroll
     for (int c = 1; c < NC - 1; ++c)
-      state[(c - 1) * n * L + threadIdx.x + j * n] = rest[c][j];
+      state[(c - 1) * lanes + first + j * n] = rest[c][j];
   }
 }
 
-template <int kMode>
-__global__ void __launch_bounds__(1024)
+// kCluster: the tile-wide minima go over a cluster of more than one block
+// (reduce2 / reduce4 on more than 16 rows)
+template <int kMode, bool kCluster>
+__global__ void __launch_bounds__(MAX_THREADS)
     step_kernel(const float* __restrict__ tab, const float* __restrict__ ox_in,
                 float* __restrict__ out, float* __restrict__ state,
                 int steps) {
-  __shared__ float red[probe::RED_FLOATS];
-  const int n = blockDim.x;
+  __shared__ float slots[probe::TILE_RED_FLOATS];
+  __shared__ unsigned long long bars[2];
+  // the grid is one cluster: block b holds lanes [b n L, (b + 1) n L) of
+  // the tile, lane j of thread t at first + j n
+  const int n = blockDim.x, lanes = gridDim.x * n * L;
+  const int first = blockIdx.x * n * L + threadIdx.x;
   Lane r[L];
 #pragma unroll
   for (int j = 0; j < L; ++j) {
-    const float ox = ox_in[threadIdx.x + j * n];
+    const float ox = ox_in[first + j * n];
     r[j].ox = ox;
     r[j].oy = probe::mul(ox, 1.1f);
     r[j].oz = probe::mul(ox, 0.9f);
@@ -110,21 +150,24 @@ __global__ void __launch_bounds__(1024)
   }
 
   if constexpr (kMode <= REDUCE4) {
+    probe::TileRed red{slots, bars, 0};
+    if constexpr (kCluster) probe::tile_cluster_init(red);
     float acc[L];
 #pragma unroll
     for (int j = 0; j < L; ++j) acc[j] = 0.0f;
+    float4 q[4];
+    if constexpr (kMode != LOOP) fetch(tab, 0, q);
+#pragma unroll 1
     for (int k = 0; k < steps; ++k) {
       if constexpr (kMode == LOOP) {
 #pragma unroll
         for (int j = 0; j < L; ++j) acc[j] += 1.0f;
         continue;
       }
-      const int i = k & 1023;
       float nf[15];
-#pragma unroll
-      for (int c = 0; c < 15; ++c)
-        nf[c] = __ldg(tab + (i >> 3) * 128 + ((c + 16 * (i & 7)) & 127));
-      if (kMode == FETCH) {
+      unpack(q, nf);
+      fetch(tab, k + 1, q);
+      if constexpr (kMode == FETCH) {
 #pragma unroll
         for (int j = 0; j < L; ++j) acc[j] += nf[0];
         continue;
@@ -150,42 +193,66 @@ __global__ void __launch_bounds__(1024)
           m[3] = fminf(m[3], hr2 ? tr2 : CUDART_INF_F);
         }
       }
-      if (kMode == SLAB) {
+      if constexpr (kMode == SLAB) {
 #pragma unroll
         for (int j = 0; j < L; ++j) acc[j] += live[j];
-      } else if (kMode == EXTRACT2) {
+      } else if constexpr (kMode == EXTRACT2) {
 #pragma unroll
         for (int j = 0; j < L; ++j) acc[j] = acc[j] + live[j] + nf[0] + nf[6];
-      } else if (kMode == REDUCE2) {
-        float m2[2] = {m[0], m[1]};
-        probe::block_reduce<2, false>(m2, red);
-        const float w = m2[0] < m2[1] ? 1.0f : 2.0f;
-#pragma unroll
-        for (int j = 0; j < L; ++j) acc[j] = acc[j] + live[j] + w;
       } else {
-        probe::block_reduce<4, false>(m, red);
-        const float w1 = m[0] < m[1] ? 1.0f : 2.0f;
-        const float w2 = m[2] < m[3] ? 1.0f : 2.0f;
+        // acc + live needs no minimum: it runs between send and wait
+        constexpr int N = kMode == REDUCE2 ? 2 : 4;
+        float mn[N];
 #pragma unroll
-        for (int j = 0; j < L; ++j) acc[j] = acc[j] + live[j] + w1 + w2;
+        for (int i = 0; i < N; ++i) mn[i] = m[i];
+        probe::tile_post<N, false, kCluster>(mn, red);
+#pragma unroll
+        for (int j = 0; j < L; ++j) acc[j] = acc[j] + live[j];
+        probe::tile_take<N, false, kCluster>(mn, red);
+        const float w1 = mn[0] < mn[1] ? 1.0f : 2.0f;
+#pragma unroll
+        for (int j = 0; j < L; ++j) acc[j] = acc[j] + w1;
+        if constexpr (kMode == REDUCE4) {
+          const float w2 = mn[N - 2] < mn[N - 1] ? 1.0f : 2.0f;
+#pragma unroll
+          for (int j = 0; j < L; ++j) acc[j] = acc[j] + w2;
+        }
       }
     }
 #pragma unroll
-    for (int j = 0; j < L; ++j) out[threadIdx.x + j * n] = r[j].ox + acc[j];
+    for (int j = 0; j < L; ++j) out[first + j * n] = r[j].ox + acc[j];
   } else {
-    carry<kMode>(tab, r, out, state, steps);
+    carry<kMode>(tab, r, first, lanes, out, state, steps);
   }
 }
 
+// one cluster of `cluster` blocks of rows / cluster * 32 threads
 template <int kMode>
 cudaError_t launch(const float* tab, const float* ox, float* out,
-                   float* state, int rows, int steps, cudaStream_t s) {
-  step_kernel<kMode><<<1, rows * 128 / L, 0, s>>>(tab, ox, out, state, steps);
-  return cudaGetLastError();
+                   float* state, int rows, int cluster, int steps,
+                   cudaStream_t s) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(rows / cluster * 128 / L);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  auto kernel = step_kernel<kMode, false>;
+  if constexpr (kMode == REDUCE2 || kMode == REDUCE4)
+    if (cluster > 1) kernel = step_kernel<kMode, true>;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, kernel, tab, ox, out, state, steps);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 using Launcher = cudaError_t (*)(const float*, const float*, float*, float*,
-                                 int, int, cudaStream_t);
+                                 int, int, int, cudaStream_t);
 constexpr Launcher kLaunch[NMODES] = {
     launch<LOOP>,    launch<FETCH>,  launch<SLAB>,
     launch<EXTRACT2>, launch<REDUCE2>, launch<REDUCE4>,
@@ -194,12 +261,17 @@ constexpr Launcher kLaunch[NMODES] = {
 }  // namespace
 
 // mode: index into rtrt_tpu_torch/tools/ubench_step.py::MODES; rows: a
-// multiple of 8 up to 64 (the wrapper checks); state: (10, rows, 128)
-// scratch of the carry modes (unused otherwise)
+// multiple of 8 up to 64; cluster: 1, 2 or 4 blocks, each of rows /
+// cluster rows (at most 16: ubench_step.py::launch_geometry); state: (10,
+// rows, 128) scratch of the carry modes (unused otherwise)
 extern "C" int rtrt_probe_step(int mode, const float* tab, const float* ox,
-                               float* out, float* state, int rows, int steps,
-                               void* stream) {
+                               float* out, float* state, int rows,
+                               int cluster, int steps, void* stream) {
   if (mode < 0 || mode >= NMODES) return cudaErrorInvalidValue;
-  return static_cast<int>(kLaunch[mode](tab, ox, out, state, rows, steps,
+  if ((cluster != 1 && cluster != 2 && cluster != 4) || rows <= 0 ||
+      rows % cluster || rows / cluster * 128 / L > MAX_THREADS)
+    return cudaErrorInvalidValue;
+  return static_cast<int>(kLaunch[mode](tab, ox, out, state, rows, cluster,
+                                        steps,
                                         static_cast<cudaStream_t>(stream)));
 }

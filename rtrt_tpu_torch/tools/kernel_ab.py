@@ -33,6 +33,13 @@ by the same code.  Each process prints one line ``AB {json}`` (times in
 ms, ptxas' registers and spills of K1-K5's kernels); the parent prints the
 median of each tree's processes beside the card's name and power limit.
 Needs a card.
+
+With ``--probes`` each process times the traversal-step probes instead:
+K6 (`tools/ubench_step.py::run`) in every mode at its CLI's defaults (64
+rows, 4000 steps, 20 reps) and slab and reduce2 at 16 rows, and K7
+(`tools/probe_leaf.py::run`) in every mode at its defaults (32 rows, 400
+steps, 10 reps, the tool's inputs), each tree through its own wrappers
+(ns a step, CUDA events); ptxas' lines are those of K6's and K7's kernels.
 """
 
 from __future__ import annotations
@@ -50,16 +57,19 @@ PASSES = (("7x7", 3, 1, True, 0), ("s3", 2, 3, False, 0),
           ("s6", 2, 6, False, 0), ("s12", 2, 12, False, 0))
 
 
-def _ptxas(log: str) -> dict:
+FRAME_KERNELS = ("megakernel", "traverse_kernel", "denoise_wide",
+                 "post_tail", "reproject")
+PROBE_KERNELS = ("step_kernel", "leaf_kernel")
+
+
+def _ptxas(log: str, kernels=FRAME_KERNELS) -> dict:
     """{mangled kernel name: ptxas' stack / spill and register lines} of
-    the build log, for K1's, K2's and K4's kernels."""
+    the build log, for the kernels whose names hold one of `kernels`."""
     out, cur = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1] if "'" in line else line
-            cur = name if any(k in name for k in (
-                "megakernel", "traverse_kernel", "denoise_wide", "post_tail",
-                "reproject")) else None
+            cur = name if any(k in name for k in kernels) else None
         elif cur and ("spill stores" in line or "registers" in line):
             out.setdefault(cur, []).append(
                 line.split("ptxas info    :")[-1].strip())
@@ -174,17 +184,44 @@ def child(tree: str, reps2: int, reps4: int) -> dict:
     return res
 
 
+def probe_child(tree: str) -> dict:
+    """Time K6 and K7 of the package in `tree` (this process only)."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+    import rtrt_tpu_torch
+    from rtrt_tpu_torch.tools import probe_leaf, ubench_step
+    from rtrt_tpu_torch.utils import cuda
+
+    pkg = os.path.dirname(os.path.abspath(rtrt_tpu_torch.__file__))
+    assert pkg.startswith(os.path.abspath(tree)), pkg
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: no CUDA card")
+    cuda.library()
+    res = dict(tree=tree, build=_ptxas(cuda.build_info["log"],
+                                       PROBE_KERNELS))
+    for m in ubench_step.MODES:
+        res[f"K6 {m}"] = ubench_step.run(m, 64, 4000, 20)[0]
+    for m in ("slab", "reduce2"):
+        res[f"K6 {m} 16 rows"] = ubench_step.run(m, 16, 4000, 20)[0]
+    for m in probe_leaf.MODES:
+        res[f"K7 {m}"] = probe_leaf.run(m, 32, 400, 10)[0]
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="*")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps2", type=int, default=10)
     ap.add_argument("--reps4", type=int, default=50)
+    ap.add_argument("--probes", action="store_true",
+                    help="time K6 and K7 instead of K1-K5")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
     if a.child is not None:
-        print("AB " + json.dumps(child(a.child, a.reps2, a.reps4)),
-              flush=True)
+        res = probe_child(a.child) if a.probes else \
+            child(a.child, a.reps2, a.reps4)
+        print("AB " + json.dumps(res), flush=True)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -203,7 +240,8 @@ def main(argv=None) -> int:
     for tree in order:
         p = subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--child", tree, "--reps2", str(a.reps2),
-                            "--reps4", str(a.reps4)],
+                            "--reps4", str(a.reps4)]
+                           + ["--probes"] * a.probes,
                            capture_output=True, text=True)
         lines = [ln for ln in p.stdout.splitlines() if ln.startswith("AB ")]
         if p.returncode or not lines:
@@ -214,7 +252,9 @@ def main(argv=None) -> int:
         r = json.loads(lines[-1][3:])
         print(lines[-1], flush=True)
         runs[tree].append(r)
-    print(f"median over {2 * a.rounds} processes per tree, ms [{smi}]:")
+    unit = "ns a step" if a.probes else "ms"
+    print(f"median over {2 * a.rounds} processes per tree, {unit} "
+          f"[{smi}]:")
     for tree, rs in runs.items():
         if not rs:
             continue

@@ -1,0 +1,229 @@
+"""The SASS of the probe kernels' step loops, counted by kind, and the
+issue-slot floor of a step.
+
+    python -m rtrt_tpu_torch.tools.sass_loops [--tree DIR]
+        [--warps step_kernel=16] [--warps leaf_kernel=32]
+
+Builds (or finds) the kernel library of the package in DIR (this checkout
+by default; another revision unpacked beside it works the same way: its
+own utils/cuda.py builds it into DIR/build/), disassembles it with
+`cuobjdump -sass` and, for every instantiation of K6 (`step_kernel`,
+csrc/probe_step.cu; reduce2 and reduce4 have a lone-block and a cluster
+instantiation) and K7 (`leaf_kernel`, csrc/probe_leaf.cu), finds the
+step loop (the backward branch that spans the most instructions: the
+other loops of these kernels are a few instructions long) and counts its
+warp instructions by kind.  ptxas' registers and spill stores of the same
+instantiation come from the build log.  The step loops of both kernels
+are not unrolled in this checkout, so a loop body is one step; where the
+loop holds a branch that a run never takes (K7's fat and carry4: the
+internal visit), the count holds it too.
+
+The issue-slot floor of a step: each SM issues at most 4 warp
+instructions a clock (one a sub-partition, 128 threads), so a step costs
+at least instructions x warps an SM / 4 clocks, at the card's highest SM
+clock (`nvidia-smi --query-gpu=clocks.max.sm`).  `--warps NAME=N`: the
+warps a launch puts on each SM (defaults: this checkout's geometry at
+each CLI's default rows, K6 16 at 64 rows on 4 SMs, K7 32 at 32 rows).
+Prints one line ``SASS {json}`` per instantiation.  Needs the CUDA
+toolkit (nvcc, cuobjdump) and a card for the clock.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+KERNELS = {"step_kernel": "K6", "leaf_kernel": "K7"}
+# SASS opcodes (the part before the first '.') by kind; anything else is
+# "other" (integer and logic ops, moves, special registers, uniform ops)
+KINDS = {
+    "fp32 add/mul/fma": ("FADD", "FMUL", "FFMA", "FADD32I", "FMUL32I",
+                         "FFMA32I"),
+    "fp32 cmp/min/max/sel": ("FSETP", "FSET", "FMNMX", "FSEL", "FCHK"),
+    "int cmp/sel": ("ISETP", "SEL", "IMNMX", "PLOP3"),
+    "mufu": ("MUFU",),
+    "load/store": ("LDG", "LDS", "LD", "STG", "STS", "ST", "LDGSTS",
+                   "LDSM", "ATOMS", "ATOMG", "ATOM", "RED", "REDG"),
+    "local (spill)": ("LDL", "STL"),
+    "shuffle/vote": ("SHFL", "VOTE", "VOTEU", "REDUX", "MATCH"),
+    "barrier/sync": ("BAR", "WARPSYNC", "UCGABAR_ARV", "UCGABAR_WAIT",
+                     "CCTL", "MEMBAR", "DEPBAR", "LDGDEPBAR", "ERRBAR",
+                     "FENCE"),
+    "control": ("BRA", "BRX", "BSSY", "BSYNC", "CALL", "RET", "EXIT",
+                 "YIELD", "NOP", "JMP"),
+}
+_INSTR = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_TARGET = re.compile(r"`\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b")
+
+
+def kind(op: str) -> str:
+    base = op.split(".")[0]
+    for k, ops in KINDS.items():
+        if base in ops:
+            return k
+    return "other"
+
+
+def functions(sass: str) -> dict:
+    """{mangled name: [(address, opcode, text), ...], with labels as
+    (address, None, label)} of `cuobjdump -sass` output."""
+    out, cur = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"^\s*Function : (\S+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), [])
+            continue
+        if cur is None:
+            continue
+        lab = _LABEL.match(line)
+        if lab:
+            cur.append((None, None, lab.group(1)))
+            continue
+        ins = _INSTR.match(line)
+        if ins:
+            text = re.sub(r"^@!?U?P[T\d]+\s+", "", ins.group(2))
+            cur.append((int(ins.group(1), 16), text.split()[0], ins.group(2)))
+    return out
+
+
+def step_loop(body):
+    """The instructions of the backward branch that spans the most: the
+    step loop.  Returns (instructions, all backward branches as (target,
+    branch, length))."""
+    labels, instrs = {}, []
+    for addr, op, text in body:
+        if op is None:
+            labels[text] = None  # resolved to the next instruction below
+            continue
+        for k, v in labels.items():
+            if v is None:
+                labels[k] = addr
+        instrs.append((addr, op, text))
+    loops = []
+    for i, (addr, op, text) in enumerate(instrs):
+        if not op.startswith("BRA"):
+            continue
+        m = _TARGET.search(text)
+        if not m:
+            continue
+        tgt = labels.get(m.group(1)) if m.group(1) else int(m.group(2), 16)
+        if tgt is not None and tgt < addr:
+            j = next(j for j, x in enumerate(instrs) if x[0] == tgt)
+            loops.append((tgt, addr, i - j + 1, j, i))
+    if not loops:
+        return [], []
+    _, _, _, j, i = max(loops, key=lambda x: x[2])
+    return instrs[j:i + 1], [(hex(a), hex(b), n) for a, b, n, _, _ in loops]
+
+
+def ptxas(log: str, name: str):
+    """(registers, spill stores in bytes) of the kernel `name` in the
+    build log."""
+    lines = log.splitlines()
+    at = next((i for i, line in enumerate(lines)
+               if "Compiling entry" in line and name in line), None)
+    if at is None:
+        return None, None
+    spill = next(line for line in lines[at:] if "spill stores" in line)
+    regs = next(line for line in lines[at:] if "registers" in line)
+    return (int(re.search(r"Used (\d+) registers", regs).group(1)),
+            int(re.search(r"(\d+) bytes spill stores", spill).group(1)))
+
+
+def _tree_cuda(tree: str):
+    """DIR/rtrt_tpu_torch/utils/cuda.py, loaded by path (it imports only
+    the standard library and torch, and builds DIR's csrc/)."""
+    path = os.path.join(tree, "rtrt_tpu_torch", "utils", "cuda.py")
+    spec = importlib.util.spec_from_file_location("sass_loops_cuda", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _tool(name: str) -> str:
+    for cand in (shutil.which(name), f"/usr/local/cuda/bin/{name}"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(f"{name} not found: needs the CUDA toolkit")
+
+
+def max_sm_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def default_warps() -> dict:
+    """Warps an SM of each probe's launch at its CLI's default rows: a
+    block has 32 threads (one warp) a row, K6's block_rows of 64, K7's
+    32."""
+    from . import ubench_step
+    return {"step_kernel": ubench_step.launch_geometry(64)[1],
+            "leaf_kernel": 32}
+
+
+def measure(tree: str, warps: dict, mhz: float) -> list:
+    from . import probe_leaf, ubench_step
+    modes = {"step_kernel": ubench_step.MODES,
+             "leaf_kernel": probe_leaf.MODES}
+    cuda = _tree_cuda(tree)
+    lib = cuda.build()
+    log = cuda.build_info.get("log", "")
+    sass = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    rows = []
+    for fn, body in sorted(functions(sass).items()):
+        kern = next((k for k in KERNELS if k in fn), None)
+        if kern is None:
+            continue
+        m = re.search(r"ILi(\d+)E(Lb1E)?", fn)
+        mode = modes[kern][int(m.group(1))] if m else "?"
+        if m and m.group(2):  # K6's reduce2 / reduce4 over a cluster
+            mode += " cluster"
+        loop, loops = step_loop(body)
+        counts = {}
+        for _, op, _ in loop:
+            counts[kind(op)] = counts.get(kind(op), 0) + 1
+        regs, spill = ptxas(log, fn)
+        n = len(loop)
+        w = warps[kern]
+        rows.append(dict(
+            tree=tree, kernel=KERNELS[kern], mode=mode, registers=regs,
+            spill_stores=spill, instructions=n, by_kind=counts,
+            backward_branches=loops, warps_per_sm=w, sm_mhz=mhz,
+            issue_floor_ns=n * w / 4 / (mhz * 1e-3)))
+    return rows
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))))
+    ap.add_argument("--warps", action="append", default=[],
+                    help="NAME=N: warps an SM of kernel NAME's launch")
+    args = ap.parse_args(argv)
+    from ..utils import timing
+    card = timing.card()
+    warps = default_warps()
+    for item in args.warps:
+        k, v = item.split("=")
+        warps[k] = int(v)
+    mhz = max_sm_mhz()
+    print(f"{card}; max SM clock {mhz:.0f} MHz; tree {args.tree}")
+    rows = measure(os.path.abspath(args.tree), warps, mhz)
+    for r in rows:
+        print("SASS " + json.dumps(r), flush=True)
+    return rows
+
+
+if __name__ == "__main__":
+    sys.exit(0 if main() else 1)

@@ -4,11 +4,12 @@ tools/ubench_step.py).
 Times stripped-down loops over one (rows, 128) ray tile that isolate the
 parts of a traversal step (csrc/probe_step.cu lists the nine modes): the
 loop, the record fetch, slab tests, tile-wide reductions, carried planes
-and a branch.  Each launch runs one thread block, so it occupies one of the
-card's SMs: ns/step is the latency of a step on one SM, and each mode's
-floor is its float operations (LANE_OPS) over one SM's share of the card's
-float32 rate.  A mode under its floor would mean the compiler deleted the
-work.
+and a branch.  Each launch runs the tile on one thread-block cluster of c
+blocks on c SMs (`launch_geometry`: c = 1, 2, 4 for rows up to 16, 32,
+64), so ns/step is the time of one step of the whole tile on its
+cluster's c SMs, and each mode's floor is its float operations
+(LANE_OPS) over those c SMs' share of the card's float32 rate.  A mode
+under its floor would mean the compiler deleted the work.
 
 Usage: python -m rtrt_tpu_torch.tools.ubench_step [--steps 4000]
        [--rows 64] [--reps 20]
@@ -27,7 +28,11 @@ from ..utils import cuda, timing
 
 MODES = ("loop", "fetch", "slab", "extract2", "reduce2", "reduce4",
          "carry4", "carry12", "cond12")
-MAX_ROWS = 64  # 8 lanes per thread, at most 1024 threads
+MAX_ROWS = 64
+# a block takes at most 16 rows: 4 lanes a thread, 32 threads a row, at most
+# 512 threads, so a thread may hold 128 registers
+MAX_BLOCK_ROWS = 16
+CLUSTERS = (1, 2, 4)
 # float operations per lane per step, counted from make_kernel: a slab test
 # is 25 (6 selects, 6 sub, 6 mul, 4 min/max, 3 compares; the sign tests of
 # the inverse direction are loop-invariant), a tile-wide min ~1 per lane
@@ -127,6 +132,16 @@ def step_probe_plain(mode: str, tab, ox, steps: int):
     return best + rest[0]
 
 
+def launch_geometry(rows: int):
+    """(c, block rows) of K6's launch on a (rows, 128) tile: the smallest
+    cluster size c in CLUSTERS with rows <= MAX_BLOCK_ROWS * c, each of its
+    c blocks taking rows / c rows."""
+    if rows % 8 or not 0 < rows <= MAX_ROWS:
+        raise ValueError(f"rows {rows}: a multiple of 8 up to {MAX_ROWS}")
+    c = next(c for c in CLUSTERS if rows <= MAX_BLOCK_ROWS * c)
+    return c, rows // c
+
+
 def step_probe(mode: str, tab, ox, steps: int):
     """K6 (csrc/probe_step.cu) for CUDA tensors, the plain version for CPU
     tensors."""
@@ -135,8 +150,7 @@ def step_probe(mode: str, tab, ox, steps: int):
     rows = ox.shape[0]
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
-    if rows % 8 or not 0 < rows <= MAX_ROWS:
-        raise ValueError(f"rows {rows}: a multiple of 8 up to {MAX_ROWS}")
+    cluster, _ = launch_geometry(rows)
     dev = ox.device
     cuda.check_tensors(dev, tab=(tab, torch.float32, (128, 128)),
                        ox=(ox, torch.float32, (rows, 128)))
@@ -146,17 +160,18 @@ def step_probe(mode: str, tab, ox, steps: int):
         if mode.startswith(("carry", "cond")) else None
     cuda.launch(cuda.library().rtrt_probe_step, "probe_step", dev,
                 ctypes.c_int(MODES.index(mode)), tab, ox, out, state,
-                ctypes.c_int(rows), ctypes.c_int(steps))
+                ctypes.c_int(rows), ctypes.c_int(cluster),
+                ctypes.c_int(steps))
     return out
 
 
 def bound(mode: str, rows: int, steps: int):
     """(ms, "bytes" or "operations"): the least time of one launch on the
-    one SM it occupies (tab and ox read once, out written once)."""
+    c SMs of its cluster (tab and ox read once, out written once)."""
     lanes = rows * 128
     return timing.bound_ms(128 * 128 * 4 + 2 * lanes * 4,
                            LANE_OPS[mode] * lanes * steps,
-                           share=1 / timing.SMS)
+                           share=launch_geometry(rows)[0] / timing.SMS)
 
 
 def run(mode: str, rows: int, steps: int = 4000, reps: int = 20,
@@ -177,7 +192,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
     card = timing.card()
     print(card)
-    print(f"rows={args.rows} steps={args.steps} reps={args.reps}")
+    c, block_rows = launch_geometry(args.rows)
+    print(f"rows={args.rows} steps={args.steps} reps={args.reps}: ns/step "
+          f"is a step of the tile on its cluster of {c} block(s) of "
+          f"{block_rows} rows, {c} SM(s)")
     base = None
     results = []
     for mode in MODES:

@@ -68,7 +68,7 @@ _SIGNATURES = {
     "rtrt_denoise_wide": [_P] * 4 + [_I, _I, _P] + [_I] * 4 + [_F] * 3
     + [_P] + [_P],
     "rtrt_reproject": [_P] * 6 + [_I] * 6 + [_P] * 6 + [_P],
-    "rtrt_probe_step": [_I, _P, _P, _P, _P, _I, _I] + [_P],
+    "rtrt_probe_step": [_I, _P, _P, _P, _P, _I, _I, _I] + [_P],
     "rtrt_probe_leaf": [_I, _P, _P, _P, _I, _I] + [_P],
     "rtrt_probe_cores": [_I] + [_P] * 5 + [_I, _I] + [_P],
     "rtrt_probe_cores_grid": [_I] + [_P] * 5 + [_I, _I, _I] + [_P],

@@ -927,26 +927,31 @@ def test_megakernel_deep_tree(chain_engine, cuda_device):
     torch.testing.assert_close(got.depth[h], ref.depth[h], rtol=1e-5, atol=0)
 
 
+# K6 on clusters of 1 (8, 16 rows), 2 (24) and 4 blocks (48, 64), across
+# the wrap of its record index at 1024 steps
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows", [8, 64])
+@pytest.mark.parametrize("steps", [1, 50, 1025])
+@pytest.mark.parametrize("rows", [8, 16, 24, 48, 64])
 @pytest.mark.parametrize("mode", ubench_step.MODES)
-def test_probe_step_kernel_matches_plain(cuda_device, mode, rows):
+def test_probe_step_kernel_matches_plain(cuda_device, mode, rows, steps):
     tab, ox = ubench_step.tool_inputs(rows, cuda_device)
-    got = ubench_step.step_probe(mode, tab, ox, 50)
-    ref = ubench_step.step_probe_plain(mode, tab, ox, 50)
+    got = ubench_step.step_probe(mode, tab, ox, steps)
+    ref = ubench_step.step_probe_plain(mode, tab, ox, steps)
     torch.cuda.synchronize()
     rtol = 0.0 if mode in ("loop", "fetch") else 2.0 ** -20
     torch.testing.assert_close(got, ref, rtol=rtol, atol=0)
 
 
+# K7 across the wrap of its 128-entry stack
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows", [8, 32])
+@pytest.mark.parametrize("steps", [1, 50, 129])
+@pytest.mark.parametrize("rows", [8, 16, 32])
 @pytest.mark.parametrize("mode", probe_leaf.MODES)
-def test_probe_leaf_kernel_matches_plain(cuda_device, mode, rows):
+def test_probe_leaf_kernel_matches_plain(cuda_device, mode, rows, steps):
     for make in (probe_leaf.tool_inputs, probe_leaf.hit_inputs):
         tab, planes = make(rows, cuda_device)
-        got = probe_leaf.leaf_probe(mode, tab, planes, 50)
-        ref = probe_leaf.leaf_probe_plain(mode, tab, planes, 50)
+        got = probe_leaf.leaf_probe(mode, tab, planes, steps)
+        ref = probe_leaf.leaf_probe_plain(mode, tab, planes, steps)
         torch.cuda.synchronize()
         assert torch.equal(got, ref)
 
