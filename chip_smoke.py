@@ -45,7 +45,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      rows 1025 steps (the record index wraps at 1024), K7 at rows 8, 16,
      32 and steps 1 and PROBE_CUT, and at 32 rows 129 steps (the stack
      wraps at 128; tests/test_torch_kernels_gpu.py runs every row count
-     across the wraps), K8-K9 at the tools' default rows and PROBE_CUT;
+     across the wraps), K8 at 8 and 32 rows and K9 at the tools' default
+     rows, PROBE_CUT steps;
      K1 under step caps 2, 4, 8, 16 against
      the plain traversal under the same cap on every 16th 1080p primary
      (0 dropped pushes);
@@ -59,7 +60,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      probe_xpose, K16 probe_bf16, every mode against its plain version on
      the card at the tools' rows and a cut step count, on every input
      recipe of tests/test_torch_hw_probes.py (bit-equal; K10's three modes
-     and K15's two agree); K11 at the card's shared-memory edge (accepted
+     and K15's two agree; K16, split over c SMs, at every row count 8-64
+     (c = 1-4)); K11 at the card's shared-memory edge (accepted
      at 48 KB and at the opt-in maximum, refused one float beyond and at
      every size of the JAX tool); then, with the launch counters reset,
      the six tools' entry points at their default steps and reps (every
@@ -226,7 +228,14 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      30-fps target; (d) tools/sky_preview.py's PNGs, sky_compare at 1000
      samples, mesh_baker on an OBJ of the block mesher's output with one
      Loop subdivision, bluenoise_gen at 32x32; the K2 step launches are
-     those of --trace-steps' one frame, counted from 0 just before it.
+     those of --trace-steps' one frame, counted from 0 just before it;
+     (e) K2 at segments=3 (RTRT_SEGMENTS=3's route) on phase 3's view and
+     rays against its plain version at 3, at phase 3's bounds, timed in
+     turns with the default 5, beside its bound from the plain version's
+     visits and hits at 3; then 3 frames of phase 5's main path with
+     render/integrator.py's count, which both routes read, set to 3 (K2
+     launches counted from 0 just before), and the last of them again at
+     5 from the same frame state: equal first-hit planes, other radiance.
   --profile adds 6: torch.profiler over 5 frames each of the main path,
      the north star's Engine at the 720 bucket and the interlaced Engine
      (device busy time, launches and synchronising calls per frame, top
@@ -235,7 +244,8 @@ Prints the card's name and power limit, the per-kernel JSON line (K1-K16,
 K3's pre-mapped instantiation, K5's bilinear instantiation, K1's and K2's
 binary instantiations, their leaf-row instantiations, K2's
 Fourier-texture instantiation, K1's wavefront route, K5's band
-instantiation and K2's traversal-step instantiation),
+instantiation, K2's traversal-step instantiation, K2 at segments=3 and
+K16 in float32 beside its bf16 entry),
 then as its last line
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX nor of the JAX package.  Exits 1 when CUDA is not
@@ -858,6 +868,10 @@ def main() -> int:
     k2_steps = _cuts_and_tools(
         card, args, dict(n_lights=n_lights, bn=consts.bn),
         W * H * (40 + 72) + _table_bytes(tables), sum(k2_ops.values()))
+    k2_seg3 = _three_segments(
+        card, args, dict(n_lights=n_lights, bn=consts.bn), sc.sky, rays,
+        camera_basis(cam0), W * H * (40 + 72) + _table_bytes(tables),
+        main_step, main)
 
     if "--profile" in sys.argv[1:]:
 
@@ -927,7 +941,7 @@ def main() -> int:
              launches=counts["reproject"], max_abs_err=k5_err,
              ms=k5_ms, graph_ms=k5_graph, plain_ms=k5_plain,
              bound_ms=k5_bound[0], bound_by=k5_bound[1], library_ms=None),
-        k5_bl, k5_band, k2_steps,
+        k5_bl, k5_band, k2_steps, k2_seg3,
     ] + lbvh + optin + [wave] + probes + hw_probes
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -964,6 +978,7 @@ def _cuts_and_tools(card, args, kw, k2_bytes, k2_ops):
     from rtrt_tpu_torch.content.meshio import load_mesh, save_obj
     from rtrt_tpu_torch.denoise.pipeline import denoise
     from rtrt_tpu_torch.engine.frame import render_frame
+    from rtrt_tpu_torch.render import integrator as I
     from rtrt_tpu_torch.render import megakernel as M
     from rtrt_tpu_torch.tools import (bluenoise_gen, fps_demo, mesh_baker,
                                       profile_frame, sky_compare,
@@ -974,7 +989,7 @@ def _cuts_and_tools(card, args, kw, k2_bytes, k2_ops):
     t_phase = time.perf_counter()
     dev = args[5].device
     n = W * H
-    seg = M.SEGMENTS
+    seg = I.SEGMENTS
 
     # (a) K2's step instantiation against the default one and the plain
     out_d = torch.empty((18, n), device=dev)
@@ -1113,6 +1128,90 @@ def _cuts_and_tools(card, args, kw, k2_bytes, k2_ops):
         launches=steps_launches, max_abs_err=float(err), ms=s_ms,
         plain_ms=s_plain, bound_ms=s_bound[0], bound_by=s_bound[1],
         library_ms=None)
+
+
+def _three_segments(card, args, kw, sky, rays, prev_basis, k2_bytes, step,
+                    eng):
+    """Phase 21 (e): K2 at segments=3, the route RTRT_SEGMENTS=3 takes.
+    On phase 3's view and rays (args, kw: its megakernel_trace arguments;
+    sky, rays, prev_basis for _check_k2) K2 at 3 against its plain version
+    at 3, at phase 3's bounds, and unlike the 5-segment launch; K2 at 3
+    and at the default 5 timed in turns by CUDA events; the bound from
+    the plain version's visits and hits at 3.  Then the main path (`step`,
+    which renders a frame of `eng`, phase 5's Engine) renders 3 frames with
+    render/integrator.py's count, the one both routes read, set to 3 as
+    the variable sets it at import: K2 launches once a frame, counted from
+    0 just before.  The last of them is rendered again at the default
+    count from the same frame state: its first-hit planes (albedo,
+    normal, depth, material) must be equal, its radiance not.  Returns
+    the kernels-line entry."""
+    import torch
+    from rtrt_tpu_torch.render import integrator as I
+    from rtrt_tpu_torch.render import megakernel as M
+    from rtrt_tpu_torch.utils import cuda
+    from rtrt_tpu_torch.utils.timing import bound_ms, time_ms
+
+    t_phase = time.perf_counter()
+    a = M.megakernel_trace(*args, **kw, segments=3)
+    visits, hits = [0, 0], [0, 0, 0]
+    b = M.megakernel_trace_plain(*args, **kw, segments=3, visits=visits,
+                                 hits=hits)
+    five = M.megakernel_trace(*args, **kw)
+    torch.cuda.synchronize()
+    _, _, err = _check_k2("at segments=3", sky, rays, a, b, prev_basis)
+    assert not (torch.equal(a.radiance, five.radiance)
+                and torch.equal(a.esc_beta, five.esc_beta)), \
+        "K2 at 3 segments traced what it traces at 5"
+    t3, t5 = [], []
+    for segs, acc in ((5, t5), (3, t3), (3, t3), (5, t5)):
+        acc.append(time_ms(lambda: M.megakernel_trace(*args, **kw,
+                                                      segments=segs), 10))
+    plain_ms = time_ms(lambda: M.megakernel_trace_plain(*args, **kw,
+                                                        segments=3), 1)
+    ops = (visits[0] * NODE_OPS + visits[1] * LEAF_OPS + hits[0] * SURF_OPS
+           + hits[1] * SOIL_OPS + hits[2] * BSDF_OPS)
+    bnd = bound_ms(k2_bytes, ops)
+    saved = I.SEGMENTS
+    I.SEGMENTS = 3
+    try:
+        cuda.reset_launch_counts()
+        for k in range(3):
+            before = eng.state
+            step(300 + k)
+        torch.cuda.synchronize()
+        launches = cuda.launch_counts["megakernel_trace"]
+        g3 = eng.last_gbuffer
+    finally:
+        I.SEGMENTS = saved
+    assert launches == 3, f"K2 at 3 segments launched {launches} times"
+    eng.state = before
+    step(302)
+    g5 = eng.last_gbuffer
+    torch.cuda.synchronize()
+    for f in ("albedo", "normal", "depth", "mat_id"):
+        assert torch.equal(getattr(g3, f), getattr(g5, f)), \
+            f"the main path at 3 segments: {f} unlike the frame at 5"
+    assert torch.isfinite(g3.color).all()
+    assert not torch.equal(g3.color, g5.color), \
+        "the main path at 3 segments traced what it traces at 5"
+    m3, m5 = g3.color.mean().item(), g5.color.mean().item()
+    print(f"K2 at segments=3: kernel {sum(t3) / 2:.4f} ms ({t3}), at 5 "
+          f"{sum(t5) / 2:.4f} ms ({t5}) in turns by CUDA events; plain "
+          f"{plain_ms:.1f} ms; per pixel {visits[0] / a.depth.numel():.2f} "
+          f"node and {visits[1] / a.depth.numel():.2f} leaf visits; bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}); the main path at 3 segments: "
+          f"{launches} K2 launches over 3 frames, the last frame's mean "
+          f"G-buffer radiance {m3:.7g} against {m5:.7g} for the same frame "
+          f"at 5 segments (first-hit planes equal); phase 21 (e) took "
+          f"{time.perf_counter() - t_phase:.1f} s {card}")
+    return dict(
+        name="K2 megakernel at segments=3 (RTRT_SEGMENTS=3's route: the "
+        "launch's segment count; launches: 3 frames of the main path with "
+        "the count at 3, phase 21 (e))",
+        route="cuda", source="rtrt_tpu_torch/csrc/megakernel.cu",
+        replaces="rtrt_tpu/render/megakernel.py:707", launches=launches,
+        max_abs_err=float(err), ms=sum(t3) / 2, plain_ms=plain_ms,
+        bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
 
 
 def _sharded(card, settings, k5_in):
@@ -2976,13 +3075,16 @@ def _probes(card, tables, org, dirs):
                          PL.leaf_probe(m, tab, planes, steps),
                          PL.leaf_probe_plain(m, tab, planes, steps))
         make = PC.tool_inputs if recipe == "tool" else PC.hit_inputs
-        ntab, ttab, planes = make(32, device=dev)
-        p1 = planes[:, 0].contiguous()
-        for m in PC.MODES:
-            (g, gv), (r, rv) = (f(m, ntab, ttab, p1, PROBE_CUT) for f in (
-                PC.cores_probe, PC.cores_probe_plain))
-            same("K8", f"{recipe} {m}", g, r)
-            assert torch.equal(gv, rv), f"K8 {recipe} {m}: visits {gv} {rv}"
+        for rows in (8, 32):
+            ntab, ttab, planes = make(rows, device=dev)
+            p1 = planes[:, 0].contiguous()
+            for m in PC.MODES:
+                (g, gv), (r, rv) = (f(m, ntab, ttab, p1, PROBE_CUT)
+                                    for f in (PC.cores_probe,
+                                              PC.cores_probe_plain))
+                same("K8", f"{recipe} {m} rows {rows}", g, r)
+                assert torch.equal(gv, rv), \
+                    f"K8 {recipe} {m} rows {rows}: visits {gv} {rv}"
         ntab, ttab, planes = make(32, 8, True, device=dev)
         (g, gv), (r, rv) = (f("both", ntab, ttab, planes, PROBE_CUT // 2)
                             for f in (PC.cores_probe_grid,
@@ -2992,8 +3094,8 @@ def _probes(card, tables, org, dirs):
     print(f"K6-K9 vs plain on the card, every mode: K6 rows {K6_ROWS} "
           f"(clusters {[U.launch_geometry(r)[0] for r in K6_ROWS]}) x steps "
           f"1, {PROBE_CUT}, and 1025 at 64 rows; K7 rows {K7_ROWS} x steps "
-          f"1, {PROBE_CUT}, and 129 at 32 rows; K8 32 rows, {PROBE_CUT} "
-          f"steps (K9 8 tiles, "
+          f"1, {PROBE_CUT}, and 129 at 32 rows; K8 8 and 32 rows, "
+          f"{PROBE_CUT} steps (K9 8 tiles, "
           f"{PROBE_CUT // 2}); the tools' inputs and (K7-K9) rays that hit "
           f"every record: max abs err {err}")
 
@@ -3057,6 +3159,7 @@ def _probes(card, tables, org, dirs):
     k6_bound, k7_bound = U.bound("cond12", 64, 4000), PL.bound("full", 32,
                                                                 400)
     c6 = U.launch_geometry(64)[0]
+    c8 = PC.launch_geometry(32)[0]
     print(f"plain versions at the defaults: K6 cond12 {k6_plain:.1f} ms, K7 "
           f"full {k7_plain:.1f} ms, K8 both {k8_plain:.1f} ms, K9 both "
           f"{k9_plain:.1f} ms; phase 7 took {time.perf_counter() - t0:.1f} s "
@@ -3066,7 +3169,8 @@ def _probes(card, tables, org, dirs):
           f"{res6['cond12']['ns'] * 4000 / 1e6 / k6_bound[0]:.2f}x; K7 full "
           f"{k7_bound[0]:.4f} ms ({k7_bound[1]}, 1 of {SMS} SMs), "
           f"{res7['full']['ns'] * 400 / 1e6 / k7_bound[0]:.2f}x; K8 both "
-          f"{k8_bound[0]:.4f} ms (1 SM); K9 both {k9_bound[0]:.4f} ms (8 SMs) "
+          f"{k8_bound[0]:.4f} ms ({c8} SMs: its cluster); K9 both "
+          f"{k9_bound[0]:.4f} ms ({8 * c8} SMs) "
           f"{card}")
 
     def entry(name, source, replaces, key, count, ms, plain, bound):
@@ -3086,11 +3190,13 @@ def _probes(card, tables, org, dirs):
               "ms per launch in mode full, 400 steps)", "probe_leaf.cu",
               "tools/probe_leaf.py:179", "K7", "probe_leaf",
               res7["full"]["ns"] * 400 / 1e6, k7_plain, k7_bound),
-        entry("K8 probe_cores (full traversal step, one 32x128 tile; ms per "
-              "launch in mode both, 400 steps)", "probe_cores.cu",
+        entry(f"K8 probe_cores (full traversal step, one 32x128 tile on a "
+              f"cluster of {c8} blocks; ms per launch in mode both, 400 "
+              f"steps)", "probe_cores.cu",
               "tools/probe_cores.py:218", "K8", "probe_cores",
               res8[0]["ns"] * 400 / 1e6, k8_plain, k8_bound),
-        entry("K9 probe_cores grid (8 tiles on 8 SMs, (4608,128) tables in "
+        entry(f"K9 probe_cores grid (8 tiles on {8 * c8} SMs, a cluster a "
+              f"tile, (4608,128) tables in "
               "global memory; ms per launch, mode both, 200 steps)",
               "probe_cores.cu", "tools/probe_cores.py:248", "K9",
               "probe_cores_grid", res8[1]["ns"] * 200 * 8 / 1e6, k9_plain,
@@ -3155,15 +3261,18 @@ def _hw_probes(card):
             same("K15", f"{make.__name__} {m}",
                  PX.xpose_probe(m, tab, planes, PROBE_CUT), ref)
     for make in (PB.tool_inputs, PB.uniform_inputs):
-        x = make(64, dev)
-        for d in PB.DTYPES:
-            for steps in (8, PROBE_CUT):
-                same("K16", f"{make.__name__} {d} {steps}",
-                     PB.bf16_probe(d, x, steps),
-                     PB.bf16_probe_plain(d, x, steps))
+        for rows in range(8, 65, 8):  # c = 1, 2, 3, 4 SMs
+            x = make(rows, dev)
+            for d in PB.DTYPES:
+                for steps in (8, PROBE_CUT) if rows == 64 else (8,):
+                    same("K16", f"{make.__name__} {d} rows {rows} "
+                         f"steps {steps}", PB.bf16_probe(d, x, steps),
+                         PB.bf16_probe_plain(d, x, steps))
     print(f"K10 and K12-K16 vs plain on the card, every mode, the tools' "
-          f"rows, {PROBE_CUT} steps (K16 also 8), every input recipe of "
-          f"the tests: max abs err {err}")
+          f"rows, {PROBE_CUT} steps (K16 every row count 8-64 on "
+          f"{[PB.launch_geometry(r)[0] for r in range(8, 65, 8)]} SMs, 8 "
+          f"steps, and {PROBE_CUT} at 64 rows), every input recipe of the "
+          f"tests: max abs err {err}")
 
     # 8b. K11 at the card's shared-memory edge and the JAX tool's sizes
     x = PC.uniform_inputs(64, dev)[1]
@@ -3214,6 +3323,8 @@ def _hw_probes(card):
     x = PB.tool_inputs(64, dev)
     plain["K16"] = time_ms(lambda: PB.bf16_probe_plain("bf16", x, 4000),
                            1, 0)
+    plain["K16 f32"] = time_ms(lambda: PB.bf16_probe_plain("f32", x, 4000),
+                               1, 0)
     print(f"plain versions at the defaults (ms): {plain}; phase 8 took "
           f"{time.perf_counter() - t0:.1f} s {card}")
 
@@ -3252,10 +3363,20 @@ def _hw_probes(card):
               "shuffles; ms per launch in mode extract, 32 rows, 300 steps)",
               "probe_record.cu", "tools/probe_xpose.py:107", "probe_xpose",
               r15["extract"]["ns"] * 300 / 1e6, PX.bound(32, 300)),
-        entry("K16", "probe_bf16 (8 chains a lane in bf16x2; ms per launch "
-              "in mode bf16, 4000 steps)", "probe_bf16.cu",
+        entry("K16", f"probe_bf16 (8 chains a lane in bf16x2, the 64x128 "
+              f"tile over {PB.launch_geometry(64)[0]} SMs, 2 lanes a "
+              f"thread; ms per launch in mode "
+              f"bf16, 4000 steps)", "probe_bf16.cu",
               "tools/probe_bf16.py:65", "probe_bf16",
               r16["bf16"]["ns"] * 4000 / 1e6, PB.bound("bf16", 64, 4000)),
+        dict(entry("K16", "", "probe_bf16.cu", "tools/probe_bf16.py:65",
+                   "probe_bf16", r16["f32"]["ns"] * 4000 / 1e6,
+                   PB.bound("f32", 64, 4000)),
+             name=f"K16 probe_bf16 in float32 (the same chains, "
+             f"2 lanes a thread, the same "
+             f"{PB.launch_geometry(64)[0]} SMs; ms per launch in mode f32, "
+             f"4000 steps; launches: both modes)",
+             plain_ms=plain["K16 f32"]),
     ]
 
 

@@ -125,7 +125,8 @@ __device__ __forceinline__ void rand2(uint32_t pix, uint32_t frame,
 // per dim into a table (render/kshade.py::sampler_table is its torch twin):
 // slot b * SAMPLER_SEGS + s holds (u1, u2, sx, sy) of dim sampler_dim(b, s).
 // The megakernel draws dims 2 + 2s (BSDF), 64 + 2s (light), 128 + 2s
-// (shadow-or-scatter choice) and 192 + 2s (sphere-light pick), s < 5.
+// (shadow-or-scatter choice) and 192 + 2s (sphere-light pick), s < 5:
+// SAMPLER_SEGS is the most segments a launch traces (its `segments`).
 constexpr int SAMPLER_SEGS = 5;
 constexpr int SAMPLER_SLOTS = 4 * SAMPLER_SEGS;
 __device__ __forceinline__ uint32_t sampler_dim(int base, int seg) {

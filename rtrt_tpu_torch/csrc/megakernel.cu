@@ -1,4 +1,6 @@
-// K2 megakernel: the whole 5-segment bounce program of a pixel in one thread.
+// K2 megakernel: the whole bounce program of a pixel in one thread: 5
+// segments (scene intersects), or the launch's `segments`, 1 to 5
+// (RTRT_SEGMENTS, render/integrator.py; the sampler table's slots bound it).
 //
 // Replaces: rtrt_tpu/render/megakernel.py::_mega_kernel (launched by
 // megakernel_trace, wrapped by path_trace_mega).
@@ -75,7 +77,7 @@
 //     (kSteps): an instantiation with it counts each segment's node + leaf
 //     visits with K1's counting traversal (traverse.cuh kCount, uncapped;
 //     pops pruned by their entry distance do not count) and writes an
-//     int32 (SEGMENTS + 1, n) plane: row 0 the path's total, row 1 + s
+//     int32 (segments + 1, n) plane: row 0 the path's total, row 1 + s
 //     segment s's visits, 0 for the segments after the path ended.  One
 //     running total a lane; a segment's count is stored when it ends.  The
 //     count is per path (one thread a path); the TPU kernel's is uniform
@@ -99,8 +101,6 @@ namespace {
 using rtrt::V3;
 using rtrt::v3;
 
-constexpr int SEGMENTS = 5;
-static_assert(SEGMENTS == rtrt::SAMPLER_SEGS, "one sampler slot a segment");
 constexpr int BLOCK = 128;
 constexpr int MIN_BLOCKS = 8;
 constexpr unsigned FULL = 0xFFFFFFFFu;
@@ -130,7 +130,9 @@ struct MegaParams {
   int width;           // the pixel grid's row length
   int tile_w, tiles;   // warp tiles of tile_w x 32 / tile_w pixels
   int tlas_internal;   // TLAS rows of binary two-level tables
-  int* steps;          // (SEGMENTS + 1, n) int32 step planes (kSteps)
+  int* steps;          // (segments + 1, n) int32 step planes (kSteps)
+  int segments;        // scene intersects a path, 1 to SAMPLER_SEGS (the
+                       // sampler table's segment slots)
 };
 
 // the sun's direction, basis, transmittance and intensity (pack_sun_params'
@@ -469,12 +471,13 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
       float3 ns, ng;
       rtrt::hit_attrs(p.nrm, p.ng, p.mat, h, hmat, ns, ng);
       shade_segment<kFtex>(st, cold, h, hmat, v3(ns.x, ns.y, ns.z),
-                    v3(ng.x, ng.y, ng.z), p, rng, seg, seg == SEGMENTS - 1);
-      if (st.done || ++seg == SEGMENTS) {
+                           v3(ng.x, ng.y, ng.z), p, rng, seg,
+                           seg == p.segments - 1);
+      if (st.done || ++seg == p.segments) {
         write_planes(st, cold, p, pix);
         if constexpr (kSteps) {  // the total; 0 for the segments not run
           p.steps[pix] = total;
-          for (int r = seg + 2; r <= SEGMENTS; ++r)
+          for (int r = seg + 2; r <= p.segments; ++r)
             p.steps[(size_t)r * p.n + pix] = 0;
         }
         pix = -1;
@@ -533,8 +536,9 @@ int launch_tree(const MegaParams& p, int tree, int stack, cudaStream_t s) {
 // row length (n for a flat batch); ftex: the Fourier fit's (2, FTEX_ROW)
 // coefficient table on the device (render/ftex.py::pack_ftex), copied to
 // c_ftex on the stream, or nullptr for the instantiations without it;
-// steps: the (SEGMENTS + 1, n) int32 step planes, written by the kSteps
+// steps: the (segments + 1, n) int32 step planes, written by the kSteps
 // instantiations (no Fourier fit: steps with ftex is refused), or nullptr;
+// segments: the scene intersects a path, 1 to SAMPLER_SEGS (else refused);
 // arity, leaf_width, tlas_internal, stack: the tables' layout
 // (bvh/packet.py::layout_args; traverse.cuh tree_kind): any triple without
 // an instantiation is refused (cudaErrorInvalidValue) before anything is
@@ -547,7 +551,8 @@ extern "C" int rtrt_megakernel(
     const float* dir, const float* cone, const int* pix, const float* bn,
     int use_bn, int use_proctex, int n, float* out, int* overflow,
     int* depth, int* work, int width, const float* ftex, int* steps,
-    int arity, int leaf_width, int tlas_internal, int stack, void* stream) {
+    int segments, int arity, int leaf_width, int tlas_internal, int stack,
+    void* stream) {
   MegaParams p{nodes,    tris,     nrm,        ng,       mat,
                mat_rows, n_mat,    light_rows, n_lights,
                cos_max,  sin2_max, disk_omega, disk_pdf, frame,
@@ -555,10 +560,12 @@ extern "C" int rtrt_megakernel(
                use_bn,   use_proctex, n,       out,      overflow,
                depth,    work,     width};
   const int tree = rtrt::tree_kind(arity, leaf_width, stack);
-  if (tree < 0 || (steps != nullptr && ftex != nullptr))
+  if (tree < 0 || (steps != nullptr && ftex != nullptr) || segments < 1 ||
+      segments > rtrt::SAMPLER_SEGS)
     return static_cast<int>(cudaErrorInvalidValue);
   p.tlas_internal = tlas_internal;
   p.steps = steps;
+  p.segments = segments;
   if (n <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
   // 8x4 tiles where the grid has 4 rows or more, else runs of 32 pixels
   const int rows = (n + width - 1) / width;

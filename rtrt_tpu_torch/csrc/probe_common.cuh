@@ -3,9 +3,11 @@
 // probe_bf16.cu).
 //
 // Each probe runs ONE thread block per (rows, 128) ray tile, as the TPU
-// kernel runs one tile: the probes' outputs depend on tile-wide state (a
-// tile-wide max or min every step, one scalar stack steering every lane),
-// so a per-thread form would compute another function.  A thread carries
+// kernel runs one tile, or (K6, K8 / K9) one thread-block cluster of a few
+// blocks: the probes' outputs depend on tile-wide state (a tile-wide max
+// or min every step, one scalar stack steering every lane), so a
+// per-thread form would compute another function.  K16 has no tile-wide
+// state and splits its tile over plain blocks.  A thread carries
 // L lanes (a compile-time count); lane j of thread t is element
 // t + j * blockDim.x of the tile.  Tile-wide reductions are warp shuffles
 // plus one shared-memory exchange; every thread then holds the same

@@ -29,16 +29,17 @@
 // Design: 4 lanes per thread, rows * 32 threads (1024 at the default 32
 // rows), so a thread holds 4 x 8 words of state and the record in its 64
 // registers; the stack lives in shared memory; bound is the same in every
-// thread after the reduction, so every branch on it is uniform.  A record
-// (9 floats at a 16-float stride, 64-byte aligned) is two 16-byte loads
-// and one scalar load from global memory (L1).  Staging the next visit's
+// thread after the reduction, so every branch on it is uniform.  The
+// visit itself is probe_visit.cuh's, which K8 calls too: a record (9
+// floats at a 16-float stride, 64-byte aligned) is two 16-byte loads and
+// one scalar load from global memory (L1).  Staging the next visit's
 // row in shared memory a step ahead (cp.async into a double-buffered row a
 // warp, no block barrier added) measured 5% slower than these loads in
 // mode full (NVIDIA H100 80GB HBM3, 700 W; PERF.md, K7), so the kernel
 // does not stage.  The tile-wide max is probe_tile.cuh's
 // one-barrier reduction.  The step loop is not unrolled, so its SASS is one
 // step.
-#include "probe_tile.cuh"
+#include "probe_visit.cuh"
 
 namespace {
 
@@ -47,69 +48,21 @@ constexpr int L = 4;  // lanes per thread
 enum Mode { FULL, NORED, NOEXTR, NOMATH, NOCOND, REC2, DEP, FAT, CARRY4,
             NMODES };
 
-struct Ray {
-  float ox, oy, oz, dx, dy, dz;
-};
+using probe::Ray;
 
-// record rec of a row: two 16-byte loads and one scalar
-__device__ __forceinline__ void record(const float* __restrict__ row,
-                                       int rec, float (&v)[9]) {
-  const float* p = row + 16 * rec;
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p + 4));
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-  v[8] = __ldg(p + 8);
-}
-
-// the 8-record visit of `row`: best per lane, bound (tile max)
+// the 8-record visit of `row` (probe_visit.cuh, K8's too): best per lane,
+// bound (tile max); K7 keeps no hit slot
 template <int kMode>
 __device__ __forceinline__ void leaf_visit(const float* __restrict__ row,
                                            const Ray (&r)[L],
                                            float (&best)[L], float& bound,
                                            probe::TileRed& red) {
-  constexpr int NREC = kMode == REC2 ? 2 : 8;
-  float gt[L];
-#pragma unroll
-  for (int j = 0; j < L; ++j) gt[j] = CUDART_INF_F;
-#pragma unroll
-  for (int rec = 0; rec < NREC; ++rec) {
-    float v[9];
-    if constexpr (kMode == NOEXTR) {
-      const float lit[9] = {0.1f, 0.2f, 0.3f, 1.0f, 0.0f, 0.1f,
-                            0.0f, 1.0f, 0.1f};
-#pragma unroll
-      for (int c = 0; c < 9; ++c) v[c] = lit[c];
-    } else {
-      record(row, rec, v);
-    }
-#pragma unroll
-    for (int j = 0; j < L; ++j) {
-      float tt;
-      bool ok;
-      if constexpr (kMode == NOMATH) {
-        using probe::mul;
-        tt = mul(r[j].ox, v[0]) + mul(r[j].oy, v[1]) + mul(r[j].oz, v[2]) +
-             mul(r[j].dx, v[3]) + mul(r[j].dy, v[4]) + mul(r[j].dz, v[5]) +
-             v[6];
-        ok = tt > 0.5f;
-      } else {
-        ok = probe::tri_hit(v, r[j].ox, r[j].oy, r[j].oz, r[j].dx, r[j].dy,
-                            r[j].dz, best[j], tt);
-      }
-      if (ok && tt < gt[j]) gt[j] = tt;
-    }
-  }
-  float m[1] = {-CUDART_INF_F};
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    best[j] = gt[j] < best[j] ? gt[j] : best[j];
-    m[0] = fmaxf(m[0], best[j]);
-  }
-  if constexpr (kMode != NORED) {
-    probe::tile_reduce<1, true, false>(m, red);
-    bound = m[0];
-  }
+  constexpr int kForm = kMode == NOEXTR   ? probe::LEAF_LITERAL
+                        : kMode == NOMATH ? probe::LEAF_NOMATH
+                                          : probe::LEAF_FULL;
+  int unused[L];
+  probe::leaf_visit<L, kMode == REC2 ? 2 : 8, kForm, kMode != NORED, false>(
+      row, 0, r, best, unused, bound, red);
 }
 
 // the internal-visit-sized branch of fat / carry4 (tools/probe_leaf.py::

@@ -1,6 +1,6 @@
-// The one-barrier tile reduction of K6 (probe_step.cu) and K7
-// (probe_leaf.cu).  K8-K15 keep probe_common.cuh::block_reduce (two
-// barriers around a serial warp-0 stage).
+// The one-barrier tile reduction of K6 (probe_step.cu), K7 (probe_leaf.cu)
+// and K8 / K9 (probe_cores.cu).  K10-K15 keep probe_common.cuh::
+// block_reduce (two barriers around a serial warp-0 stage).
 //
 // A tile-wide min or max of N values a thread: each warp reduces its lanes
 // with shuffles; lane r * N + n of each warp stores the warp's n-th partial
@@ -37,7 +37,8 @@
 namespace probe {
 
 constexpr int TILE_MAX_N = 4;
-// partials a value: up to 16 warps x 4 blocks (K6), or 32 warps x 1 (K7)
+// partials a value: up to 16 warps x 4 blocks (K6), or 32 warps x 1 (K7,
+// K8)
 constexpr int TILE_SLOTS = 64;
 constexpr int TILE_RED_FLOATS = 2 * TILE_MAX_N * TILE_SLOTS;
 

@@ -108,6 +108,15 @@ def _bucket_for(height: int):
     return _BUCKET_HEIGHTS[-1]
 
 
+def interlace_for(settings_interlace: bool, h: int) -> bool:
+    """Whether a bucket of height h interlaces: RTRT_INTERLACE=1 / 0 over
+    GlobalSettings.interlace, and only at an even height, as the JAX
+    Engine decides (rtrt_tpu/engine/engine.py:353-359)."""
+    env = os.environ.get("RTRT_INTERLACE",
+                         "1" if settings_interlace else "0")
+    return env == "1" and h % 2 == 0
+
+
 def _res_for_height(h: int):
     """16:9, width snapped to a multiple of 16 (reference: kernel.cu:96-98)."""
     w = (h * 16 // 9) // 16 * 16
@@ -322,7 +331,9 @@ class Engine:
                                  render_h=self.render_h,
                                  screen_w=s.render_width,
                                  screen_h=s.render_height, flags=self.flags,
-                                 interlace=s.interlace, ftex=self.ftex,
+                                 interlace=interlace_for(
+                                     s.interlace, self.render_h),
+                                 ftex=self.ftex,
                                  use_megakernel=mega, use_packets=packets)
             self._frames[bucket_h] = (static,
                                       make_frame_consts(static, self.device))

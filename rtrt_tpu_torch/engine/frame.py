@@ -67,7 +67,7 @@ returns (outputs, state) with the state it was given:
   "bvh"     after the animation or rebuild stage: (scene.tables,);
   "trace"   (color, albedo, normal, depth, mat_id, motion) after the
             interlace fill and the NaN guards;
-  "steps"   (steps,): K2's (SEGMENTS + 1, traced rows, w) int32
+  "steps"   (steps,): K2's (segments + 1, traced rows, w) int32
             traversal-step planes (megakernel route only; half height
             under interlace, as JAX's);
   "denoise" (final, new_history);
@@ -96,9 +96,10 @@ from ..post.pipeline import (band_halo, dither_mask, postprocess,
                              upscale_band)
 from ..render.environment import env_radiance_scene
 from ..render.ftex import FtexTable
+from ..render import integrator
 from ..render.integrator import GBuffer, SceneData, path_trace
-from ..render.megakernel import (SEGMENTS, path_trace_mega,
-                                   trace_scene_mega)
+from ..render.megakernel import (check_segments, path_trace_mega,
+                                 trace_scene_mega)
 from ..render.raygen import generate_rays_padded
 from ..render.sampling import blue_offsets_flat, rand2, rand2_bn
 from ..utils.config import FeatureFlags, RenderParams
@@ -146,6 +147,8 @@ class FrameStatic:
         if self.stop_after == "steps" and not self.use_megakernel:
             raise ValueError("stop_after='steps' reads K2's step planes: "
                              "it needs use_megakernel")
+        if self.use_megakernel:  # RTRT_SEGMENTS beyond K2's 1..5 raises
+            check_segments(integrator.SEGMENTS)
 
 
 @dataclasses.dataclass
@@ -457,12 +460,13 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
 
     if stop == "steps":  # traced without ftex, as the JAX cut is
         lead = tuple(rays.cone_width.shape)
-        steps = torch.empty((SEGMENTS + 1, rays.cone_width.numel()),
+        segs = integrator.SEGMENTS
+        steps = torch.empty((segs + 1, rays.cone_width.numel()),
                             dtype=torch.int32, device=rays.org.device)
         trace_scene_mega(scene, rays, pixel_ids, frame,
                          static.flags.procedural_textures, bn, overflow,
                          stack_depth, steps=steps)
-        return (steps.reshape((SEGMENTS + 1,) + lead),), state
+        return (steps.reshape((segs + 1,) + lead),), state
     if static.use_megakernel:
         gbuf: GBuffer = path_trace_mega(
             scene, rays, pixel_ids, frame, prev_basis, w / h,

@@ -50,7 +50,10 @@ from .sampling import power_heuristic, rand2, rand2_bn, uniform_cone_pdf
 from .sky import env_radiance_fit
 from .texture import apply_normal_map, triplanar_sample
 
-# scene intersects per pixel; RTRT_SEGMENTS overrides, as in the JAX module
+# scene intersects per pixel; RTRT_SEGMENTS overrides, as in the JAX
+# modules.  The port reads it here only: the megakernel route
+# (render/megakernel.py, engine/frame.py) imports this value and takes 1 to
+# 5 of it (megakernel.check_segments)
 SEGMENTS = int(os.environ.get("RTRT_SEGMENTS", "5"))
 RADIANCE_CLAMP = 10.0  # firefly clamp on demodulated radiance
 

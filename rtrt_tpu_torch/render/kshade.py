@@ -132,6 +132,9 @@ def rand2_c(pixel_id, frame, dim_pair):
 # megakernel draws dims base + 2 * seg for these bases: BSDF, light
 # sample, shadow-or-scatter choice, sphere-light pick.
 SAMPLER_BASES = (2, 64, 128, 192)
+# K2's table holds the dims of this many segments (csrc/kshade.cuh::
+# SAMPLER_SEGS): the most the megakernel route traces
+SAMPLER_SEGS = 5
 
 
 def sampler_dims(segments: int) -> list:

@@ -1,7 +1,10 @@
 """Path-trace megakernel: the whole bounce program of a pixel in one launch —
 kernel K2 and its plain twin (port of rtrt_tpu/render/megakernel.py).
 
-Per pixel, SEGMENTS scene intersects; each traces one ray (closest hit, or
+Per pixel, `segments` scene intersects (by default integrator.SEGMENTS,
+from RTRT_SEGMENTS, read at each call, so that both trace routes take one
+count; 1 to SAMPLER_SEGS = 5 on this route, which K2's sampler table
+bounds); each traces one ray (closest hit, or
 any-hit for a pending shadow ray) and runs `shade_segment`: shadow-ray
 resolve, sphere-light hits, deferred escapes, material select + the
 textured materials' procedural soil or Fourier-fitted textures
@@ -40,8 +43,9 @@ from ..core.camera import motion_vector
 from ..utils import cuda
 from .bsdf import MAT_EMISSIVE
 from .ftex import FTEX_ROW, FourierTextures, ftex_shading_c
+from . import integrator
 from .integrator import RADIANCE_CLAMP, GBuffer
-from .kshade import (LIGHT_ROW, V3, SunParamsC, _w,
+from .kshade import (LIGHT_ROW, SAMPLER_SEGS, V3, SunParamsC, _w,
                      bn_rotate, eval_bsdf_c, material_select_c,
                      orient_normals_c, pack_materials_rows,
                      power_heuristic_c, rand2_c, ray_sphere_c,
@@ -53,7 +57,16 @@ from .sampling import power_heuristic
 from .sky import (SUN_COS_THETA_MAX, SUN_DISK_OMEGA, SUN_DISK_PDF,
                   SUN_SIN2_MAX, env_radiance_fit)
 
-SEGMENTS = 5  # scene intersects per pixel
+
+def check_segments(segments: int) -> int:
+    """`segments` if the megakernel route can trace it (1 to SAMPLER_SEGS:
+    K2's sampler table holds the dims of 5 segments), else ValueError
+    (the JAX kernel takes any count; ROADMAP lists where the port is
+    stricter)."""
+    if not 1 <= segments <= SAMPLER_SEGS:
+        raise ValueError(f"segments={segments} (RTRT_SEGMENTS): the "
+                         f"megakernel route traces 1 to {SAMPLER_SEGS}")
+    return segments
 
 
 @dataclasses.dataclass
@@ -317,7 +330,8 @@ def megakernel_trace_plain(tables, mat_rows, light_rows, sun_vec, frame_idx,
                            org, dir, cone, pixel_ids, *, n_lights,
                            use_proctex=True, bn=None, overflow=None,
                            stack_depth=None, visits=None,
-                           hits=None, ftex=None, steps=None) -> MegaOut:
+                           hits=None, ftex=None, steps=None,
+                           segments=None) -> MegaOut:
     """Torch twin of the JAX simulate_megakernel on the port's traversal.
     The work this run's data needs, for a kernel's bound: visits, optional
     [node visits, leaf visits] over all segments (as in
@@ -327,7 +341,10 @@ def megakernel_trace_plain(tables, mat_rows, light_rows, sun_vec, frame_idx,
     sample the BSDF and the lights (not emissive).  stack_depth and steps as
     in megakernel_trace (steps: each ray's node + leaf visits of each
     segment, as bvh.packet.traverse_plain counts them); ftex: the
-    FourierTextures fit itself (an FtexTable's `fit`), or None."""
+    FourierTextures fit itself (an FtexTable's `fit`), or None; segments
+    as in megakernel_trace."""
+    segments = check_segments(integrator.SEGMENTS if segments is None
+                              else segments)
     lead = org.shape[:-1]
     if overflow is None:
         overflow = overflow_counter(org.device)
@@ -335,8 +352,8 @@ def megakernel_trace_plain(tables, mat_rows, light_rows, sun_vec, frame_idx,
     frame = int(frame_idx) & 0xFFFFFFFF
     if bn is not None:
         bnf = _flat(bn, 2)
-        rows = dict(zip(sampler_dims(SEGMENTS),
-                        sampler_table(frame, SEGMENTS).tolist()))
+        rows = dict(zip(sampler_dims(segments),
+                        sampler_table(frame, segments).tolist()))
         sampler = lambda dim: bn_rotate(rows[dim], bnf[:, 0], bnf[:, 1])
     else:
         pix = _flat(pixel_ids).to(torch.int64)
@@ -347,7 +364,7 @@ def megakernel_trace_plain(tables, mat_rows, light_rows, sun_vec, frame_idx,
                    ftex=ftex)
     st = init_state(V3(o[:, 0], o[:, 1], o[:, 2]),
                     V3(d[:, 0], d[:, 1], d[:, 2]), cone_f)
-    for seg in range(SEGMENTS):
+    for seg in range(segments):
         t_cap = torch.where(st.done, 0.0,
                             _w(st.is_shadow, st.shadow_tmax, math.inf))
         fh = st.is_shadow & ~st.done
@@ -362,7 +379,7 @@ def megakernel_trace_plain(tables, mat_rows, light_rows, sun_vec, frame_idx,
             steps[seg + 1] = seg_steps.to(steps.dtype)
         h = _resolve(tables, t, tri, u, v)
         hit = (h.t, h.tri, h.mat, V3(*h.ns.unbind(1)), V3(*h.ng.unbind(1)))
-        st = shade_segment(st, hit, ctx, seg, is_last=(seg == SEGMENTS - 1))
+        st = shade_segment(st, hit, ctx, seg, is_last=(seg == segments - 1))
 
     if steps is not None:
         steps[0] = steps[1:].sum(0)
@@ -378,7 +395,8 @@ def megakernel_trace_plain(tables, mat_rows, light_rows, sun_vec, frame_idx,
 def megakernel_trace(tables, mat_rows, light_rows, sun_vec, frame_idx, org,
                      dir, cone, pixel_ids, *, n_lights, use_proctex=True,
                      bn=None, overflow=None, stack_depth=None,
-                     out=None, ftex=None, steps=None) -> MegaOut:
+                     out=None, ftex=None, steps=None,
+                     segments=None) -> MegaOut:
     """Trace full paths for image-shaped (..., 3) primary rays.  CPU tensors
     run the plain version; CUDA tensors launch K2 (csrc/megakernel.cu).
 
@@ -392,12 +410,16 @@ def megakernel_trace(tables, mat_rows, light_rows, sun_vec, frame_idx, org,
     planes are views of it); ftex: an FtexTable (render/ftex.py::
     upload_ftex, its table on the rays' device) whose fit shades the
     textured materials in place of the procedural soil (whatever
-    use_proctex says), or None; steps: an optional (SEGMENTS + 1, N) int32
+    use_proctex says), or None; steps: an optional (segments + 1, N) int32
     tensor (N the rays) that receives the traversal-step planes: row 1 + s
     each ray's node + leaf visits in segment s (0 where its path ended
     before it), row 0 their sum (K2's step instantiation; not with ftex).
     A count is per path: the JAX kernel's (debug_steps) is uniform over a
-    32x128 ray tile, whose lanes share one traversal stack."""
+    32x128 ray tile, whose lanes share one traversal stack.  segments: the
+    scene intersects a path (the last one ends it), 1 to SAMPLER_SEGS
+    (None: integrator.SEGMENTS); another count raises ValueError."""
+    segments = check_segments(integrator.SEGMENTS if segments is None
+                              else segments)
     if steps is not None and ftex is not None:
         raise ValueError("megakernel_trace: steps= takes no Fourier fit "
                          "(the JAX frame's steps cut traces without one)")
@@ -406,7 +428,8 @@ def megakernel_trace(tables, mat_rows, light_rows, sun_vec, frame_idx, org,
             tables, mat_rows, light_rows, sun_vec, frame_idx, org, dir, cone,
             pixel_ids, n_lights=n_lights, use_proctex=use_proctex, bn=bn,
             overflow=overflow, stack_depth=stack_depth,
-            ftex=None if ftex is None else ftex.fit, steps=steps)
+            ftex=None if ftex is None else ftex.fit, steps=steps,
+            segments=segments)
     dev = org.device
     lead = tuple(org.shape[:-1])
     n = math.prod(lead)
@@ -431,7 +454,7 @@ def megakernel_trace(tables, mat_rows, light_rows, sun_vec, frame_idx, org,
         out = torch.empty((18, n), dtype=torch.float32, device=dev)
     specs["out"] = (out, torch.float32, (18, n))
     if steps is not None:
-        specs["steps"] = (steps, torch.int32, (SEGMENTS + 1, n))
+        specs["steps"] = (steps, torch.int32, (segments + 1, n))
     cuda.check_tensors(dev, **specs)
     _check_tables(tables, dev)
     work = torch.empty(1, dtype=torch.int32, device=dev)  # zeroed by K2
@@ -453,7 +476,7 @@ def megakernel_trace(tables, mat_rows, light_rows, sun_vec, frame_idx, org,
         ctypes.c_int(lead[-1] if len(lead) > 1 else n),
         ftex.table if ftex is not None else ctypes.c_void_p(0),
         steps if steps is not None else ctypes.c_void_p(0),
-        *layout_args(tables))
+        ctypes.c_int(segments), *layout_args(tables))
     p = out.reshape((18,) + lead)
     s3 = lambda k: p[k:k + 3].movedim(0, -1)
     return MegaOut(radiance=s3(0), albedo=s3(3), normal=s3(6), depth=p[9],
@@ -487,8 +510,8 @@ def trace_scene_mega(scene, rays, pixel_ids, frame_idx,
                      stack_depth=None, ftex=None, steps=None) -> MegaOut:
     """megakernel_trace of image-shaped rays over a SceneData: its
     materials, lights and sun packed into K2's rows.  steps as in
-    megakernel_trace, (SEGMENTS + 1, N) for the N rays (the frame's steps
-    cut)."""
+    megakernel_trace, (integrator.SEGMENTS + 1, N) for the N rays (the
+    frame's steps cut); integrator.SEGMENTS scene intersects a path."""
     dev = rays.org.device
     n_lights = 0 if scene.lights is None else scene.lights.center.shape[0]
     return megakernel_trace(

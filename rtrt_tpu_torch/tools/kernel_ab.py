@@ -34,12 +34,18 @@ ms, ptxas' registers and spills of K1-K5's kernels); the parent prints the
 median of each tree's processes beside the card's name and power limit.
 Needs a card.
 
-With ``--probes`` each process times the traversal-step probes instead:
-K6 (`tools/ubench_step.py::run`) in every mode at its CLI's defaults (64
-rows, 4000 steps, 20 reps) and slab and reduce2 at 16 rows, and K7
+With ``--probes`` each process times the probes instead: K6
+(`tools/ubench_step.py::run`) in every mode at its CLI's defaults (64
+rows, 4000 steps, 20 reps) and slab and reduce2 at 16 rows, K7
 (`tools/probe_leaf.py::run`) in every mode at its defaults (32 rows, 400
-steps, 10 reps, the tool's inputs), each tree through its own wrappers
-(ns a step, CUDA events); ptxas' lines are those of K6's and K7's kernels.
+steps, 10 reps, the tool's inputs), K8 (`tools/probe_cores.py::run`) in
+every mode at 32 rows, 400 steps, 10 reps, and K9 (its 8-tile grid with
+the big tables, mode both, 200 steps), and K16 (`tools/probe_bf16.py::
+run`) in both modes at 64 rows, 4000 steps, 30 reps, each tree through
+its own wrappers (ns a step, CUDA events); beside K8, K9 and K16 the
+tree's own floor of a step ("... floor": its bound over the SMs the
+launch fills, which K16's redesign changes).  ptxas' lines are those of
+the probes' kernels.
 """
 
 from __future__ import annotations
@@ -59,7 +65,7 @@ PASSES = (("7x7", 3, 1, True, 0), ("s3", 2, 3, False, 0),
 
 FRAME_KERNELS = ("megakernel", "traverse_kernel", "denoise_wide",
                  "post_tail", "reproject")
-PROBE_KERNELS = ("step_kernel", "leaf_kernel")
+PROBE_KERNELS = ("step_kernel", "leaf_kernel", "cores_kernel", "chains_")
 
 
 def _ptxas(log: str, kernels=FRAME_KERNELS) -> dict:
@@ -185,11 +191,12 @@ def child(tree: str, reps2: int, reps4: int) -> dict:
 
 
 def probe_child(tree: str) -> dict:
-    """Time K6 and K7 of the package in `tree` (this process only)."""
+    """Time K6-K9 and K16 of the package in `tree` (this process only)."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     import rtrt_tpu_torch
-    from rtrt_tpu_torch.tools import probe_leaf, ubench_step
+    from rtrt_tpu_torch.tools import (probe_bf16, probe_cores, probe_leaf,
+                                      ubench_step)
     from rtrt_tpu_torch.utils import cuda
 
     pkg = os.path.dirname(os.path.abspath(rtrt_tpu_torch.__file__))
@@ -205,6 +212,13 @@ def probe_child(tree: str) -> dict:
         res[f"K6 {m} 16 rows"] = ubench_step.run(m, 16, 4000, 20)[0]
     for m in probe_leaf.MODES:
         res[f"K7 {m}"] = probe_leaf.run(m, 32, 400, 10)[0]
+    for m in probe_cores.MODES:
+        res[f"K8 {m}"], res[f"K8 {m} floor"] = probe_cores.run(m, 32, 400,
+                                                              10)
+    res["K9 both"], res["K9 both floor"] = probe_cores.run(
+        "both", 32, steps=200, grid_tiles=8, big_tables=True)
+    for m in probe_bf16.DTYPES:
+        res[f"K16 {m}"], res[f"K16 {m} floor"] = probe_bf16.run(m, 4000, 30)
     return res
 
 
@@ -215,7 +229,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps2", type=int, default=10)
     ap.add_argument("--reps4", type=int, default=50)
     ap.add_argument("--probes", action="store_true",
-                    help="time K6 and K7 instead of K1-K5")
+                    help="time K6-K9 and K16 instead of K1-K5")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
     if a.child is not None:

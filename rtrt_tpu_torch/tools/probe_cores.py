@@ -6,10 +6,12 @@ tile, prunes it against the tile's bound, and visits a leaf (8
 Moller-Trumbore record tests, running best and hit slot, tile-wide max) or
 an internal node (4 slab tests, each child's tile-wide min, the
 5-comparator sort, 3 predicated pushes, a drop count) of a synthetic tree
-(csrc/probe_cores.cu).  K8 runs one tile on one SM; K9 runs 8 tiles, one
-per SM, with (4608, 128) tables.  ns/step is the latency of a step on one
-SM; its floor is the float operations of the visits this run made
-(LEAF_OPS, INT_OPS per lane) over the SMs' share of the card's rate.
+(csrc/probe_cores.cu).  K8 runs one tile on a thread-block cluster of c
+blocks on c SMs (`launch_geometry`: c = 1 up to 16 rows, 2 up to 32); K9
+runs 8 tiles, a cluster each, with (4608, 128) tables.  ns/step is the
+latency of a step of a tile on its cluster's SMs; its floor is the float
+operations of the visits this run made (LEAF_OPS, INT_OPS per lane) over
+those SMs' share of the card's rate.
 
 Usage: python -m rtrt_tpu_torch.tools.probe_cores [--rows 32]
 """
@@ -29,7 +31,10 @@ from .ubench_step import slab
 
 MODES = ("both", "leafonly", "intonly", "depcond")
 STACK = 256
-MAX_ROWS = 32  # 4 lanes per thread, at most 1024 threads
+MAX_ROWS = 32
+# a block takes at most 16 rows: 4 lanes a thread, 32 threads a row, at most
+# 512 threads, so a thread may hold 128 registers
+MAX_BLOCK_ROWS = 16
 NODE_ROWS, LEAF_ROWS = 512, 128  # rows an entry can address
 # float operations per lane, counted from make_kernel: a leaf visit is 8
 # records of a Moller-Trumbore test, the running-min compare and 2 selects,
@@ -165,12 +170,20 @@ def cores_probe_grid_plain(mode: str, ntab, ttab, planes, steps: int):
     return torch.stack(outs), torch.stack(visits)
 
 
+def launch_geometry(rows: int):
+    """(c, block rows) of a K8 / K9 tile of (rows, 128): a cluster of c = 1
+    block up to MAX_BLOCK_ROWS rows, else 2, each of rows / c rows."""
+    if rows % 8 or not 0 < rows <= MAX_ROWS:
+        raise ValueError(f"rows {rows}: a multiple of 8 up to {MAX_ROWS}")
+    c = 1 if rows <= MAX_BLOCK_ROWS else 2
+    return c, rows // c
+
+
 def _launch(name, entry, mode, ntab, ttab, planes, tiles, steps):
     rows = planes.shape[-2]
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
-    if rows % 8 or not 0 < rows <= MAX_ROWS:
-        raise ValueError(f"rows {rows}: a multiple of 8 up to {MAX_ROWS}")
+    cluster, _ = launch_geometry(rows)
     # an internal entry addresses ntab row entry & 511 and a leaf entry
     # ttab row (entry & 1023) // 8
     if ntab.shape[0] < NODE_ROWS or ttab.shape[0] < LEAF_ROWS:
@@ -184,7 +197,7 @@ def _launch(name, entry, mode, ntab, ttab, planes, tiles, steps):
     visits = torch.empty(out.shape[:-2] + (2,), dtype=torch.int32,
                          device=dev)
     args = [ctypes.c_int(MODES.index(mode)), ntab, ttab, planes, out, visits,
-            ctypes.c_int(rows)]
+            ctypes.c_int(rows), ctypes.c_int(cluster)]
     if tiles is not None:
         args.append(ctypes.c_int(tiles))
     cuda.launch(entry, name, dev, *args, ctypes.c_int(steps))
@@ -217,15 +230,16 @@ def cores_probe_grid(mode: str, ntab, ttab, planes, steps: int):
 
 def bound(ntab, ttab, planes, visits):
     """(ms, "bytes" or "operations"): the least time of one launch on the
-    SMs its tiles occupy (tables and planes read once, out written once;
-    the visits this run made)."""
+    SMs its tiles' clusters fill (tables and planes read once, out written
+    once; the visits this run made)."""
     tiles = planes.shape[1] if planes.dim() == 4 else 1
     lanes = planes.shape[-2] * 128
+    c = launch_geometry(planes.shape[-2])[0]
     nbytes = (ntab.numel() + ttab.numel() + planes.numel()) * 4 \
         + tiles * lanes * 4
     v = visits.reshape(-1, 2).sum(0).tolist()
     return timing.bound_ms(nbytes, (v[0] * LEAF_OPS + v[1] * INT_OPS) * lanes,
-                           share=tiles / timing.SMS)
+                           share=tiles * c / timing.SMS)
 
 
 def run(mode: str, rows: int, steps: int = 400, reps: int = 10,
@@ -233,7 +247,7 @@ def run(mode: str, rows: int, steps: int = 400, reps: int = 10,
     """(ns per step, floor ns per step) of K8 (or K9 with grid_tiles > 1 or
     big tables) in `mode` on the card, CUDA events, on the JAX tool's
     inputs; a step of the grid is one tile's step (the JAX tool divides by
-    steps x tiles)."""
+    steps x tiles), each tile on its cluster's SMs."""
     ntab, ttab, planes = tool_inputs(rows, grid_tiles, big_tables, device)
     if grid_tiles == 1 and not big_tables:
         planes = planes[:, 0].contiguous()
@@ -252,7 +266,9 @@ def main(argv=None):
     ap.add_argument("--rows", type=int, default=32)
     args = ap.parse_args(argv)
     card = timing.card()
-    print(card)
+    c = launch_geometry(args.rows)[0]
+    print(f"{card}; a {args.rows}x128 tile on a cluster of {c} SMs, ns a "
+          f"step of the tile")
     ns, floor = run("both", args.rows)
     print(f"  1-tile, small tables: {ns:8.1f} ns/step  floor {floor:8.1f} "
           f"ns/step [{card}]", flush=True)

@@ -2,30 +2,40 @@
 issue-slot floor of a step.
 
     python -m rtrt_tpu_torch.tools.sass_loops [--tree DIR]
-        [--warps step_kernel=16] [--warps leaf_kernel=32]
+        [--warps step_kernel=16] [--warps leaf_kernel=32] ...
 
 Builds (or finds) the kernel library of the package in DIR (this checkout
 by default; another revision unpacked beside it works the same way: its
 own utils/cuda.py builds it into DIR/build/), disassembles it with
 `cuobjdump -sass` and, for every instantiation of K6 (`step_kernel`,
 csrc/probe_step.cu; reduce2 and reduce4 have a lone-block and a cluster
-instantiation) and K7 (`leaf_kernel`, csrc/probe_leaf.cu), finds the
-step loop (the backward branch that spans the most instructions: the
-other loops of these kernels are a few instructions long) and counts its
-warp instructions by kind.  ptxas' registers and spill stores of the same
-instantiation come from the build log.  The step loops of both kernels
-are not unrolled in this checkout, so a loop body is one step; where the
-loop holds a branch that a run never takes (K7's fat and carry4: the
-internal visit), the count holds it too.
+instantiation), K7 (`leaf_kernel`, csrc/probe_leaf.cu), K8 / K9
+(`cores_kernel`, csrc/probe_cores.cu; a lone-block and a cluster
+instantiation a mode) and K16 (`chains_f32`, `chains_bf16`,
+csrc/probe_bf16.cu), finds the step loop (the backward
+branch that spans the most instructions: the other loops of these
+kernels are a few instructions long) and counts its warp instructions by
+kind.  ptxas' registers and spill stores of the same instantiation come
+from the build log.  A K6-K8 step loop is not unrolled in this checkout,
+so a loop body is one step; where the loop holds a branch that a run
+never takes (K7's fat and carry4: the internal visit) or one of two
+branches a step takes (K8's both and depcond: a leaf or an internal
+visit), the count holds it too (K8's leafonly and intonly loops hold one
+visit each).  K16's body may hold several steps (nvcc unrolls its bf16
+loop by 4): `steps_in_body` is its min / max instructions over the 2 x 8
+chains x lanes (f32) or pairs (bf16) of one step, the lanes a thread
+being the `constexpr int L` of DIR's csrc/probe_bf16.cu.
 
 The issue-slot floor of a step: each SM issues at most 4 warp
 instructions a clock (one a sub-partition, 128 threads), so a step costs
-at least instructions x warps an SM / 4 clocks, at the card's highest SM
-clock (`nvidia-smi --query-gpu=clocks.max.sm`).  `--warps NAME=N`: the
-warps a launch puts on each SM (defaults: this checkout's geometry at
-each CLI's default rows, K6 16 at 64 rows on 4 SMs, K7 32 at 32 rows).
-Prints one line ``SASS {json}`` per instantiation.  Needs the CUDA
-toolkit (nvcc, cuobjdump) and a card for the clock.
+at least instructions a step x warps an SM / 4 clocks, at the card's
+highest SM clock (`nvidia-smi --query-gpu=clocks.max.sm`).  `--warps
+NAME=N`: the warps a launch puts on each SM (defaults: this checkout's
+geometry at each CLI's default rows: K6 16 at 64 rows on 4 SMs, K7 32
+at 32 rows, K8 16 at 32 rows on 2 SMs, K16 32: 16 rows a block at 2
+lanes a thread, as the one-block K16 of 64 rows at 8 had).  Prints
+one line ``SASS {json}`` per instantiation.  Needs the CUDA toolkit
+(nvcc, cuobjdump) and a card for the clock.
 """
 
 from __future__ import annotations
@@ -39,13 +49,16 @@ import shutil
 import subprocess
 import sys
 
-KERNELS = {"step_kernel": "K6", "leaf_kernel": "K7"}
+KERNELS = {"step_kernel": "K6", "leaf_kernel": "K7", "cores_kernel": "K8",
+           "chains_f32": "K16", "chains_bf16": "K16"}
+K16_CHAINS = 8
 # SASS opcodes (the part before the first '.') by kind; anything else is
 # "other" (integer and logic ops, moves, special registers, uniform ops)
 KINDS = {
     "fp32 add/mul/fma": ("FADD", "FMUL", "FFMA", "FADD32I", "FMUL32I",
                          "FFMA32I"),
     "fp32 cmp/min/max/sel": ("FSETP", "FSET", "FMNMX", "FSEL", "FCHK"),
+    "fp16/bf16x2": ("HADD2", "HMUL2", "HFMA2", "HMNMX2", "HSETP2", "HSET2"),
     "int cmp/sel": ("ISETP", "SEL", "IMNMX", "PLOP3"),
     "mufu": ("MUFU",),
     "load/store": ("LDG", "LDS", "LD", "STG", "STS", "ST", "LDGSTS",
@@ -163,18 +176,42 @@ def max_sm_mhz() -> float:
 
 
 def default_warps() -> dict:
-    """Warps an SM of each probe's launch at its CLI's default rows: a
-    block has 32 threads (one warp) a row, K6's block_rows of 64, K7's
-    32."""
-    from . import ubench_step
+    """Warps an SM of each probe's launch at its CLI's default rows: K6-K8
+    have 32 threads (one warp) a row of their block, K6's block_rows of
+    64, K7's 32, K8's block_rows of 32; K16 has 64 threads (2 lanes a
+    thread) a row of its block_rows of 64."""
+    from . import probe_bf16, probe_cores, ubench_step
+    k16 = probe_bf16.launch_geometry(probe_bf16.SHAPE[0])[1] * 2
     return {"step_kernel": ubench_step.launch_geometry(64)[1],
-            "leaf_kernel": 32}
+            "leaf_kernel": 32,
+            "cores_kernel": probe_cores.launch_geometry(32)[1],
+            "chains_f32": k16, "chains_bf16": k16}
+
+
+def k16_lanes(tree: str) -> int:
+    """K16's lanes a thread in DIR: the `constexpr int L` of its
+    csrc/probe_bf16.cu."""
+    path = os.path.join(tree, "rtrt_tpu_torch", "csrc", "probe_bf16.cu")
+    with open(path) as f:
+        return int(re.search(r"constexpr int L = (\d+);", f.read()).group(1))
+
+
+def steps_in_body(kern: str, lanes: int, loop) -> float:
+    """K16: the steps one pass of the loop body runs (its FMNMX or HMNMX2
+    instructions over one step's); 1 for the other probes."""
+    if not kern.startswith("chains"):
+        return 1
+    f32 = kern == "chains_f32"
+    mnmx = sum(op.split(".")[0] == ("FMNMX" if f32 else "HMNMX2")
+               for _, op, _ in loop)
+    return mnmx / (2 * K16_CHAINS * (lanes if f32 else lanes // 2))
 
 
 def measure(tree: str, warps: dict, mhz: float) -> list:
-    from . import probe_leaf, ubench_step
+    from . import probe_cores, probe_leaf, ubench_step
     modes = {"step_kernel": ubench_step.MODES,
-             "leaf_kernel": probe_leaf.MODES}
+             "leaf_kernel": probe_leaf.MODES,
+             "cores_kernel": probe_cores.MODES}
     cuda = _tree_cuda(tree)
     lib = cuda.build()
     log = cuda.build_info.get("log", "")
@@ -186,7 +223,11 @@ def measure(tree: str, warps: dict, mhz: float) -> list:
         if kern is None:
             continue
         m = re.search(r"ILi(\d+)E(Lb1E)?", fn)
-        mode = modes[kern][int(m.group(1))] if m else "?"
+        lanes = k16_lanes(tree) if kern.startswith("chains") else None
+        if lanes:
+            mode = f"{kern[7:]} lanes {lanes}"
+        else:
+            mode = modes[kern][int(m.group(1))] if m else "?"
         if m and m.group(2):  # K6's reduce2 / reduce4 over a cluster
             mode += " cluster"
         loop, loops = step_loop(body)
@@ -194,11 +235,13 @@ def measure(tree: str, warps: dict, mhz: float) -> list:
         for _, op, _ in loop:
             counts[kind(op)] = counts.get(kind(op), 0) + 1
         regs, spill = ptxas(log, fn)
-        n = len(loop)
+        steps = steps_in_body(kern, lanes, loop)
+        n = len(loop) / steps if steps else float("nan")
         w = warps[kern]
         rows.append(dict(
             tree=tree, kernel=KERNELS[kern], mode=mode, registers=regs,
-            spill_stores=spill, instructions=n, by_kind=counts,
+            spill_stores=spill, instructions=len(loop), by_kind=counts,
+            steps_in_body=steps, instructions_per_step=n,
             backward_branches=loops, warps_per_sm=w, sm_mhz=mhz,
             issue_floor_ns=n * w / 4 / (mhz * 1e-3)))
     return rows

@@ -62,7 +62,7 @@ _SIGNATURES = {
     + [_I] * 4 + [_P],
     "rtrt_traverse_stack": [ctypes.POINTER(_I), _I, _I, _I],
     "rtrt_megakernel": [_P] * 6 + [_I, _P, _I, _P] + [_F] * 4 + [_U]
-    + [_P] * 5 + [_I, _I, _I] + [_P] * 4 + [_I, _P, _P] + [_I] * 4
+    + [_P] * 5 + [_I, _I, _I] + [_P] * 4 + [_I, _P, _P] + [_I] * 5
     + [_P],
     "rtrt_post_tail": [_P, _I, _I, _P, _P, _I, _I, _I, _P] + [_P],
     "rtrt_denoise_wide": [_P] * 4 + [_I, _I, _P] + [_I] * 4 + [_F] * 3
@@ -70,8 +70,8 @@ _SIGNATURES = {
     "rtrt_reproject": [_P] * 6 + [_I] * 6 + [_P] * 6 + [_P],
     "rtrt_probe_step": [_I, _P, _P, _P, _P, _I, _I, _I] + [_P],
     "rtrt_probe_leaf": [_I, _P, _P, _P, _I, _I] + [_P],
-    "rtrt_probe_cores": [_I] + [_P] * 5 + [_I, _I] + [_P],
-    "rtrt_probe_cores_grid": [_I] + [_P] * 5 + [_I, _I, _I] + [_P],
+    "rtrt_probe_cores": [_I] + [_P] * 5 + [_I, _I, _I] + [_P],
+    "rtrt_probe_cores_grid": [_I] + [_P] * 5 + [_I] * 4 + [_P],
     "rtrt_probe_cond": [_I, _P, _P, _P] + [_I] * 5 + [_P],
     "rtrt_probe_smem_alloc": [_P, _P, _I, _I] + [_P],
     "rtrt_smem_optin": [_I, ctypes.POINTER(_I)],
@@ -79,7 +79,7 @@ _SIGNATURES = {
     "rtrt_probe_pressure": [_I] + [_P] * 4 + [_I, _I] + [_P],
     "rtrt_probe_broadcast": [_I] + [_P] * 4 + [_I, _I] + [_P],
     "rtrt_probe_xpose": [_I, _P, _P, _P, _I, _I] + [_P],
-    "rtrt_probe_bf16": [_I, _P, _P, _F, _I, _I] + [_P],
+    "rtrt_probe_bf16": [_I, _P, _P, _F] + [_I] * 4 + [_P],
 }
 
 _lib = None

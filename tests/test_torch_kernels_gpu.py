@@ -25,6 +25,8 @@ Tolerances:
     the median, the escape direction unchanged on 98.8% of them); with
     rtol 1e-2 added, 99.98% agree.  The kernel differs from the plain
     version the same way: 4.3% of hits beyond atol 5e-3, by 0.25-0.5%.
+    The same bounds at segments=3 (RTRT_SEGMENTS=3), with step planes of
+    4 rows.
   * K3 post tail: u8 within 1 LSB everywhere and equal on >= 99.9% (a value
     within a few ulps of a quantisation step may round either way: the
     kernel's gamma is exp2(log2) by the fast intrinsics and its divisions
@@ -76,7 +78,8 @@ Tolerances:
     own inputs and on rays that hit every record.
   * K10-K16, the hardware probes (probe_cond, probe_smem, probe_pressure,
     probe_broadcast, probe_xpose, probe_bf16): bit-equal in every mode on
-    every input recipe of tests/test_torch_hw_probes.py.  The kernels
+    every input recipe of tests/test_torch_hw_probes.py (K16 also at
+    every row count 8-64, split over c = 1-4 SMs).  The kernels
     round each product on its own (__fmul_rn) and each bf16 operation to
     bf16, as torch's ops do; K10's three modes agree, and so do K15's two.
     K11 is accepted at 48 KB and at the card's opt-in maximum, refused one
@@ -127,6 +130,7 @@ from rtrt_tpu_torch.engine.engine import Engine
 from rtrt_tpu_torch.engine.scene import build_chain_scene, chain_scene_rays
 from rtrt_tpu_torch.post.pipeline import dither_mask
 from rtrt_tpu_torch.post.tail import post_tail, post_tail_plain, tail_params
+from rtrt_tpu_torch.render import integrator as I
 from rtrt_tpu_torch.render import megakernel as M
 from rtrt_tpu_torch.render.ftex import upload_ftex
 from rtrt_tpu_torch.render.kshade import pack_materials_rows
@@ -245,9 +249,9 @@ def test_megakernel_steps_matches_plain(engine, cuda_device):
     n = rw * rh
     out_a, out_b = (torch.full((18, n), float("nan"), device=cuda_device)
                     for _ in range(2))
-    steps = torch.full((M.SEGMENTS + 1, n), -1, dtype=torch.int32,
+    steps = torch.full((I.SEGMENTS + 1, n), -1, dtype=torch.int32,
                        device=cuda_device)
-    plain = torch.zeros((M.SEGMENTS + 1, n), dtype=torch.int32,
+    plain = torch.zeros((I.SEGMENTS + 1, n), dtype=torch.int32,
                         device=cuda_device)
     cuda.reset_launch_counts()
     M.megakernel_trace(*args, n_lights=1, bn=consts.bn, out=out_a)
@@ -266,6 +270,58 @@ def test_megakernel_steps_matches_plain(engine, cuda_device):
     with pytest.raises(ValueError, match="Fourier"):
         M.megakernel_trace(*args, n_lights=1, bn=consts.bn, steps=steps,
                            ftex=object())
+
+
+@pytest.mark.gpu
+def test_megakernel_segments_matches_plain(engine, cuda_device):
+    """K2 at segments=3 (RTRT_SEGMENTS=3's route): its planes against the
+    plain version's at 3 at test_megakernel_matches_plain's bounds and
+    unlike the 5-segment launch's, its step planes of 4 rows equal to the
+    plain version's on >= 99.9% of pixels; 0 and 6 refused."""
+    sc, consts = engine.scene_data, engine.consts
+    rw, rh = engine.render_w, engine.render_h
+    pix = consts.pixel_ids
+    rays = generate_rays_padded(camera_basis(engine.camera), rw, rh, pix,
+                                rand2_bn(consts.bn, 3, 0),
+                                rand2_bn(consts.bn, 3, 256))
+    args = (sc.tables, pack_materials_rows(sc.materials).to(cuda_device),
+            M.pack_light_rows(sc.lights, cuda_device),
+            M.pack_sun_params(sc.sky), 3, rays.org, rays.dir,
+            rays.cone_width, pix)
+    n = rw * rh
+    kw = dict(n_lights=1, bn=consts.bn, segments=3)
+    got = M.megakernel_trace(*args, **kw)
+    ref = M.megakernel_trace_plain(*args, **kw)
+    five = M.megakernel_trace(*args, n_lights=1, bn=consts.bn, segments=5)
+    steps = torch.full((4, n), -1, dtype=torch.int32, device=cuda_device)
+    plain = torch.zeros((4, n), dtype=torch.int32, device=cuda_device)
+    got_s = M.megakernel_trace(*args, **kw, steps=steps)
+    M.megakernel_trace_plain(*args, **kw, steps=plain)
+    torch.cuda.synchronize()
+    for f in ("radiance", "albedo", "normal", "depth", "esc_beta"):
+        assert torch.equal(getattr(got, f), getattr(got_s, f)), f
+    assert not (torch.equal(got.radiance, five.radiance)
+                and torch.equal(got.esc_beta, five.esc_beta))
+    d_ok = torch.isclose(got.depth, ref.depth, rtol=1e-4, atol=0) | (
+        torch.isinf(got.depth) & torch.isinf(ref.depth))
+    assert d_ok.float().mean() >= 0.99
+    assert (got.mat_id == ref.mat_id).float().mean() >= 0.99
+    miss = (got.mat_id == -1) & (ref.mat_id == -1)
+    for f in ("normal", "albedo", "esc_dir", "esc_beta", "esc_pdf"):
+        a, b = getattr(got, f), getattr(ref, f)
+        rtol = 1e-2 if f == "esc_beta" else 0.0
+        ok = ((a - b).abs() - rtol * b.abs()).reshape(rh, rw, -1).amax(-1) \
+            <= 5e-3
+        assert ok[~miss].float().mean() >= 0.99, f
+    torch.testing.assert_close(got.radiance.mean((0, 1)),
+                               ref.radiance.mean((0, 1)), rtol=1e-2,
+                               atol=1e-4)
+    assert (steps >= 0).all() and torch.equal(steps[1:].sum(0), steps[0])
+    assert (steps == plain).all(0).float().mean() >= 0.999
+    for bad in (0, 6):
+        with pytest.raises(ValueError, match="segments"):
+            M.megakernel_trace(*args, n_lights=1, bn=consts.bn,
+                               segments=bad)
 
 
 @pytest.mark.gpu
@@ -957,7 +1013,7 @@ def test_probe_leaf_kernel_matches_plain(cuda_device, mode, rows, steps):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows", [8, 32])
+@pytest.mark.parametrize("rows", [8, 16, 24, 32])
 @pytest.mark.parametrize("mode", probe_cores.MODES)
 def test_probe_cores_kernel_matches_plain(cuda_device, mode, rows):
     for make in (probe_cores.tool_inputs, probe_cores.hit_inputs):
@@ -1086,6 +1142,21 @@ def test_probe_bf16_kernel_matches_plain(cuda_device, dtype, steps):
         ref = probe_bf16.bf16_probe_plain(dtype, x, steps)
         torch.cuda.synchronize()
         assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", list(range(8, 65, 8)))
+@pytest.mark.parametrize("dtype", list(probe_bf16.DTYPES))
+def test_probe_bf16_kernel_split_over_sms(cuda_device, dtype, rows):
+    """K16 split over c = 1-4 SMs (probe_bf16.launch_geometry), both input
+    recipes: bit-equal to the plain version."""
+    assert probe_bf16.launch_geometry(rows)[0] == -(-rows // 16)
+    for make in (probe_bf16.tool_inputs, probe_bf16.uniform_inputs):
+        x = make(rows, cuda_device)
+        ref = probe_bf16.bf16_probe_plain(dtype, x, 20)
+        got = probe_bf16.bf16_probe(dtype, x, 20)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), make.__name__
 
 
 @pytest.mark.gpu

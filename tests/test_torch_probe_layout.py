@@ -1,12 +1,18 @@
-"""K6's launch geometry and bound, the SASS counter of the probe tools, and
-one JAX parity case of the plain K6 at a cluster-split row count, on the
-CPU.
+"""K6's, K8's and K16's launch geometries and bounds, the SASS counter of
+the probe tools, and one JAX parity case of the plain K6 at a
+cluster-split row count, on the CPU.
 
 K6 (rtrt_tpu_torch/csrc/probe_step.cu) splits a (rows, 128) tile over a
 thread-block cluster of c blocks, c the smallest of 1, 2, 4 with rows <=
 16 c; `ubench_step.launch_geometry` computes c and the rows a block for
 every row count the wrapper accepts, and `ubench_step.bound` scales the
-card's rates by the c SMs the launch fills.  The kernels themselves run
+card's rates by the c SMs the launch fills.  K16
+(rtrt_tpu_torch/csrc/probe_bf16.cu) splits its tile over a grid of c =
+ceil(rows / 16) plain blocks of ceil(rows / c) rows (`probe_bf16.
+launch_geometry`), and `probe_bf16.bound` takes c / 132 of the card.  K8 /
+K9 (rtrt_tpu_torch/csrc/probe_cores.cu) run a tile on a cluster of 1 block
+up to 16 rows and 2 beyond (`probe_cores.launch_geometry`), and
+`probe_cores.bound` takes tiles x c / 132.  The kernels themselves run
 only on the card (tests/test_torch_kernels_gpu.py).
 """
 
@@ -17,10 +23,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from rtrt_tpu_torch.tools import sass_loops, ubench_step
+from rtrt_tpu_torch.tools import (probe_bf16, probe_cores, sass_loops,
+                                  ubench_step)
 from rtrt_tpu_torch.utils import timing
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -60,6 +68,73 @@ def test_bound_scales_with_the_cluster(mode):
         ubench_step.bound(mode, 16, steps)[0], rel=1e-12)
 
 
+K16_GEOMETRY = {8: (1, 8), 16: (1, 16), 24: (2, 12), 32: (2, 16),
+                40: (3, 14), 48: (3, 16), 56: (4, 14), 64: (4, 16)}
+
+
+@pytest.mark.parametrize("rows", sorted(K16_GEOMETRY))
+def test_k16_launch_geometry(rows):
+    c, block_rows = probe_bf16.launch_geometry(rows)
+    assert (c, block_rows) == K16_GEOMETRY[rows]
+    # the blocks cover the tile, the last one by less than a block
+    assert (c - 1) * block_rows < rows <= c * block_rows
+    assert block_rows <= probe_bf16.MAX_BLOCK_ROWS
+    assert block_rows * 128 // 2 <= 1024  # 2 lanes a thread
+
+
+@pytest.mark.parametrize("rows", [0, 4, 12, 72, -8])
+def test_k16_launch_geometry_refuses(rows):
+    with pytest.raises(ValueError, match="rows"):
+        probe_bf16.launch_geometry(rows)
+
+
+@pytest.mark.parametrize("dtype", list(probe_bf16.DTYPES))
+def test_k16_bound_scales_with_its_sms(dtype):
+    steps = 4000
+    rate = timing.BF16_OPS if dtype == "bf16" else timing.F32_OPS
+    for rows, (c, _) in K16_GEOMETRY.items():
+        ms, by = probe_bf16.bound(dtype, rows, steps)
+        ops = probe_bf16.LANE_OPS * rows * 128 * steps
+        assert by == "operations"
+        assert ms == pytest.approx(ops / (rate * c / timing.SMS) * 1e3,
+                                   rel=1e-12)
+    # 64 rows on 4 SMs: the time of 16 rows on one
+    assert probe_bf16.bound(dtype, 64, steps)[0] == pytest.approx(
+        probe_bf16.bound(dtype, 16, steps)[0], rel=1e-12)
+
+
+K8_GEOMETRY = {8: (1, 8), 16: (1, 16), 24: (2, 12), 32: (2, 16)}
+
+
+@pytest.mark.parametrize("rows", sorted(K8_GEOMETRY))
+def test_k8_launch_geometry(rows):
+    c, block_rows = probe_cores.launch_geometry(rows)
+    assert (c, block_rows) == K8_GEOMETRY[rows]
+    assert c * block_rows == rows
+    assert block_rows * 128 // 4 <= 512  # 4 lanes a thread
+
+
+@pytest.mark.parametrize("rows", [0, 4, 12, 40, -8])
+def test_k8_launch_geometry_refuses(rows):
+    with pytest.raises(ValueError, match="rows"):
+        probe_cores.launch_geometry(rows)
+
+
+def test_k8_bound_scales_with_its_clusters():
+    visits = torch.tensor([364, 36])
+    for rows, (c, _) in K8_GEOMETRY.items():
+        ntab, ttab, planes = probe_cores.tool_inputs(rows, device="cpu")
+        ms, by = probe_cores.bound(ntab, ttab, planes[:, 0], visits)
+        ops = (364 * probe_cores.LEAF_OPS + 36 * probe_cores.INT_OPS) \
+            * rows * 128
+        assert by == "operations"
+        assert ms == pytest.approx(ops / (timing.F32_OPS * c / timing.SMS)
+                                   * 1e3, rel=1e-12)
+        grid = probe_cores.bound(ntab, ttab, torch.cat([planes] * 8, 1),
+                                 visits.repeat(8, 1))
+        assert grid[0] == pytest.approx(ms, rel=1e-9)  # 8 tiles, 8 c SMs
+
+
 _SASS = """
 \t\tFunction : _ZN12_GLOBAL__N_111step_kernelILi4ELb1EEEvPKfS2_PfS3_i
         /*0000*/                   LDC R1, c[0x0][0x28] ;
@@ -91,6 +166,39 @@ def test_sass_loops_counts_the_step_loop():
     kinds = [sass_loops.kind(op) for _, op, _ in loop]
     assert kinds == ["load/store", "fp32 add/mul/fma", "fp32 cmp/min/max/sel",
                      "local (spill)", "shuffle/vote", "int cmp/sel", "control"]
+
+
+_SASS_BF16 = """
+\t\tFunction : _ZN12_GLOBAL__N_111chains_bf16ILi8EEEvPKfPffii
+.L_x_3:
+        /*0000*/                   HMUL2.BF16_V2 R4, R2.H0_H0, R5 ;
+        /*0010*/                   HFMA2.BF16_V2 R6, R4, 1, 1, R7 ;
+        /*0020*/                   HADD2.BF16_V2 R6, R6, -R8 ;
+        /*0030*/                   HMNMX2.BF16_V2 R6, R6, -3, -3, !PT ;
+        /*0040*/                   HMNMX2.BF16_V2 R6, R6, 3, 3, PT ;
+        /*0050*/                   FMNMX R9, R9, 3, PT ;
+        /*0060*/                   ISETP.GE.AND P0, PT, R0, c[0x0][0x210], PT ;
+        /*0070*/               @P0 BRA `(.L_x_3) ;
+"""
+
+
+def test_sass_loops_counts_half_precision():
+    """HADD2, HMUL2, HFMA2 and HMNMX2 (bf16x2 here) are a kind of their
+    own, and K16's loop is read by its min / max count: 2 a pair (f32: a
+    lane) of each of the 8 chains a step."""
+    (name, body), = sass_loops.functions(_SASS_BF16).items()
+    loop, _ = sass_loops.step_loop(body)
+    kinds = [sass_loops.kind(op) for _, op, _ in loop]
+    assert kinds[:5] == ["fp16/bf16x2"] * 5
+    assert kinds[5:] == ["fp32 cmp/min/max/sel", "int cmp/sel", "control"]
+    assert sass_loops.steps_in_body("chains_bf16", 8, loop) == 2 / 64
+    assert sass_loops.steps_in_body("chains_f32", 8, loop) == 1 / 128
+    assert sass_loops.steps_in_body("cores_kernel", 4, loop) == 1
+    # csrc/probe_bf16.cu's lanes a thread, and the 1024 threads (32 warps)
+    # of its block at the CLI's 64 rows
+    assert sass_loops.k16_lanes(REPO) == 2
+    warps = sass_loops.default_warps()
+    assert warps["chains_f32"] == warps["chains_bf16"] == 32
 
 
 def _jax_ubench():

@@ -13,7 +13,7 @@ import torch
 from rtrt_tpu.render import kshade as JK
 from rtrt_tpu.render.sampling import _dim_shift as j_dim_shift
 from rtrt_tpu_torch.render import kshade as TK
-from rtrt_tpu_torch.render.megakernel import SEGMENTS
+from rtrt_tpu_torch.render.kshade import SAMPLER_SEGS as SEGMENTS
 
 torch.set_num_threads(1)
 

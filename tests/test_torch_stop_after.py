@@ -59,6 +59,7 @@ from rtrt_tpu_torch.denoise.pipeline import init_history as tinit_history
 from rtrt_tpu_torch.engine import frame as TF
 from rtrt_tpu_torch.engine.scene import build_demo_scene as tdemo
 from rtrt_tpu_torch.engine.scene import padded_arrays as tpadded
+from rtrt_tpu_torch.render import integrator as I
 from rtrt_tpu_torch.render import megakernel as M
 from rtrt_tpu_torch.render.integrator import SceneData
 from rtrt_tpu_torch.render.kshade import pack_materials_rows
@@ -242,27 +243,27 @@ def test_steps_cut(port, request, interlace):
     run = request.getfixturevalue("interlaced" if interlace else "cuts")
     (steps,), _ = run["steps"]
     rows = H // 2 if interlace else H
-    assert steps.shape == (M.SEGMENTS + 1, rows, W)
+    assert steps.shape == (I.SEGMENTS + 1, rows, W)
     assert steps.dtype == torch.int32
     total, segs = steps[0], steps[1:]
     assert torch.equal(segs.sum(0), total)
     assert (segs >= 0).all()
     tables = port["scene"].tables
     n_rows = tables.nodes.shape[0] + tables.tris.shape[0] // 8
-    assert int(total.max()) < M.SEGMENTS * n_rows
+    assert int(total.max()) < I.SEGMENTS * n_rows
     if interlace:
         return
     rays, consts = _frame_rays(port, _static())
     sc = port["scene"]
     visits = [0, 0]
-    plain = torch.zeros((M.SEGMENTS + 1, H * W), dtype=torch.int32)
+    plain = torch.zeros((I.SEGMENTS + 1, H * W), dtype=torch.int32)
     M.megakernel_trace_plain(
         sc.tables, pack_materials_rows(sc.materials),
         M.pack_light_rows(sc.lights, "cpu"), M.pack_sun_params(sc.sky), 0,
         rays.org, rays.dir, rays.cone_width, consts.pixel_ids,
         n_lights=sc.lights.center.shape[0], bn=consts.bn, visits=visits,
         steps=plain)
-    assert torch.equal(steps.reshape(M.SEGMENTS + 1, -1), plain)
+    assert torch.equal(steps.reshape(I.SEGMENTS + 1, -1), plain)
     assert int(total.sum()) == visits[0] + visits[1]
     # the primary segment traverses wherever the ray meets the root box
     kids = tables.nodes[0, :24].reshape(4, 6)
