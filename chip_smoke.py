@@ -60,8 +60,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      probe_xpose, K16 probe_bf16, every mode against its plain version on
      the card at the tools' rows and a cut step count, on every input
      recipe of tests/test_torch_hw_probes.py (bit-equal; K10's three modes
-     and K15's two agree; K16, split over c SMs, at every row count 8-64
-     (c = 1-4)); K11 at the card's shared-memory edge (accepted
+     and K15's two agree; K13 split over c = 4 and 1 SMs at its 64 and 8
+     rows, K15 at every row count 8-32 (c = 1-4) and K16 at every row
+     count 8-64 (c = 1-4)); K11 at the card's shared-memory edge (accepted
      at 48 KB and at the opt-in maximum, refused one float beyond and at
      every size of the JAX tool); then, with the launch counters reset,
      the six tools' entry points at their default steps and reps (every
@@ -3255,11 +3256,12 @@ def _hw_probes(card):
                  PR.broadcast_probe(m, *args, PROBE_CUT),
                  PR.broadcast_probe_plain(m, *args, PROBE_CUT))
     for make in (PX.tool_inputs, PX.hit_inputs):
-        tab, planes = make(32, dev)
-        ref = PX.xpose_probe_plain("extract", tab, planes, PROBE_CUT)
-        for m in PX.MODES:  # both against one plain version
-            same("K15", f"{make.__name__} {m}",
-                 PX.xpose_probe(m, tab, planes, PROBE_CUT), ref)
+        for rows in range(8, 33, 8):  # c = 1, 2, 3, 4 SMs
+            tab, planes = make(rows, dev)
+            ref = PX.xpose_probe_plain("extract", tab, planes, PROBE_CUT)
+            for m in PX.MODES:  # both against one plain version
+                same("K15", f"{make.__name__} {m} rows {rows}",
+                     PX.xpose_probe(m, tab, planes, PROBE_CUT), ref)
     for make in (PB.tool_inputs, PB.uniform_inputs):
         for rows in range(8, 65, 8):  # c = 1, 2, 3, 4 SMs
             x = make(rows, dev)
@@ -3269,7 +3271,11 @@ def _hw_probes(card):
                          f"steps {steps}", PB.bf16_probe(d, x, steps),
                          PB.bf16_probe_plain(d, x, steps))
     print(f"K10 and K12-K16 vs plain on the card, every mode, the tools' "
-          f"rows, {PROBE_CUT} steps (K16 every row count 8-64 on "
+          f"rows, {PROBE_CUT} steps (K13 at 64 and 8 rows on "
+          f"{[PP.launch_geometry(r)[0] for r in PP.ROWS]} SMs; K15 every "
+          f"row count 8-32 on "
+          f"{[PX.launch_geometry(r)[0] for r in range(8, 33, 8)]} SMs; K16 "
+          f"every row count 8-64 on "
           f"{[PB.launch_geometry(r)[0] for r in range(8, 65, 8)]} SMs, 8 "
           f"steps, and {PROBE_CUT} at 64 rows), every input recipe of the "
           f"tests: max abs err {err}")
@@ -3349,8 +3355,10 @@ def _hw_probes(card):
               "steps)", "probe_consume.cu", "tools/probe_smem.py:85",
               "probe_smem_consume", r12["smem"]["ns"] * 400 / 1e6,
               PC.bound(64, 400)),
-        entry("K13", "probe_pressure (the consume with live planes; ms per "
-              "launch at 64 rows, 20 planes, 400 steps)", "probe_consume.cu",
+        entry("K13", f"probe_pressure (the consume with live planes, the "
+              f"64x128 tile over {PP.launch_geometry(64)[0]} SMs, a shadow "
+              f"of element (0, 0) in each block; ms per launch at 64 rows, "
+              f"20 planes, 400 steps)", "probe_consume.cu",
               "tools/probe_pressure.py:60", "probe_pressure",
               r13[(64, 20)]["ns"] * 400 / 1e6,
               PP.bound(64, 400, PP.lane_ops(20))),
@@ -3359,9 +3367,11 @@ def _hw_probes(card):
               "probe_record.cu", "tools/probe_broadcast.py:88",
               "probe_broadcast", r14["extract"]["ns"] * 400 / 1e6,
               PR.bound(64, 400)),
-        entry("K15", "probe_xpose (a record row by per-thread loads or warp "
-              "shuffles; ms per launch in mode extract, 32 rows, 300 steps)",
-              "probe_record.cu", "tools/probe_xpose.py:107", "probe_xpose",
+        entry("K15", f"probe_xpose (a record row by per-thread loads or "
+              f"warp shuffles, the 32x128 tile over "
+              f"{PX.launch_geometry(32)[0]} SMs; ms per launch in mode "
+              f"extract, 32 rows, 300 steps)", "probe_record.cu",
+              "tools/probe_xpose.py:107", "probe_xpose",
               r15["extract"]["ns"] * 300 / 1e6, PX.bound(32, 300)),
         entry("K16", f"probe_bf16 (8 chains a lane in bf16x2, the 64x128 "
               f"tile over {PB.launch_geometry(64)[0]} SMs, 2 lanes a "

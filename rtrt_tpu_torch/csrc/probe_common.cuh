@@ -2,17 +2,17 @@
 // probe_cores.cu) and K10-K16 (probe_consume.cu, probe_record.cu,
 // probe_bf16.cu).
 //
-// Each probe runs ONE thread block per (rows, 128) ray tile, as the TPU
-// kernel runs one tile, or (K6, K8 / K9) one thread-block cluster of a few
-// blocks: the probes' outputs depend on tile-wide state (a tile-wide max
-// or min every step, one scalar stack steering every lane), so a
-// per-thread form would compute another function.  K16 has no tile-wide
-// state and splits its tile over plain blocks.  A thread carries
-// L lanes (a compile-time count); lane j of thread t is element
-// t + j * blockDim.x of the tile.  Tile-wide reductions are warp shuffles
-// plus one shared-memory exchange; every thread then holds the same
-// value, so each scalar the tile shares (bound, stack pointer, popped
-// entry) is the same in every thread and every branch on it is uniform.
+// A probe runs its (rows, 128) ray tile on ONE thread block where its
+// outputs depend on tile-wide state that the block exchanges every step (a
+// tile-wide min (K14) or max (K7), one scalar stack steering every lane),
+// on one thread-block cluster of a few blocks (K6, K8 / K9, with
+// probe_tile.cuh's reduction), or on a grid of plain blocks where no lane
+// waits for another (K15, K16) or every block can compute the one scalar
+// it waits for itself (K13).  A thread carries L lanes (a compile-time
+// count); lane j of thread t is element t + j * blockDim.x of its block's
+// part of the tile.  Where the tile shares a scalar (bound, stack pointer,
+// popped entry, step flag), every thread holds the same value, so every
+// branch on it is uniform.
 //
 // Arithmetic: products go through __fmul_rn so that nvcc never contracts
 // a product and a sum into one FMA; each operation then rounds as the
@@ -43,49 +43,12 @@ __device__ __forceinline__ void warp_reduce(float (&v)[N]) {
   }
 }
 
-// Tile-wide min (kMax false) or max of N values per thread; every thread
-// returns with the tile's results in v.  Each warp reduces its lanes with
-// shuffles, warp 0 reduces the warps' partials the same way, and the
-// result goes back through shared memory: two barriers.  red: RED_FLOATS
-// floats of shared memory; the results sit after the partials of the
-// widest call, so calls of different N may follow each other.  Inputs are
-// never NaN here (fminf / fmaxf drop NaN where jnp.min would propagate it).
-constexpr int RED_MAX_N = 4;
-constexpr int RED_FLOATS = 32 * RED_MAX_N + RED_MAX_N;
-
-template <int N, bool kMax>
-__device__ __forceinline__ void block_reduce(float (&v)[N], float* red) {
-  static_assert(N <= RED_MAX_N, "block_reduce: at most RED_MAX_N values");
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  warp_reduce<N, kMax>(v);
-  if (lane == 0) {
-#pragma unroll
-    for (int n = 0; n < N; ++n) red[warp * N + n] = v[n];
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const float id = kMax ? -CUDART_INF_F : CUDART_INF_F;
-    float p[N];
-#pragma unroll
-    for (int n = 0; n < N; ++n) p[n] = lane < nw ? red[lane * N + n] : id;
-    warp_reduce<N, kMax>(p);
-    if (lane == 0) {
-#pragma unroll
-      for (int n = 0; n < N; ++n) red[32 * RED_MAX_N + n] = p[n];
-    }
-  }
-  __syncthreads();
-  // the next call writes its result only after its first barrier, which
-  // every thread reaches after this read
-#pragma unroll
-  for (int n = 0; n < N; ++n) v[n] = red[32 * RED_MAX_N + n];
-}
-
-// Tile-wide int32 min: every thread returns the tile's min of v.  Exact at
-// any magnitude (a float reduction would round values above 2^24).  The
-// same two barriers as block_reduce; red: RED_INTS ints of shared memory,
-// the result after the 32 warp partials.
+// Tile-wide int32 min (K14): every thread returns the tile's min of v.
+// Exact at any magnitude (a float reduction would round values above
+// 2^24).  Each warp reduces with redux, warp 0 reduces the warps' partials
+// the same way, and the result goes back through shared memory: two
+// barriers.  red: RED_INTS ints of shared memory, the result after the 32
+// warp partials.
 constexpr int RED_INTS = 33;
 
 __device__ __forceinline__ int block_min_int(int v, int* red) {
@@ -102,6 +65,7 @@ __device__ __forceinline__ int block_min_int(int v, int* red) {
   __syncthreads();
   return red[32];
 }
+
 // Slab test of one ray (origin o, inverse direction i) against the box
 // [lo xyz | hi xyz] at b, as the probes' slab(): entry distance in tn.
 __device__ __forceinline__ bool slab(const float* b, float ox, float oy,
@@ -152,11 +116,16 @@ __device__ __forceinline__ bool tri_hit(const float (&v)[9], float ox,
 
 // tri_hit without the t_s > RAY_TMIN * adet test, in the form of
 // tools/probe_xpose.py's visit (probe_xpose.py:55-78): the sum of u and v
-// is taken before its sign product.
+// is taken before its sign product.  Returns the accept test and the
+// numerator tq and det of t = tq * (1 / det), which the caller computes
+// only where it accepts (det != 0 there): K15's lanes accept a record
+// rarely, and a warp skips the correctly rounded reciprocal where none of
+// its lanes does.
 __device__ __forceinline__ bool tri_hit_no_tmin(const float (&v)[9],
                                                 float ox, float oy, float oz,
                                                 float dx, float dy, float dz,
-                                                float best, float& t) {
+                                                float best, float& tq,
+                                                float& det) {
   const float v0x = v[0], v0y = v[1], v0z = v[2];
   const float e1x = v[3], e1y = v[4], e1z = v[5];
   const float e2x = v[6], e2y = v[7], e2z = v[8];
@@ -164,21 +133,17 @@ __device__ __forceinline__ bool tri_hit_no_tmin(const float (&v)[9],
   const float hx = mul(dy, e2z) - mul(dz, e2y);
   const float hy = mul(dz, e2x) - mul(dx, e2z);
   const float hz = mul(dx, e2y) - mul(dy, e2x);
-  const float det = mul(e1x, hx) + mul(e1y, hy) + mul(e1z, hz);
+  det = mul(e1x, hx) + mul(e1y, hy) + mul(e1z, hz);
   const float uq = mul(px, hx) + mul(py, hy) + mul(pz, hz);
   const float qx = mul(py, e1z) - mul(pz, e1y);
   const float qy = mul(pz, e1x) - mul(px, e1z);
   const float qz = mul(px, e1y) - mul(py, e1x);
   const float vq = mul(dx, qx) + mul(dy, qy) + mul(dz, qz);
-  const float tq = mul(e2x, qx) + mul(e2y, qy) + mul(e2z, qz);
+  tq = mul(e2x, qx) + mul(e2y, qy) + mul(e2z, qz);
   const float adet = fabsf(det);
   const float sg = det > 0.0f ? 1.0f : (det < 0.0f ? -1.0f : 0.0f);
-  const bool ok = (det != 0.0f) && (mul(uq, sg) >= 0.0f) &&
-                  (mul(vq, sg) >= 0.0f) && (mul(uq + vq, sg) <= adet) &&
-                  (mul(tq, sg) < mul(best, adet));
-  const float inv = det != 0.0f ? 1.0f / det : 0.0f;
-  t = mul(tq, inv);
-  return ok;
+  return (det != 0.0f) && (mul(uq, sg) >= 0.0f) && (mul(vq, sg) >= 0.0f) &&
+         (mul(uq + vq, sg) <= adet) && (mul(tq, sg) < mul(best, adet));
 }
 
 }  // namespace probe

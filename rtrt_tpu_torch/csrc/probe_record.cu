@@ -1,34 +1,47 @@
-// K14, K15: where a record's values come from, one thread block per
-// (rows, 128) tile.
+// K14, K15: where a record's values come from.
 //
 // K14 replaces tools/probe_broadcast.py::make_kernel (pallas_call at
-// probe_broadcast.py:88).  Each step takes cand = the tile-wide int32 min
-// of pend, reads the 13 values of record i = cand & 1023, adds them on
-// the lanes where pend == cand (13 carried planes) and sets those pend to
-// 2^30; out = ((acc0 + acc1) + ... + acc12) + float(pend).  The modes are
-// the two record layouts (the TPU's lane roll and lane broadcast are TPU
-// machinery; on Hopper both are uniform loads):
+// probe_broadcast.py:88), one thread block per (rows, 128) tile.  Each
+// step takes cand = the tile-wide int32 min of pend, reads the 13 values
+// of record i = cand & 1023, adds them on the lanes where pend == cand (13
+// carried planes) and sets those pend to 2^30; out = ((acc0 + acc1) + ...
+// + acc12) + float(pend).  The modes are the two record layouts (the
+// TPU's lane roll and lane broadcast are TPU machinery; on Hopper both are
+// uniform loads):
 //   EXTRACT  AoS: value v at tab[16 i + v], 13 values in one 64-byte span
 //   BCAST16  SoA: value v at ttab[(i / 128) * 16 + v][i % 128], 13 values
 //            in 13 rows 512 bytes apart
 // The min is warp redux (__reduce_min_sync) plus one shared-memory
-// exchange: two barriers a step.  What bounds it on the H100: those
-// barriers and ~29 operations per lane per step (compare, 13 adds and 13
-// selects, the pend select, the lane's share of the min) on the one SM;
-// the 13 x 8 carried values of a thread exceed the 64-register cap of a
-// 1,024-thread block, so part of them live in local memory.
+// exchange (probe_common.cuh::block_min_int): two barriers a step.  What
+// bounds it on the H100: those barriers and ~29 operations per lane per
+// step (compare, 13 adds and 13 selects, the pend select, the lane's share
+// of the min) on the one SM; the 13 x 8 carried values of a thread exceed
+// the 64-register cap of a 1,024-thread block, so part of them live in
+// local memory.
 //
 // K15 replaces tools/probe_xpose.py::make_kernel (probe_xpose.py:107).
-// Each step visits row stack[k % 128] of tab (stack[i] = (7 i) % 120, in
-// shared memory, filled by thread 0): 8 Moller-Trumbore tests without the
-// tmin test, best = min(best, nearest accepted t).  The modes compute the
-// same function and must agree bit for bit; they differ in how a row's 72
+// Each step visits row (7 (k & 127)) % 120 of tab (the tool's stack[k %
+// 128], stack[i] = (7 i) % 120): 8 Moller-Trumbore tests without the tmin
+// test, best = min(best, nearest accepted t).  The modes compute the same
+// function and must agree bit for bit; they differ in how a row's 72
 // values reach every lane (the TPU's transpose and outer product has no
 // meaning on Hopper):
-//   EXTRACT  every thread loads each value itself (uniform loads, L1)
+//   EXTRACT  every thread loads each record itself: two 16-byte loads and
+//            one 4-byte load, 24 uniform loads a step (L1 hits)
 //   XPOSE    each warp loads the 128-float row once, coalesced (a float4
 //            per lane), and broadcasts each value with __shfl_sync
-// What bounds it: ~465 float operations per lane per visit on the one SM.
+// t = tq * (1 / det) of a record is computed only on the lanes that
+// accept it (probe_common.cuh::tri_hit_no_tmin); a warp where none does
+// skips the reciprocal, as ~88% of them do a record on the tool's inputs.
+// What bounds it: ~465 float operations per lane per visit on the SMs the
+// tile fills.  Design: no lane reads another (best is per lane, the row a
+// step a constant of k), so the tile splits over c = rows / 8 plain
+// blocks (tools/probe_xpose.py::launch_geometry: 4 at 32 rows), one an SM
+// (GUARD_SMEM bytes of untouched dynamic shared memory a block, as K16's),
+// XPOSE_L = 1 lane a thread (of 1, 2 and 4, none of which spills, 1 was
+// the fastest in both modes: 32 warps an SM hide the test's dependent
+// chain best; PERF.md, K15), and each thread computes the step's row
+// itself: no shared table, no barrier.
 #include "probe_common.cuh"
 
 namespace {
@@ -85,27 +98,30 @@ __global__ void __launch_bounds__(1024, 1)
   }
 }
 
+constexpr int XPOSE_L = 1;  // lanes a thread
+constexpr int XPOSE_BLOCK_ROWS = 8;
+constexpr int XPOSE_THREADS = XPOSE_BLOCK_ROWS * 128 / XPOSE_L;
+constexpr int GUARD_SMEM = 120 * 1024;
+
+// Block b holds lanes b * n * L .. (b + 1) * n * L - 1 of the tile (n =
+// blockDim.x; lane j of thread t: + t + j * n); planes: (6, lanes)
 template <int kMode>
-__global__ void __launch_bounds__(1024, 1)
+__global__ void __launch_bounds__(XPOSE_THREADS, 1)
     xpose_kernel(const float* __restrict__ tab,
                  const float* __restrict__ planes, float* __restrict__ out,
-                 int steps) {
-  constexpr int L = 4;
-  __shared__ int stack[128];
-  const int n = blockDim.x, lanes = n * L, lane = threadIdx.x & 31;
-  if (threadIdx.x == 0)
-    for (int i = 0; i < 128; ++i) stack[i] = (i * 7) % 120;
-  __syncthreads();
+                 int steps, int lanes) {
+  constexpr int L = XPOSE_L;
+  const int n = blockDim.x, lane = threadIdx.x & 31;
+  const int e0 = blockIdx.x * n * L + threadIdx.x;
   float o[L][6], best[L];
 #pragma unroll
   for (int j = 0; j < L; ++j) {
 #pragma unroll
-    for (int c = 0; c < 6; ++c)
-      o[j][c] = planes[c * lanes + threadIdx.x + j * n];
+    for (int c = 0; c < 6; ++c) o[j][c] = planes[c * lanes + e0 + j * n];
     best[j] = 1e9f;
   }
   for (int k = 0; k < steps; ++k) {
-    const float* row = tab + stack[k & 127] * 128;
+    const float* row = tab + ((k & 127) * 7 % 120) * 128;
     float4 q{};
     if constexpr (kMode == XPOSE)
       q = __ldg(reinterpret_cast<const float4*>(row) + lane);
@@ -115,33 +131,57 @@ __global__ void __launch_bounds__(1024, 1)
 #pragma unroll
     for (int rec = 0; rec < 8; ++rec) {
       float v[9];
+      if constexpr (kMode == XPOSE) {
 #pragma unroll
-      for (int c = 0; c < 9; ++c) {
-        const int idx = 16 * rec + c;
-        if constexpr (kMode == XPOSE) {
+        for (int c = 0; c < 9; ++c) {
+          const int idx = 16 * rec + c;
           const float w = (idx & 3) == 0   ? q.x
                           : (idx & 3) == 1 ? q.y
                           : (idx & 3) == 2 ? q.z
                                            : q.w;
           v[c] = __shfl_sync(0xffffffffu, w, idx >> 2);
-        } else {
-          v[c] = __ldg(row + idx);
         }
+      } else {
+        const float* r = row + 16 * rec;
+        const float4 a = __ldg(reinterpret_cast<const float4*>(r));
+        const float4 b = __ldg(reinterpret_cast<const float4*>(r + 4));
+        v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+        v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+        v[8] = __ldg(r + 8);
       }
 #pragma unroll
       for (int j = 0; j < L; ++j) {
-        float tt;
-        const bool ok = probe::tri_hit_no_tmin(v, o[j][0], o[j][1], o[j][2],
-                                               o[j][3], o[j][4], o[j][5],
-                                               best[j], tt);
-        if (ok && tt < gt[j]) gt[j] = tt;
+        float tq, det;
+        if (probe::tri_hit_no_tmin(v, o[j][0], o[j][1], o[j][2], o[j][3],
+                                   o[j][4], o[j][5], best[j], tq, det)) {
+          // the plain version's tq * where(det != 0, 1 / det, 0), det != 0
+          const float tt = probe::mul(tq, 1.0f / det);
+          if (tt < gt[j]) gt[j] = tt;
+        }
       }
     }
 #pragma unroll
     for (int j = 0; j < L; ++j) best[j] = fminf(best[j], gt[j]);
   }
 #pragma unroll
-  for (int j = 0; j < L; ++j) out[threadIdx.x + j * n] = best[j];
+  for (int j = 0; j < L; ++j) out[e0 + j * n] = best[j];
+}
+
+template <int kMode>
+int launch_xpose(const float* tab, const float* planes, float* out,
+                 int blocks, int block_rows, int lanes, int steps,
+                 cudaStream_t s) {
+  const auto kern = xpose_kernel<kMode>;
+  // once a mode: the residency guard is above the 48 KB that a launch may
+  // take without opting in
+  static cudaError_t optin = cudaErrorNotReady;
+  if (optin == cudaErrorNotReady)
+    optin = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, GUARD_SMEM);
+  if (optin != cudaSuccess) return static_cast<int>(optin);
+  kern<<<blocks, block_rows * 128 / XPOSE_L, GUARD_SMEM, s>>>(
+      tab, planes, out, steps, lanes);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -166,17 +206,23 @@ extern "C" int rtrt_probe_broadcast(int mode, const float* tab,
 }
 
 // K15.  mode: index into rtrt_tpu_torch/tools/probe_xpose.py::MODES;
-// planes: (6, rows, 128) ox oy oz dx dy dz; rows: a multiple of 8 up to 32
-// (4 lanes a thread, rows * 32 threads)
+// planes: (6, rows, 128) ox oy oz dx dy dz; rows: a multiple of 8 up to
+// 32; blocks, block_rows: tools/probe_xpose.py::launch_geometry(rows)
+// (blocks x block_rows = rows, block_rows at most 8 and a multiple of
+// 32 x XPOSE_L / 128)
 extern "C" int rtrt_probe_xpose(int mode, const float* tab,
                                 const float* planes, float* out, int rows,
-                                int steps, void* stream) {
+                                int steps, int blocks, int block_rows,
+                                void* stream) {
+  if (blocks < 1 || block_rows < 1 || block_rows > XPOSE_BLOCK_ROWS ||
+      blocks * block_rows != rows || block_rows * 128 % (32 * XPOSE_L))
+    return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   if (mode == XEXTRACT)
-    xpose_kernel<XEXTRACT><<<1, rows * 32, 0, s>>>(tab, planes, out, steps);
-  else if (mode == XPOSE)
-    xpose_kernel<XPOSE><<<1, rows * 32, 0, s>>>(tab, planes, out, steps);
-  else
-    return cudaErrorInvalidValue;
-  return static_cast<int>(cudaGetLastError());
+    return launch_xpose<XEXTRACT>(tab, planes, out, blocks, block_rows,
+                                  rows * 128, steps, s);
+  if (mode == XPOSE)
+    return launch_xpose<XPOSE>(tab, planes, out, blocks, block_rows,
+                               rows * 128, steps, s);
+  return cudaErrorInvalidValue;
 }

@@ -1,6 +1,6 @@
 // The one-barrier tile reduction of K6 (probe_step.cu), K7 (probe_leaf.cu)
-// and K8 / K9 (probe_cores.cu).  K10-K15 keep probe_common.cuh::
-// block_reduce (two barriers around a serial warp-0 stage).
+// and K8 / K9 (probe_cores.cu).  Of K10-K16, only K14 reduces over its
+// tile (an int32 min: probe_common.cuh::block_min_int).
 //
 // A tile-wide min or max of N values a thread: each warp reduces its lanes
 // with shuffles; lane r * N + n of each warp stores the warp's n-th partial

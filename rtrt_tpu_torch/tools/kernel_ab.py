@@ -40,12 +40,15 @@ rows, 4000 steps, 20 reps) and slab and reduce2 at 16 rows, K7
 (`tools/probe_leaf.py::run`) in every mode at its defaults (32 rows, 400
 steps, 10 reps, the tool's inputs), K8 (`tools/probe_cores.py::run`) in
 every mode at 32 rows, 400 steps, 10 reps, and K9 (its 8-tile grid with
-the big tables, mode both, 200 steps), and K16 (`tools/probe_bf16.py::
-run`) in both modes at 64 rows, 4000 steps, 30 reps, each tree through
-its own wrappers (ns a step, CUDA events); beside K8, K9 and K16 the
-tree's own floor of a step ("... floor": its bound over the SMs the
-launch fills, which K16's redesign changes).  ptxas' lines are those of
-the probes' kernels.
+the big tables, mode both, 200 steps), K13 (`tools/probe_pressure.py::
+run`, 400 steps, 10 reps) at 64 rows with each n_inv and at 8 rows with
+20 planes, K15 (`tools/probe_xpose.py::run`) in both modes at 32 rows,
+300 steps, 10 reps, and K16 (`tools/probe_bf16.py::run`) in both modes
+at 64 rows, 4000 steps, 30 reps, each tree through its own wrappers (ns
+a step, CUDA events); beside K8, K9, K13, K15 and K16 the tree's own
+floor of a step ("... floor": its bound over the SMs the launch fills,
+which a split over SMs changes).  ptxas' lines are those of the probes'
+kernels.
 """
 
 from __future__ import annotations
@@ -65,7 +68,9 @@ PASSES = (("7x7", 3, 1, True, 0), ("s3", 2, 3, False, 0),
 
 FRAME_KERNELS = ("megakernel", "traverse_kernel", "denoise_wide",
                  "post_tail", "reproject")
-PROBE_KERNELS = ("step_kernel", "leaf_kernel", "cores_kernel", "chains_")
+PROBE_KERNELS = ("step_kernel", "leaf_kernel", "cores_kernel",
+                 "consume_kernel", "pressure_kernel", "xpose_kernel",
+                 "chains_")
 
 
 def _ptxas(log: str, kernels=FRAME_KERNELS) -> dict:
@@ -191,11 +196,13 @@ def child(tree: str, reps2: int, reps4: int) -> dict:
 
 
 def probe_child(tree: str) -> dict:
-    """Time K6-K9 and K16 of the package in `tree` (this process only)."""
+    """Time K6-K9, K13, K15 and K16 of the package in `tree` (this process
+    only)."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     import rtrt_tpu_torch
     from rtrt_tpu_torch.tools import (probe_bf16, probe_cores, probe_leaf,
+                                      probe_pressure, probe_xpose,
                                       ubench_step)
     from rtrt_tpu_torch.utils import cuda
 
@@ -217,6 +224,12 @@ def probe_child(tree: str) -> dict:
                                                               10)
     res["K9 both"], res["K9 both floor"] = probe_cores.run(
         "both", 32, steps=200, grid_tiles=8, big_tables=True)
+    for rows, n_inv in [(64, n) for n in probe_pressure.N_INV] + [(8, 20)]:
+        key = f"K13 {rows} rows n_inv {n_inv}"
+        res[key], res[f"{key} floor"] = probe_pressure.run(n_inv, rows)
+    for m in probe_xpose.MODES:
+        res[f"K15 {m}"], res[f"K15 {m} floor"], _ = probe_xpose.run(
+            m, 32, 300)
     for m in probe_bf16.DTYPES:
         res[f"K16 {m}"], res[f"K16 {m} floor"] = probe_bf16.run(m, 4000, 30)
     return res
@@ -229,7 +242,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps2", type=int, default=10)
     ap.add_argument("--reps4", type=int, default=50)
     ap.add_argument("--probes", action="store_true",
-                    help="time K6-K9 and K16 instead of K1-K5")
+                    help="time K6-K9, K13, K15 and K16 instead of K1-K5")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
     if a.child is not None:

@@ -77,8 +77,21 @@ def spread_inputs(rows: int = SHAPE[0], device="cuda", seed: int = 0):
         x.astype(np.float32)).to(device)
 
 
+def flip_inputs(rows: int = SHAPE[0], device="cuda", seed: int = 0):
+    """(tab, x uniform in [0, 1) from default_rng(seed), x[0, 0] = 3e38).
+    Without planes a step's 24 terms take acc[0, 0] to ~1.8e31 and then
+    below 1e30: the step flag is true after the first step and false after
+    every later one, so a kernel that reads or times element (0, 0)'s flag
+    wrongly takes another k sequence.  With K13's planes (v1 * inv ~ 1.5e38
+    a term) acc[0, 0] stays near 3e38 and the flag stays true."""
+    x = np.random.default_rng(seed).uniform(0, 1, (rows, 128))
+    x[0, 0] = 3e38
+    return consume_table(device), torch.from_numpy(
+        x.astype(np.float32)).to(device)
+
+
 RECIPES = {"tool": tool_inputs, "uniform": uniform_inputs,
-           "spread": spread_inputs}
+           "spread": spread_inputs, "flip": flip_inputs}
 
 
 def row_values(tab, base: int):

@@ -5,11 +5,15 @@ probe_cond's 72-value consume with n_inv loop-invariant planes inv[p] =
 x * (1 + 0.01 p) folded into the terms: a = min(a * v0 + v1 * inv[(i / 3)
 % n_inv], v2 + a), v1 * 0.5 when n_inv = 0; the output adds
 sum(inv[:1]) = x when n_inv > 0.  The TPU probe asked whether the cost
-grows with the tile's rows (its vector registers); on the H100 one launch
-is one 1,024-thread block (1 lane a thread at 8 rows, 8 at 64), and the
-question is what n_inv x lanes live registers per thread cost once they
-pass the 64-register cap: ptxas' spills per instantiation (chip_smoke's
-build lines) say whether the planes stayed live.
+grows with the tile's rows (its vector registers).  On the H100
+(csrc/probe_consume.cu::pressure_kernel) the next step index depends on
+element (0, 0) alone, so a launch splits the tile over c plain blocks
+(`launch_geometry`: 4 of 16 rows at 64 rows, 1 of 8 at 8), one an SM,
+each of which computes element (0, 0) itself in a shadow lane of its
+warp 0; 4 lanes a thread hold the planes in registers without a spill
+(ptxas' spills per instantiation: chip_smoke's build lines,
+`tools/sass_loops.py`).  The tool prints ns a step of the whole tile on
+its c SMs beside the floor of its operations on those SMs.
 
 Usage: python -m rtrt_tpu_torch.tools.probe_pressure
 """
@@ -22,10 +26,11 @@ import ctypes
 import torch
 
 from ..utils import cuda, timing
-from .probe_cond import bound, consume_loop, row_values, tool_inputs
+from .probe_cond import consume_loop, row_values, tool_inputs
 
 N_INV = (0, 6, 12, 20)
-ROWS = (64, 8)  # the JAX tool's tiles: 8 lanes a thread, and 1
+ROWS = (64, 8)  # the JAX tool's tiles
+MAX_BLOCK_ROWS = 16  # rows a block: a block's lanes on one SM
 
 
 def lane_ops(n_inv: int) -> int:
@@ -54,6 +59,16 @@ def pressure_probe_plain(n_inv: int, tab, x, steps: int):
     return acc + inv[0] if n_inv else acc
 
 
+def launch_geometry(rows: int):
+    """(c, block rows) of K13's launch on a (rows, 128) tile: c = rows /
+    MAX_BLOCK_ROWS blocks (at least 1), one an SM, of rows / c rows each.
+    Only the JAX tool's tiles, ROWS, are accepted."""
+    if rows not in ROWS:
+        raise ValueError(f"rows {rows}: one of {ROWS}")
+    c = max(1, rows // MAX_BLOCK_ROWS)
+    return c, rows // c
+
+
 def pressure_probe(n_inv: int, tab, x, steps: int):
     """K13 (csrc/probe_consume.cu) for CUDA tensors, the plain version for
     CPU tensors."""
@@ -62,8 +77,7 @@ def pressure_probe(n_inv: int, tab, x, steps: int):
     if n_inv not in N_INV:
         raise ValueError(f"n_inv {n_inv} not in {N_INV}")
     rows = x.shape[0]
-    if rows not in ROWS:
-        raise ValueError(f"rows {rows}: one of {ROWS}")
+    blocks, block_rows = launch_geometry(rows)
     dev = x.device
     cuda.check_tensors(dev, tab=(tab, torch.float32, (128, 128)),
                        x=(x, torch.float32, (rows, 128)))
@@ -71,14 +85,24 @@ def pressure_probe(n_inv: int, tab, x, steps: int):
     out = torch.empty_like(x)
     cuda.launch(cuda.library().rtrt_probe_pressure, "probe_pressure", dev,
                 ctypes.c_int(n_inv), tab, x, fac, out, ctypes.c_int(rows),
-                ctypes.c_int(steps))
+                ctypes.c_int(steps), ctypes.c_int(blocks),
+                ctypes.c_int(block_rows))
     return out
+
+
+def bound(rows: int, steps: int, lane_ops: int):
+    """(ms, "bytes" or "operations"): the least time of one launch on the c
+    SMs it fills (launch_geometry; tab and x read once, out written once)."""
+    lanes = rows * 128
+    return timing.bound_ms(128 * 128 * 4 + 2 * lanes * 4,
+                           lane_ops * lanes * steps,
+                           share=launch_geometry(rows)[0] / timing.SMS)
 
 
 def run(n_inv: int, rows: int, steps: int = 400, reps: int = 10,
         device="cuda"):
-    """(ns per visit, floor ns per visit) of K13 on the card (CUDA events),
-    on the JAX tool's inputs."""
+    """(ns per step of the tile on its c SMs, floor ns per step) of K13 on
+    the card (CUDA events), on the JAX tool's inputs."""
     tab, x = tool_inputs(rows, device)
     sec, _ = timing.time_chained(
         lambda _: pressure_probe(n_inv, tab, x, steps), reps)
@@ -90,13 +114,15 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.parse_args(argv)
     card = timing.card()
-    print(card)
+    print(f"{card}; ns a step of the whole tile on its c SMs")
     results = []
     for rows in ROWS:
+        c = launch_geometry(rows)[0]
         for n_inv in N_INV:
             ns, floor = run(n_inv, rows)
             print(f"rows={rows:2d} invariant_planes={n_inv:2d}: {ns:8.1f} "
-                  f"ns/visit  floor {floor:8.1f} ns [{card}]", flush=True)
+                  f"ns/step on {c} SMs  floor {floor:8.1f} ns [{card}]",
+                  flush=True)
             results.append(dict(rows=rows, n_inv=n_inv, ns=ns,
                                 floor_ns=floor))
     return results

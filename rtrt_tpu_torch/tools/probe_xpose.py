@@ -8,10 +8,15 @@ against every ray of the (rows, 128) tile, without a tmin test, and best =
 min(best, the nearest accepted t).  The TPU probe's xpose mode replaced 72
 scalar extracts by a transpose and an outer product; on the H100
 (csrc/probe_record.cu) the modes are
-  extract  every thread loads each of the 72 values itself (uniform loads)
+  extract  every thread loads each record itself, two 16-byte loads and
+           one 4-byte load (24 uniform loads a step)
   xpose    each warp loads the row once, a float4 a lane, and broadcasts
            each value with __shfl_sync
 and compute the same function: their outputs must be equal bit for bit.
+No lane reads another, so a launch splits the tile over c plain blocks of
+8 rows (`launch_geometry`: 4 at 32 rows), one an SM; the tool prints ns a
+visit of the whole tile on its c SMs beside the floor of its operations on
+those SMs.
 
 Usage: python -m rtrt_tpu_torch.tools.probe_xpose [--rows 32] [--steps 300]
 """
@@ -29,7 +34,8 @@ from .probe_cond import check_rows
 from .probe_leaf import hit_rays, hit_rows, tool_inputs
 
 MODES = ("extract", "xpose")
-MAX_ROWS = 32  # 4 lanes a thread, at most 1024 threads
+MAX_ROWS = 32  # the JAX tool's largest tile
+BLOCK_ROWS = 8  # rows a block: a block's lanes on one SM
 # float operations per lane per visit: 8 records of 58 (probe_leaf's 60 a
 # record without the tmin test's product and compare) and the final min
 LANE_OPS = 8 * 58 + 1
@@ -87,6 +93,13 @@ def xpose_probe_plain(mode: str, tab, planes, steps: int):
     return best
 
 
+def launch_geometry(rows: int):
+    """(c, block rows) of K15's launch on a (rows, 128) tile: c = rows /
+    BLOCK_ROWS blocks, one an SM, of BLOCK_ROWS rows each."""
+    check_rows(rows, MAX_ROWS)
+    return rows // BLOCK_ROWS, BLOCK_ROWS
+
+
 def xpose_probe(mode: str, tab, planes, steps: int):
     """K15 (csrc/probe_record.cu) for CUDA tensors, the plain version for
     CPU tensors."""
@@ -95,28 +108,31 @@ def xpose_probe(mode: str, tab, planes, steps: int):
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     rows = planes.shape[1]
-    check_rows(rows, MAX_ROWS)
+    blocks, block_rows = launch_geometry(rows)
     dev = planes.device
     cuda.check_tensors(dev, tab=(tab, torch.float32, (128, 128)),
                        planes=(planes, torch.float32, (6, rows, 128)))
     out = torch.empty((rows, 128), dtype=torch.float32, device=dev)
     cuda.launch(cuda.library().rtrt_probe_xpose, "probe_xpose", dev,
                 ctypes.c_int(MODES.index(mode)), tab, planes, out,
-                ctypes.c_int(rows), ctypes.c_int(steps))
+                ctypes.c_int(rows), ctypes.c_int(steps), ctypes.c_int(blocks),
+                ctypes.c_int(block_rows))
     return out
 
 
 def bound(rows: int, steps: int):
-    """(ms, "bytes" or "operations"): the least time of one launch on the
-    one SM it occupies (tab and the 6 planes read once, out written)."""
+    """(ms, "bytes" or "operations"): the least time of one launch on the c
+    SMs it fills (launch_geometry; tab and the 6 planes read once, out
+    written)."""
     lanes = rows * 128
     return timing.bound_ms(128 * 128 * 4 + 7 * lanes * 4,
-                           LANE_OPS * lanes * steps, share=1 / timing.SMS)
+                           LANE_OPS * lanes * steps,
+                           share=launch_geometry(rows)[0] / timing.SMS)
 
 
 def run(mode: str, rows: int, steps: int, reps: int = 10, device="cuda"):
-    """(ns per visit, floor ns per visit, output) of K15 in `mode` on the
-    card (CUDA events), on the JAX tool's inputs."""
+    """(ns per visit of the tile on its c SMs, floor ns per visit, output)
+    of K15 in `mode` on the card (CUDA events), on the JAX tool's inputs."""
     tab, planes = tool_inputs(rows, device)
     sec, _ = timing.time_chained(
         lambda _: xpose_probe(mode, tab, planes, steps), reps)
@@ -130,7 +146,9 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=300)
     args = ap.parse_args(argv)
     card = timing.card()
-    print(card)
+    c = launch_geometry(args.rows)[0]
+    print(f"{card}; a {args.rows}x128 tile on {c} SMs, ns a visit of the "
+          f"whole tile")
     results, outs = [], {}
     for mode in MODES:
         ns, floor, outs[mode] = run(mode, args.rows, args.steps)

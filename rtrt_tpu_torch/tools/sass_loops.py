@@ -11,8 +11,11 @@ own utils/cuda.py builds it into DIR/build/), disassembles it with
 csrc/probe_step.cu; reduce2 and reduce4 have a lone-block and a cluster
 instantiation), K7 (`leaf_kernel`, csrc/probe_leaf.cu), K8 / K9
 (`cores_kernel`, csrc/probe_cores.cu; a lone-block and a cluster
-instantiation a mode) and K16 (`chains_f32`, `chains_bf16`,
-csrc/probe_bf16.cu), finds the step loop (the backward
+instantiation a mode), K13 (`pressure_kernel`, csrc/probe_consume.cu, one
+instantiation an n_inv; in a tree from before it had its own kernel, the
+n_inv >= 0 instantiations of `consume_kernel`), K15 (`xpose_kernel`,
+csrc/probe_record.cu, a mode each) and K16 (`chains_f32`,
+`chains_bf16`, csrc/probe_bf16.cu), finds the step loop (the backward
 branch that spans the most instructions: the other loops of these
 kernels are a few instructions long) and counts its warp instructions by
 kind.  ptxas' registers and spill stores of the same instantiation come
@@ -24,7 +27,15 @@ visit), the count holds it too (K8's leafonly and intonly loops hold one
 visit each).  K16's body may hold several steps (nvcc unrolls its bf16
 loop by 4): `steps_in_body` is its min / max instructions over the 2 x 8
 chains x lanes (f32) or pairs (bf16) of one step, the lanes a thread
-being the `constexpr int L` of DIR's csrc/probe_bf16.cu.
+being the `constexpr int L` of DIR's csrc/probe_bf16.cu.  K13's steps in
+a body are its step barriers (BAR: one a step); K15's its reciprocals
+(MUFU.RCP: 8 a lane a step, XPOSE_L lanes a thread, 4 where DIR's
+csrc/probe_record.cu has no XPOSE_L), which stay in the loop body where
+a warp skips them.  K13's warp 0 runs its own copy of the step loop,
+which also steps the shadow of element (0, 0): the largest loop; the
+other warps' loop is the next that holds a barrier.  `instructions_per_
+step` and `by_kind` are the other warps', `warp0_instructions_per_step`
+warp 0's, which counts once, for one warp, in the issue floor.
 
 The issue-slot floor of a step: each SM issues at most 4 warp
 instructions a clock (one a sub-partition, 128 threads), so a step costs
@@ -32,10 +43,13 @@ at least instructions a step x warps an SM / 4 clocks, at the card's
 highest SM clock (`nvidia-smi --query-gpu=clocks.max.sm`).  `--warps
 NAME=N`: the warps a launch puts on each SM (defaults: this checkout's
 geometry at each CLI's default rows: K6 16 at 64 rows on 4 SMs, K7 32
-at 32 rows, K8 16 at 32 rows on 2 SMs, K16 32: 16 rows a block at 2
-lanes a thread, as the one-block K16 of 64 rows at 8 had).  Prints
-one line ``SASS {json}`` per instantiation.  Needs the CUDA toolkit
-(nvcc, cuobjdump) and a card for the clock.
+at 32 rows, K8 16 at 32 rows on 2 SMs, K13 16 (16 rows a block at
+DIR's PRESSURE_L of 4), K15 32 (8 rows a block at DIR's XPOSE_L of 1),
+K16 32: 16 rows a block at 2 lanes a thread, as the one-block K16 of 64
+rows at 8 had; a tree from before K13's and K15's split ran one
+1,024-thread block: `consume_kernel` 32, and give `--warps
+xpose_kernel=32`).  Prints one line ``SASS {json}`` per instantiation.
+Needs the CUDA toolkit (nvcc, cuobjdump) and a card for the clock.
 """
 
 from __future__ import annotations
@@ -50,8 +64,13 @@ import subprocess
 import sys
 
 KERNELS = {"step_kernel": "K6", "leaf_kernel": "K7", "cores_kernel": "K8",
-           "chains_f32": "K16", "chains_bf16": "K16"}
+           "consume_kernel": "K13", "pressure_kernel": "K13",
+           "xpose_kernel": "K15", "chains_f32": "K16", "chains_bf16": "K16"}
 K16_CHAINS = 8
+K15_RECORDS = 8  # reciprocals a lane a step
+# the K13 instantiations of consume_kernel<L, ROW, 0, n_inv> in a tree
+# from before pressure_kernel (K10 and K12 have n_inv = -1: "Lin1E")
+_CONSUME_K13 = re.compile(r"consume_kernelILi(\d+)ELi0ELi0ELi(\d+)E")
 # SASS opcodes (the part before the first '.') by kind; anything else is
 # "other" (integer and logic ops, moves, special registers, uniform ops)
 KINDS = {
@@ -106,10 +125,10 @@ def functions(sass: str) -> dict:
     return out
 
 
-def step_loop(body):
-    """The instructions of the backward branch that spans the most: the
-    step loop.  Returns (instructions, all backward branches as (target,
-    branch, length))."""
+def step_loop(body, rank: int = 0):
+    """The instructions of the backward branch that spans the most (rank
+    0: the step loop; rank 1 the next, and so on).  Returns (instructions,
+    all backward branches as (target, branch, length))."""
     labels, instrs = {}, []
     for addr, op, text in body:
         if op is None:
@@ -130,10 +149,22 @@ def step_loop(body):
         if tgt is not None and tgt < addr:
             j = next(j for j, x in enumerate(instrs) if x[0] == tgt)
             loops.append((tgt, addr, i - j + 1, j, i))
-    if not loops:
-        return [], []
-    _, _, _, j, i = max(loops, key=lambda x: x[2])
+    if len(loops) <= rank:
+        return [], [(hex(a), hex(b), n) for a, b, n, _, _ in loops]
+    _, _, _, j, i = sorted(loops, key=lambda x: -x[2])[rank]
     return instrs[j:i + 1], [(hex(a), hex(b), n) for a, b, n, _, _ in loops]
+
+
+def tile_loop(body):
+    """K13's other warps' step loop: the largest loop after warp 0's (the
+    step loop, which also steps the shadow) that holds a barrier ([] if
+    none)."""
+    rank = 1
+    while True:
+        loop, _ = step_loop(body, rank)
+        if not loop or any(kind(op) == "barrier/sync" for _, op, _ in loop):
+            return loop
+        rank += 1
 
 
 def ptxas(log: str, name: str):
@@ -175,43 +206,97 @@ def max_sm_mhz() -> float:
     return float(out.stdout.strip().splitlines()[0])
 
 
-def default_warps() -> dict:
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def default_warps(tree: str = _ROOT) -> dict:
     """Warps an SM of each probe's launch at its CLI's default rows: K6-K8
     have 32 threads (one warp) a row of their block, K6's block_rows of
     64, K7's 32, K8's block_rows of 32; K16 has 64 threads (2 lanes a
-    thread) a row of its block_rows of 64."""
-    from . import probe_bf16, probe_cores, ubench_step
+    thread) a row of its block_rows of 64; K13 (its tile warps) and K15
+    128 / lanes threads a row of their block_rows at 64 and 32 rows, the
+    lanes a thread DIR's (`lanes`); the one-block K13 of a tree from
+    before its split 32."""
+    from . import probe_bf16, probe_cores, probe_pressure, probe_xpose
+    from . import ubench_step
     k16 = probe_bf16.launch_geometry(probe_bf16.SHAPE[0])[1] * 2
+    k13 = lanes(tree, "probe_consume.cu", "PRESSURE_L") or 1
+    k15 = lanes(tree, "probe_record.cu", "XPOSE_L") or 4
     return {"step_kernel": ubench_step.launch_geometry(64)[1],
             "leaf_kernel": 32,
             "cores_kernel": probe_cores.launch_geometry(32)[1],
+            "consume_kernel": 32,
+            "pressure_kernel":
+                probe_pressure.launch_geometry(64)[1] * 4 // k13,
+            "xpose_kernel": probe_xpose.launch_geometry(32)[1] * 4 // k15,
             "chains_f32": k16, "chains_bf16": k16}
+
+
+def lanes(tree: str, source: str, name: str):
+    """The `constexpr int NAME = N;` of DIR's csrc/SOURCE (N), or None."""
+    path = os.path.join(tree, "rtrt_tpu_torch", "csrc", source)
+    with open(path) as f:
+        m = re.search(rf"constexpr int {name} = (\d+);", f.read())
+    return int(m.group(1)) if m else None
 
 
 def k16_lanes(tree: str) -> int:
     """K16's lanes a thread in DIR: the `constexpr int L` of its
     csrc/probe_bf16.cu."""
-    path = os.path.join(tree, "rtrt_tpu_torch", "csrc", "probe_bf16.cu")
-    with open(path) as f:
-        return int(re.search(r"constexpr int L = (\d+);", f.read()).group(1))
+    return lanes(tree, "probe_bf16.cu", "L")
 
 
 def steps_in_body(kern: str, lanes: int, loop) -> float:
-    """K16: the steps one pass of the loop body runs (its FMNMX or HMNMX2
-    instructions over one step's); 1 for the other probes."""
+    """The steps one pass of the loop body runs.  K16: its FMNMX or HMNMX2
+    instructions over one step's; K13: its barriers (one a step); K15: its
+    MUFU.RCP (8 a lane a step) over one step's; 1 for the other probes."""
+    ops = [op.split(".")[0] for _, op, _ in loop]
+    if kern in ("consume_kernel", "pressure_kernel"):
+        return ops.count("BAR")
+    if kern == "xpose_kernel":
+        rcp = sum(op.startswith("MUFU.RCP") for _, op, _ in loop)
+        return rcp / (K15_RECORDS * lanes)
     if not kern.startswith("chains"):
         return 1
     f32 = kern == "chains_f32"
-    mnmx = sum(op.split(".")[0] == ("FMNMX" if f32 else "HMNMX2")
-               for _, op, _ in loop)
+    mnmx = ops.count("FMNMX" if f32 else "HMNMX2")
     return mnmx / (2 * K16_CHAINS * (lanes if f32 else lanes // 2))
 
 
-def measure(tree: str, warps: dict, mhz: float) -> list:
-    from . import probe_cores, probe_leaf, ubench_step
+def _mode(tree: str, kern: str, fn: str):
+    """(mode label, lanes a thread or None) of instantiation `fn`, or None
+    for a kernel this tool does not count (K10 and K12's
+    consume_kernel)."""
+    from . import probe_cores, probe_leaf, probe_xpose, ubench_step
     modes = {"step_kernel": ubench_step.MODES,
              "leaf_kernel": probe_leaf.MODES,
-             "cores_kernel": probe_cores.MODES}
+             "cores_kernel": probe_cores.MODES,
+             "xpose_kernel": probe_xpose.MODES}
+    if kern == "consume_kernel":
+        m = _CONSUME_K13.search(fn)
+        if m is None:
+            return None
+        n = int(m.group(1))  # 1 lane a thread at 8 rows, 8 at 64
+        return f"rows {8 * n} n_inv {m.group(2)} one block", n
+    if kern == "pressure_kernel":
+        n = lanes(tree, "probe_consume.cu", "PRESSURE_L")
+        m = re.search(r"pressure_kernelILi(\d+)E", fn)
+        return f"n_inv {m.group(1)} lanes {n}", n
+    if kern.startswith("chains"):
+        n = k16_lanes(tree)
+        return f"{kern[7:]} lanes {n}", n
+    m = re.search(r"ILi(\d+)E(Lb1E)?", fn)
+    mode = modes[kern][int(m.group(1))] if m else "?"
+    if m and m.group(2):  # K6's reduce2 / reduce4 over a cluster
+        mode += " cluster"
+    if kern == "xpose_kernel":
+        n = lanes(tree, "probe_record.cu", "XPOSE_L") or 4
+        return f"{mode} lanes {n}", n
+    return mode, None
+
+
+def measure(tree: str, warps: dict, mhz: float) -> list:
     cuda = _tree_cuda(tree)
     lib = cuda.build()
     log = cuda.build_info.get("log", "")
@@ -220,43 +305,46 @@ def measure(tree: str, warps: dict, mhz: float) -> list:
     rows = []
     for fn, body in sorted(functions(sass).items()):
         kern = next((k for k in KERNELS if k in fn), None)
-        if kern is None:
+        label = _mode(tree, kern, fn) if kern else None
+        if label is None:
             continue
-        m = re.search(r"ILi(\d+)E(Lb1E)?", fn)
-        lanes = k16_lanes(tree) if kern.startswith("chains") else None
-        if lanes:
-            mode = f"{kern[7:]} lanes {lanes}"
-        else:
-            mode = modes[kern][int(m.group(1))] if m else "?"
-        if m and m.group(2):  # K6's reduce2 / reduce4 over a cluster
-            mode += " cluster"
+        mode, n_lanes = label
         loop, loops = step_loop(body)
+        warp0 = None
+        if kern == "pressure_kernel":  # count the other warps' loop
+            warp0, loop = loop, tile_loop(body)
         counts = {}
         for _, op, _ in loop:
             counts[kind(op)] = counts.get(kind(op), 0) + 1
         regs, spill = ptxas(log, fn)
-        steps = steps_in_body(kern, lanes, loop)
+        steps = steps_in_body(kern, n_lanes, loop)
         n = len(loop) / steps if steps else float("nan")
         w = warps[kern]
-        rows.append(dict(
+        row = dict(
             tree=tree, kernel=KERNELS[kern], mode=mode, registers=regs,
             spill_stores=spill, instructions=len(loop), by_kind=counts,
             steps_in_body=steps, instructions_per_step=n,
-            backward_branches=loops, warps_per_sm=w, sm_mhz=mhz,
-            issue_floor_ns=n * w / 4 / (mhz * 1e-3)))
+            backward_branches=loops, warps_per_sm=w, sm_mhz=mhz)
+        slots = n * w
+        if warp0 is not None:  # warp 0 runs its own loop, the shadow's too
+            s0 = steps_in_body(kern, n_lanes, warp0)
+            n0 = len(warp0) / s0 if s0 else float("nan")
+            row["warp0_instructions_per_step"] = n0
+            slots = n * (w - 1) + n0
+        row["issue_floor_ns"] = slots / 4 / (mhz * 1e-3)
+        rows.append(row)
     return rows
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
-        os.path.dirname(os.path.abspath(__file__)))))
+    ap.add_argument("--tree", default=_ROOT)
     ap.add_argument("--warps", action="append", default=[],
                     help="NAME=N: warps an SM of kernel NAME's launch")
     args = ap.parse_args(argv)
     from ..utils import timing
     card = timing.card()
-    warps = default_warps()
+    warps = default_warps(os.path.abspath(args.tree))
     for item in args.warps:
         k, v = item.split("=")
         warps[k] = int(v)

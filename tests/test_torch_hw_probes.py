@@ -19,9 +19,11 @@ numpy transcription of probe_smem.py:52-81 with the table flattened.
 Input recipes, beside each tool's own inputs (which hide most of what the
 tools compute):
   * K10, K12, K13: x uniform in [0, 1) (it too reaches the consume's
-    fixed point on every lane within a step), and x uniform in [-400, 0)
+    fixed point on every lane within a step), x uniform in [-400, 0)
     with x[0, 0] = inf, whose lanes stay apart and whose step index
-    advances by 2 (probe_cond.spread_inputs);
+    advances by 2 (probe_cond.spread_inputs), and x uniform in [0, 1)
+    with x[0, 0] = 3e38, whose step flag is true after the first step
+    only, or (K13 with planes) after every step (probe_cond.flip_inputs);
   * K11: x = 1 and x uniform in [0, 1), buffers of 1, 2 and 1024 floats;
   * K14: the tables times 1024, so that every sum shows above 2^30;
   * K15: dyadic rays and records on which every ray hits every record;
@@ -224,6 +226,34 @@ def test_probe_pressure_matches_jax(jax_tools, n_inv, recipe):
     np.testing.assert_array_max_ulp(got, ref, maxulp=2)
 
 
+def _k_sequence(n_inv, steps):
+    """The step indices k of the plain consume loop (K13 at n_inv, 8
+    rows) on the flip recipe."""
+    tab, x = probe_cond.flip_inputs(8, "cpu")
+    fac = probe_pressure.factors(n_inv, "cpu")
+    inv = [x * fac[p] for p in range(n_inv)]
+    seen = []
+
+    def gate(k):
+        seen.append(k)
+        return True
+
+    probe_cond.consume_loop(x, steps, lambda b: probe_cond.row_values(tab, b),
+                            (lambda p: inv[p % n_inv]) if n_inv else
+                            (lambda p: 0.5), gate=gate)
+    return seen
+
+
+@pytest.mark.parametrize("n_inv", probe_pressure.N_INV)
+def test_flip_recipe_turns_the_step_flag(n_inv):
+    """Without planes acc[0, 0]'s flag is true after the first step only
+    (k: 0, 2, 3, 4, ...); with planes it stays true (k: 0, 2, 4, ...).
+    A block of the split K13 that misread or mistimed it would take
+    another k sequence, and the card's tests would see it."""
+    want = [0, 2, 3, 4, 5, 6, 7, 8, 9] if n_inv == 0 else [0, 2, 4, 6, 8]
+    assert _k_sequence(n_inv, 10) == want
+
+
 # ---------------------------------------------------------------------------
 # K14 probe_broadcast
 # ---------------------------------------------------------------------------
@@ -317,17 +347,19 @@ def test_probe_bf16_matches_jax(jax_tools, dtype, recipe):
 
 
 def test_hw_probe_floors_count_the_work():
-    """Each probe's floor is its operations on one SM: positive, ordered as
-    the modes add work, bf16 at twice the float32 rate."""
+    """Each probe's floor is its operations on the SMs it fills (K10 one,
+    K13 4 at 64 rows and 1 at 8): positive, ordered as the modes add work,
+    bf16 at twice the float32 rate."""
     assert timing.bound_ms(0, 134e9, rate=timing.BF16_OPS) == \
         pytest.approx((1.0, "operations"))
     c = probe_cond.bound(64, 400)
     assert c[1] == "operations" and c[0] > 0
     p = lambda n, rows: probe_pressure.bound(rows, 400,
                                              probe_pressure.lane_ops(n))[0]
-    assert p(0, 64) == pytest.approx(c[0]) and p(6, 64) == p(20, 64)
+    sms = probe_pressure.launch_geometry(64)[0]
+    assert p(0, 64) == pytest.approx(c[0] / sms) and p(6, 64) == p(20, 64)
     assert p(6, 64) == pytest.approx(1.25 * p(0, 64))
-    assert p(6, 8) == pytest.approx(p(6, 64) / 8)
+    assert p(6, 8) == pytest.approx(p(6, 64) / 8 * sms)
     f32, bf16 = (probe_bf16.bound(d, 64, 4000) for d in probe_bf16.DTYPES)
     assert bf16[0] == pytest.approx(f32[0] / 2) and bf16[1] == "operations"
     assert probe_broadcast.bound(64, 800)[0] == \

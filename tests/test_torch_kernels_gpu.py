@@ -1100,12 +1100,15 @@ def test_probe_smem_consume_kernel_matches_plain(cuda_device, mode, recipe):
 @pytest.mark.parametrize("rows", probe_pressure.ROWS)
 @pytest.mark.parametrize("n_inv", probe_pressure.N_INV)
 def test_probe_pressure_kernel_matches_plain(cuda_device, n_inv, rows):
-    for make in probe_cond.RECIPES.values():
+    """K13 split over launch_geometry(rows)[0] blocks, each with its own
+    shadow of element (0, 0): bit-equal on every recipe, the flip recipe's
+    turning step flag included."""
+    for name, make in probe_cond.RECIPES.items():
         tab, x = make(rows, cuda_device)
         got = probe_pressure.pressure_probe(n_inv, tab, x, 40)
         ref = probe_pressure.pressure_probe_plain(n_inv, tab, x, 40)
         torch.cuda.synchronize()
-        assert torch.equal(got, ref)
+        assert torch.equal(got, ref), name
 
 
 @pytest.mark.gpu
@@ -1121,8 +1124,10 @@ def test_probe_broadcast_kernel_matches_plain(cuda_device, mode):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows", [8, 32])
+@pytest.mark.parametrize("rows", [8, 16, 24, 32])
 def test_probe_xpose_kernel_matches_plain(cuda_device, rows):
+    """K15 over launch_geometry(rows)[0] = 1-4 blocks, both modes, both
+    input recipes: bit-equal to each other and to the plain version."""
     for make in (probe_xpose.tool_inputs, probe_xpose.hit_inputs):
         tab, planes = make(rows, cuda_device)
         a, b = (probe_xpose.xpose_probe(m, tab, planes, 50)

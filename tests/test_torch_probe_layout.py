@@ -1,6 +1,6 @@
-"""K6's, K8's and K16's launch geometries and bounds, the SASS counter of
-the probe tools, and one JAX parity case of the plain K6 at a
-cluster-split row count, on the CPU.
+"""K6's, K8's, K13's, K15's and K16's launch geometries and bounds, the
+SASS counter of the probe tools, and one JAX parity case of the plain K6
+at a cluster-split row count, on the CPU.
 
 K6 (rtrt_tpu_torch/csrc/probe_step.cu) splits a (rows, 128) tile over a
 thread-block cluster of c blocks, c the smallest of 1, 2, 4 with rows <=
@@ -12,8 +12,13 @@ ceil(rows / 16) plain blocks of ceil(rows / c) rows (`probe_bf16.
 launch_geometry`), and `probe_bf16.bound` takes c / 132 of the card.  K8 /
 K9 (rtrt_tpu_torch/csrc/probe_cores.cu) run a tile on a cluster of 1 block
 up to 16 rows and 2 beyond (`probe_cores.launch_geometry`), and
-`probe_cores.bound` takes tiles x c / 132.  The kernels themselves run
-only on the card (tests/test_torch_kernels_gpu.py).
+`probe_cores.bound` takes tiles x c / 132.  K13
+(rtrt_tpu_torch/csrc/probe_consume.cu::pressure_kernel) splits its tile
+over c = rows / 16 plain blocks (1 at 8 rows), each with its own shadow of
+element (0, 0), and
+K15 (csrc/probe_record.cu::xpose_kernel) over c = rows / 8 blocks of 8
+rows; their bounds take c / 132.  The kernels themselves run only on the
+card (tests/test_torch_kernels_gpu.py).
 """
 
 import importlib.util
@@ -27,8 +32,8 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from rtrt_tpu_torch.tools import (probe_bf16, probe_cores, sass_loops,
-                                  ubench_step)
+from rtrt_tpu_torch.tools import (probe_bf16, probe_cores, probe_pressure,
+                                  probe_xpose, sass_loops, ubench_step)
 from rtrt_tpu_torch.utils import timing
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -135,6 +140,76 @@ def test_k8_bound_scales_with_its_clusters():
         assert grid[0] == pytest.approx(ms, rel=1e-9)  # 8 tiles, 8 c SMs
 
 
+K13_GEOMETRY = {64: (4, 16), 8: (1, 8)}
+
+
+@pytest.mark.parametrize("rows", sorted(K13_GEOMETRY))
+def test_k13_launch_geometry(rows):
+    c, block_rows = probe_pressure.launch_geometry(rows)
+    assert (c, block_rows) == K13_GEOMETRY[rows]
+    assert c * block_rows == rows
+    assert block_rows <= probe_pressure.MAX_BLOCK_ROWS
+    # csrc's lanes a thread: whole warps, at most 1,024 threads a block
+    n = sass_loops.lanes(REPO, "probe_consume.cu", "PRESSURE_L")
+    assert block_rows * 128 % (32 * n) == 0
+    assert block_rows * 128 // n <= 1024
+
+
+@pytest.mark.parametrize("rows", [0, 4, 16, 24, 32, 72, -8])
+def test_k13_launch_geometry_refuses(rows):
+    """Only the JAX tool's tiles (64 and 8 rows)."""
+    with pytest.raises(ValueError, match="rows"):
+        probe_pressure.launch_geometry(rows)
+
+
+@pytest.mark.parametrize("n_inv", probe_pressure.N_INV)
+def test_k13_bound_scales_with_its_sms(n_inv):
+    steps = 400
+    for rows, (c, _) in K13_GEOMETRY.items():
+        ms, by = probe_pressure.bound(rows, steps,
+                                      probe_pressure.lane_ops(n_inv))
+        ops = probe_pressure.lane_ops(n_inv) * rows * 128 * steps
+        assert by == "operations"
+        assert ms == pytest.approx(ops / (timing.F32_OPS * c / timing.SMS)
+                                   * 1e3, rel=1e-12)
+    # 64 rows on 4 SMs: twice the time of 8 rows on one
+    b = lambda rows: probe_pressure.bound(rows, steps,
+                                          probe_pressure.lane_ops(n_inv))[0]
+    assert b(64) == pytest.approx(2 * b(8), rel=1e-12)
+
+
+K15_GEOMETRY = {8: (1, 8), 16: (2, 8), 24: (3, 8), 32: (4, 8)}
+
+
+@pytest.mark.parametrize("rows", sorted(K15_GEOMETRY))
+def test_k15_launch_geometry(rows):
+    c, block_rows = probe_xpose.launch_geometry(rows)
+    assert (c, block_rows) == K15_GEOMETRY[rows]
+    assert c * block_rows == rows
+    n = sass_loops.lanes(REPO, "probe_record.cu", "XPOSE_L")
+    assert n in (1, 2, 4)
+    assert block_rows * 128 % (32 * n) == 0
+
+
+@pytest.mark.parametrize("rows", [0, 4, 12, 40, -8])
+def test_k15_launch_geometry_refuses(rows):
+    with pytest.raises(ValueError, match="rows"):
+        probe_xpose.launch_geometry(rows)
+
+
+def test_k15_bound_scales_with_its_sms():
+    steps = 300
+    for rows, (c, _) in K15_GEOMETRY.items():
+        ms, by = probe_xpose.bound(rows, steps)
+        ops = probe_xpose.LANE_OPS * rows * 128 * steps
+        assert by == "operations"
+        assert ms == pytest.approx(ops / (timing.F32_OPS * c / timing.SMS)
+                                   * 1e3, rel=1e-12)
+    # the same 8 rows a block on every SM: one time at every row count
+    assert probe_xpose.bound(32, steps)[0] == pytest.approx(
+        probe_xpose.bound(8, steps)[0], rel=1e-12)
+
+
 _SASS = """
 \t\tFunction : _ZN12_GLOBAL__N_111step_kernelILi4ELb1EEEvPKfS2_PfS3_i
         /*0000*/                   LDC R1, c[0x0][0x28] ;
@@ -199,6 +274,86 @@ def test_sass_loops_counts_half_precision():
     assert sass_loops.k16_lanes(REPO) == 2
     warps = sass_loops.default_warps()
     assert warps["chains_f32"] == warps["chains_bf16"] == 32
+
+
+_SASS_K13 = """
+\t\tFunction : _ZN12_GLOBAL__N_115pressure_kernelILi20EEEvPKfS2_S2_Pfi
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   ISETP.GT.U32.AND P1, PT, R0, 0x1f, PT ;
+        /*0020*/               @P1 BRA `(.L_x_1) ;
+.L_x_0:
+        /*0030*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0040*/                   FMUL R5, R4, R6 ;
+        /*0050*/                   FMUL R10, R4, R11 ;
+        /*0060*/                   FMNMX R7, R5, R7, PT ;
+        /*0070*/                   LDS R12, [R9] ;
+        /*0080*/                   FMUL R13, R12, R4 ;
+        /*0090*/                   FMNMX R14, R13, R14, PT ;
+        /*00a0*/                   STS [R9], R7 ;
+        /*00b0*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*00c0*/                   ISETP.GE.AND P0, PT, R13, c[0x0][0x210], PT ;
+        /*00d0*/              @!P0 BRA `(.L_x_0) ;
+        /*00e0*/                   BRA `(.L_x_3) ;
+.L_x_1:
+        /*00f0*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0100*/                   FMUL R5, R4, R6 ;
+        /*0110*/                   FMUL R10, R4, R11 ;
+        /*0120*/                   FMNMX R7, R5, R7, PT ;
+        /*0130*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0140*/                   LDS R8, [R9] ;
+        /*0150*/                   ISETP.GE.AND P0, PT, R13, c[0x0][0x210], PT ;
+        /*0160*/              @!P0 BRA `(.L_x_1) ;
+.L_x_3:
+        /*0170*/                   EXIT ;
+.L_x_2:
+        /*0180*/                   IADD3 R0, R0, 0x1, RZ ;
+        /*0190*/               @P1 BRA `(.L_x_2) ;
+"""
+
+
+def test_sass_loops_counts_k13_and_its_shadow():
+    """Warp 0 runs its own copy of K13's step loop, which also steps the
+    shadow of element (0, 0): the largest loop; the other warps' loop is
+    the next that holds a barrier (the 2-instruction loop has none); each
+    holds one step (one barrier)."""
+    (name, body), = sass_loops.functions(_SASS_K13).items()
+    n = sass_loops.lanes(REPO, "probe_consume.cu", "PRESSURE_L")
+    assert sass_loops._mode(REPO, "pressure_kernel", name) == \
+        (f"n_inv 20 lanes {n}", n)
+    warp0, loops = sass_loops.step_loop(body)
+    assert len(warp0) == 11 and len(loops) == 3
+    tile = sass_loops.tile_loop(body)
+    assert [op.split(".")[0] for _, op, _ in tile] == [
+        "LDG", "FMUL", "FMUL", "FMNMX", "BAR", "LDS", "ISETP", "BRA"]
+    assert sass_loops.steps_in_body("pressure_kernel", n, warp0) == 1
+    assert sass_loops.steps_in_body("pressure_kernel", n, tile) == 1
+    # K10 / K12's consume_kernel is not counted; a parent tree's K13
+    # instantiations of it are, with their lanes (1 at 8 rows, 8 at 64)
+    sig = "EEEvPKfS2_S2_Pfiiii"
+    k10 = "_ZN12_GLOBAL__N_114consume_kernelILi8ELi0ELi0ELin1" + sig
+    assert sass_loops._mode(REPO, "consume_kernel", k10) is None
+    k13 = "_ZN12_GLOBAL__N_114consume_kernelILi8ELi0ELi0ELi20" + sig
+    assert sass_loops._mode(REPO, "consume_kernel", k13) == \
+        ("rows 64 n_inv 20 one block", 8)
+
+
+def test_sass_loops_counts_k15_by_its_reciprocals():
+    """K15's steps in a loop body: its MUFU.RCP over 8 a lane, lanes the
+    XPOSE_L of csrc/probe_record.cu; its mode from the template index."""
+    loop = [(0, "MUFU.RCP", ""), (16, "FFMA", ""), (32, "MUFU.RCP", "")] * 8
+    assert sass_loops.steps_in_body("xpose_kernel", 2, loop) == 1
+    assert sass_loops.steps_in_body("xpose_kernel", 1, loop) == 2
+    name = "_ZN12_GLOBAL__N_112xpose_kernelILi1EEEvPKfS2_Pfii"
+    n = sass_loops.lanes(REPO, "probe_record.cu", "XPOSE_L")
+    assert sass_loops._mode(REPO, "xpose_kernel", name) == \
+        (f"xpose lanes {n}", n)
+    # the warps an SM at the tools' default rows: 8 rows a block (K15) and
+    # 16 (K13)
+    warps = sass_loops.default_warps()
+    assert warps["xpose_kernel"] == 8 * 128 // n // 32
+    assert warps["pressure_kernel"] == 16 * 128 // sass_loops.lanes(
+        REPO, "probe_consume.cu", "PRESSURE_L") // 32
+    assert warps["consume_kernel"] == 32
 
 
 def _jax_ubench():
