@@ -60,14 +60,15 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      probe_xpose, K16 probe_bf16, every mode against its plain version on
      the card at the tools' rows and a cut step count, on every input
      recipe of tests/test_torch_hw_probes.py (bit-equal; K10's three modes
-     and K15's two agree; K13 split over c = 4 and 1 SMs at its 64 and 8
-     rows, K15 at every row count 8-32 (c = 1-4) and K16 at every row
-     count 8-64 (c = 1-4)); K11 at the card's shared-memory edge (accepted
-     at 48 KB and at the opt-in maximum, refused one float beyond and at
-     every size of the JAX tool); then, with the launch counters reset,
-     the six tools' entry points at their default steps and reps (every
-     new kernel must read launches), and the plain versions timed once at
-     the defaults;
+     and K15's two agree, K12's extract equals K10 flat; K10 and K12 at
+     every row count 8-64 (c = 1-4), K13 split over c = 4 and 1 SMs at
+     its 64 and 8 rows, K15 at every row count 8-32 (c = 1-4) and K16 at
+     every row count 8-64 (c = 1-4)); K11 at the card's shared-memory
+     edge (accepted at 48 KB and at the opt-in maximum, refused one float
+     beyond and at every size of the JAX tool); then, with the launch
+     counters reset, the six tools' entry points at their default steps
+     and reps (every new kernel must read launches), and the plain
+     versions timed once at the defaults;
   9. the north star's call: Engine(GlobalSettings(scene="terrain")) — the
      default settings (1920x1080, dynamic resolution on) and the default
      FeatureFlags() — with the launch counters reset just before: a warm
@@ -3234,15 +3235,20 @@ def _hw_probes(card):
     # 8a. every mode against its plain version, the tools' rows, a cut step
     # count, every input recipe of the tests
     for recipe, make in PC.RECIPES.items():
-        tab, x = make(64, dev)
-        ref = PC.cond_probe_plain("flat", tab, x, PROBE_CUT)
-        for m in PC.MODES:  # all three against flat's plain version
-            same("K10", f"{recipe} {m}", PC.cond_probe(m, tab, x, PROBE_CUT),
-                 ref)
-        for m in PS.MODES:
-            same("K12", f"{recipe} {m}",
-                 PS.smem_consume(m, tab, x, PROBE_CUT),
-                 PS.smem_consume_plain(m, tab, x, PROBE_CUT))
+        for rows in range(8, 65, 8):  # c = 1, 2, 3, 4 SMs
+            tab, x = make(rows, dev)
+            ref = PC.cond_probe_plain("flat", tab, x, PROBE_CUT)
+            flat = PC.cond_probe("flat", tab, x, PROBE_CUT)
+            for m in PC.MODES:  # all three against flat's plain version
+                same("K10", f"{recipe} {m} rows {rows}",
+                     PC.cond_probe(m, tab, x, PROBE_CUT), ref)
+            for m in PS.MODES:
+                got = PS.smem_consume(m, tab, x, PROBE_CUT)
+                same("K12", f"{recipe} {m} rows {rows}", got,
+                     PS.smem_consume_plain(m, tab, x, PROBE_CUT))
+                if m == "extract":  # K10 flat's instantiation
+                    same("K12", f"{recipe} extract = K10 flat rows {rows}",
+                         got, flat)
         for rows in PP.ROWS:
             tab, x = make(rows, dev)
             for n in PP.N_INV:
@@ -3271,7 +3277,9 @@ def _hw_probes(card):
                          f"steps {steps}", PB.bf16_probe(d, x, steps),
                          PB.bf16_probe_plain(d, x, steps))
     print(f"K10 and K12-K16 vs plain on the card, every mode, the tools' "
-          f"rows, {PROBE_CUT} steps (K13 at 64 and 8 rows on "
+          f"rows, {PROBE_CUT} steps (K10 and K12 every row count 8-64 on "
+          f"{[PC.launch_geometry(r)[0] for r in range(8, 65, 8)]} SMs; "
+          f"K13 at 64 and 8 rows on "
           f"{[PP.launch_geometry(r)[0] for r in PP.ROWS]} SMs; K15 every "
           f"row count 8-32 on "
           f"{[PX.launch_geometry(r)[0] for r in range(8, 33, 8)]} SMs; K16 "
@@ -3342,19 +3350,22 @@ def _hw_probes(card):
                     bound_ms=bound[0], bound_by=bound[1], library_ms=None)
 
     return [
-        entry("K10", "probe_cond (72-value consume, one block per 64x128 "
-              "tile; ms per launch in mode flat, 400 steps)",
-              "probe_consume.cu", "tools/probe_cond.py:76", "probe_cond",
-              r10["flat"]["ns"] * 400 / 1e6, PC.bound(64, 400)),
+        entry("K10", f"probe_cond (72-value consume, the 64x128 tile over "
+              f"{PC.launch_geometry(64)[0]} SMs, element (0, 0) stepped in "
+              f"every warp, no step barrier; ms per launch in mode flat, "
+              f"400 steps)", "probe_consume.cu", "tools/probe_cond.py:76",
+              "probe_cond", r10["flat"]["ns"] * 400 / 1e6,
+              PC.bound(64, 400)),
         entry("K11", "probe_smem try_alloc (dynamic shared memory of one "
               "block; ms per launch at 48 KB)", "probe_consume.cu",
               "tools/probe_smem.py:34", "probe_smem_alloc", k11_ms,
               PS.alloc_bound()),
-        entry("K12", "probe_smem time_consume (the consume from a table "
-              "staged in shared memory; ms per launch in mode smem, 400 "
-              "steps)", "probe_consume.cu", "tools/probe_smem.py:85",
-              "probe_smem_consume", r12["smem"]["ns"] * 400 / 1e6,
-              PC.bound(64, 400)),
+        entry("K12", f"probe_smem time_consume (the consume from a table "
+              f"staged in shared memory by bulk copies, the 64x128 tile "
+              f"over {PC.launch_geometry(64)[0]} SMs as K10; ms per launch "
+              f"in mode smem, 400 steps)", "probe_consume.cu",
+              "tools/probe_smem.py:85", "probe_smem_consume",
+              r12["smem"]["ns"] * 400 / 1e6, PC.bound(64, 400)),
         entry("K13", f"probe_pressure (the consume with live planes, the "
               f"64x128 tile over {PP.launch_geometry(64)[0]} SMs, a shadow "
               f"of element (0, 0) in each block; ms per launch at 64 rows, "

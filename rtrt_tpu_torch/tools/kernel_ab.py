@@ -40,15 +40,18 @@ rows, 4000 steps, 20 reps) and slab and reduce2 at 16 rows, K7
 (`tools/probe_leaf.py::run`) in every mode at its defaults (32 rows, 400
 steps, 10 reps, the tool's inputs), K8 (`tools/probe_cores.py::run`) in
 every mode at 32 rows, 400 steps, 10 reps, and K9 (its 8-tile grid with
-the big tables, mode both, 200 steps), K13 (`tools/probe_pressure.py::
-run`, 400 steps, 10 reps) at 64 rows with each n_inv and at 8 rows with
-20 planes, K15 (`tools/probe_xpose.py::run`) in both modes at 32 rows,
-300 steps, 10 reps, and K16 (`tools/probe_bf16.py::run`) in both modes
-at 64 rows, 4000 steps, 30 reps, each tree through its own wrappers (ns
-a step, CUDA events); beside K8, K9, K13, K15 and K16 the tree's own
-floor of a step ("... floor": its bound over the SMs the launch fills,
-which a split over SMs changes).  ptxas' lines are those of the probes'
-kernels.
+the big tables, mode both, 200 steps), K10 (`tools/probe_cond.py::run`)
+in its three modes and K12 (`tools/probe_smem.py::run`) in both, at 64
+rows, 400 steps, 10 reps, the tool's inputs, K13 (`tools/
+probe_pressure.py::run`, 400 steps, 10 reps) at 64 rows with each n_inv
+and at 8 rows with 20 planes, K15 (`tools/probe_xpose.py::run`) in both
+modes at 32 rows, 300 steps, 10 reps, and K16 (`tools/probe_bf16.py::
+run`) in both modes at 64 rows, 4000 steps, 30 reps, each tree through
+its own wrappers (ns a step, CUDA events); beside K8-K10, K12, K13, K15
+and K16 the tree's own floor of a step ("... floor": its bound over the
+SMs the launch fills, which a split over SMs changes).  ``--only
+K10,K12`` times only the probes named (by the key's first word).
+ptxas' lines are those of the probes' kernels.
 """
 
 from __future__ import annotations
@@ -70,7 +73,7 @@ FRAME_KERNELS = ("megakernel", "traverse_kernel", "denoise_wide",
                  "post_tail", "reproject")
 PROBE_KERNELS = ("step_kernel", "leaf_kernel", "cores_kernel",
                  "consume_kernel", "pressure_kernel", "xpose_kernel",
-                 "chains_")
+                 "chains_")  # consume_kernel: free_consume_kernel too
 
 
 def _ptxas(log: str, kernels=FRAME_KERNELS) -> dict:
@@ -195,15 +198,16 @@ def child(tree: str, reps2: int, reps4: int) -> dict:
     return res
 
 
-def probe_child(tree: str) -> dict:
-    """Time K6-K9, K13, K15 and K16 of the package in `tree` (this process
-    only)."""
+def probe_child(tree: str, only=()) -> dict:
+    """Time K6-K10, K12, K13, K15 and K16 of the package in `tree` (this
+    process only); `only`: the probes to time (K numbers), all if
+    empty."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     import rtrt_tpu_torch
-    from rtrt_tpu_torch.tools import (probe_bf16, probe_cores, probe_leaf,
-                                      probe_pressure, probe_xpose,
-                                      ubench_step)
+    from rtrt_tpu_torch.tools import (probe_bf16, probe_cond, probe_cores,
+                                      probe_leaf, probe_pressure, probe_smem,
+                                      probe_xpose, ubench_step)
     from rtrt_tpu_torch.utils import cuda
 
     pkg = os.path.dirname(os.path.abspath(rtrt_tpu_torch.__file__))
@@ -213,25 +217,41 @@ def probe_child(tree: str) -> dict:
     cuda.library()
     res = dict(tree=tree, build=_ptxas(cuda.build_info["log"],
                                        PROBE_KERNELS))
-    for m in ubench_step.MODES:
-        res[f"K6 {m}"] = ubench_step.run(m, 64, 4000, 20)[0]
-    for m in ("slab", "reduce2"):
-        res[f"K6 {m} 16 rows"] = ubench_step.run(m, 16, 4000, 20)[0]
-    for m in probe_leaf.MODES:
-        res[f"K7 {m}"] = probe_leaf.run(m, 32, 400, 10)[0]
-    for m in probe_cores.MODES:
-        res[f"K8 {m}"], res[f"K8 {m} floor"] = probe_cores.run(m, 32, 400,
-                                                              10)
-    res["K9 both"], res["K9 both floor"] = probe_cores.run(
-        "both", 32, steps=200, grid_tiles=8, big_tables=True)
-    for rows, n_inv in [(64, n) for n in probe_pressure.N_INV] + [(8, 20)]:
-        key = f"K13 {rows} rows n_inv {n_inv}"
-        res[key], res[f"{key} floor"] = probe_pressure.run(n_inv, rows)
-    for m in probe_xpose.MODES:
-        res[f"K15 {m}"], res[f"K15 {m} floor"], _ = probe_xpose.run(
-            m, 32, 300)
-    for m in probe_bf16.DTYPES:
-        res[f"K16 {m}"], res[f"K16 {m} floor"] = probe_bf16.run(m, 4000, 30)
+    want = lambda k: not only or k in only
+    if want("K6"):
+        for m in ubench_step.MODES:
+            res[f"K6 {m}"] = ubench_step.run(m, 64, 4000, 20)[0]
+        for m in ("slab", "reduce2"):
+            res[f"K6 {m} 16 rows"] = ubench_step.run(m, 16, 4000, 20)[0]
+    if want("K7"):
+        for m in probe_leaf.MODES:
+            res[f"K7 {m}"] = probe_leaf.run(m, 32, 400, 10)[0]
+    if want("K8"):
+        for m in probe_cores.MODES:
+            res[f"K8 {m}"], res[f"K8 {m} floor"] = probe_cores.run(
+                m, 32, 400, 10)
+    if want("K9"):
+        res["K9 both"], res["K9 both floor"] = probe_cores.run(
+            "both", 32, steps=200, grid_tiles=8, big_tables=True)
+    if want("K10"):
+        for m in probe_cond.MODES:
+            res[f"K10 {m}"], res[f"K10 {m} floor"] = probe_cond.run(m)
+    if want("K12"):
+        for m in probe_smem.MODES:
+            res[f"K12 {m}"], res[f"K12 {m} floor"] = probe_smem.run(m)
+    if want("K13"):
+        for rows, n_inv in [(64, n) for n in probe_pressure.N_INV] \
+                + [(8, 20)]:
+            key = f"K13 {rows} rows n_inv {n_inv}"
+            res[key], res[f"{key} floor"] = probe_pressure.run(n_inv, rows)
+    if want("K15"):
+        for m in probe_xpose.MODES:
+            res[f"K15 {m}"], res[f"K15 {m} floor"], _ = probe_xpose.run(
+                m, 32, 300)
+    if want("K16"):
+        for m in probe_bf16.DTYPES:
+            res[f"K16 {m}"], res[f"K16 {m} floor"] = probe_bf16.run(
+                m, 4000, 30)
     return res
 
 
@@ -242,11 +262,15 @@ def main(argv=None) -> int:
     ap.add_argument("--reps2", type=int, default=10)
     ap.add_argument("--reps4", type=int, default=50)
     ap.add_argument("--probes", action="store_true",
-                    help="time K6-K9, K13, K15 and K16 instead of K1-K5")
+                    help="time K6-K10, K12, K13, K15 and K16 instead of "
+                    "K1-K5")
+    ap.add_argument("--only", default="",
+                    help="with --probes: the probes to time, e.g. K10,K12")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
     if a.child is not None:
-        res = probe_child(a.child) if a.probes else \
+        only = tuple(k for k in a.only.split(",") if k)
+        res = probe_child(a.child, only) if a.probes else \
             child(a.child, a.reps2, a.reps4)
         print("AB " + json.dumps(res), flush=True)
         return 0
@@ -267,7 +291,7 @@ def main(argv=None) -> int:
     for tree in order:
         p = subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--child", tree, "--reps2", str(a.reps2),
-                            "--reps4", str(a.reps4)]
+                            "--reps4", str(a.reps4), "--only", a.only]
                            + ["--probes"] * a.probes,
                            capture_output=True, text=True)
         lines = [ln for ln in p.stdout.splitlines() if ln.startswith("AB ")]

@@ -26,11 +26,10 @@ import numpy as np
 import torch
 
 from ..utils import cuda, timing
-from .probe_cond import check_rows
+from .probe_cond import MAX_BLOCK_ROWS, launch_geometry  # K10's launch
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 SHAPE = (64, 128)
-MAX_BLOCK_ROWS = 16  # rows a block: a block's lanes on one SM
 CHAINS = 8
 OPS_PER_STEP = 6  # per chain: 2 mul, 1 add, 1 sub, 1 max, 1 min
 LANE_OPS = CHAINS * OPS_PER_STEP
@@ -69,15 +68,6 @@ def bf16_probe_plain(dtype: str, x, steps: int):
     for c in ch[1:]:
         acc = acc + c
     return acc.to(torch.float32)
-
-
-def launch_geometry(rows: int):
-    """(c, block rows) of K16's launch on a (rows, 128) tile: c =
-    ceil(rows / MAX_BLOCK_ROWS) blocks, one an SM, of ceil(rows / c) rows
-    each (the last block masks the lanes past the tile)."""
-    check_rows(rows)
-    c = -(-rows // MAX_BLOCK_ROWS)
-    return c, -(-rows // c)
 
 
 def bf16_probe(dtype: str, x, steps: int):

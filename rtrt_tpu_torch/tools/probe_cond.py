@@ -6,12 +6,17 @@ Each step of the loop reads 72 values (8 records of 9) of one row of a
 a = min(a * v0 + v1, v2 + a); the next step index depends on the tile's
 acc[0, 0].  The TPU probe asked whether a data-dependent branch around the
 consume serialises its loads.  On the H100 each mode is a template
-instantiation of one kernel (csrc/probe_consume.cu): flat, the consume
-under one branch (cond) and under two nested ones (cond2).  The branches'
-tests (k & 1023) >= 0 and (k & 511) >= 0 are always true; their masks and
-threshold reach the kernel as arguments, so the compiler keeps them.  One
-launch is one thread block on one SM: ns per visit is the latency of a
-visit on one SM, beside the floor of its float operations on that SM.
+instantiation of one kernel (csrc/probe_consume.cu::free_consume_kernel):
+flat, the consume under one branch (cond) and under two nested ones
+(cond2).  The branches' tests (k & 1023) >= 0 and (k & 511) >= 0 are
+always true; their masks and threshold reach the kernel as arguments, so
+the compiler keeps them.  The next step index depends on element (0, 0)
+alone, so a launch splits the tile over c plain blocks
+(`launch_geometry`: 4 of 16 rows at 64 rows, 1 at 8), one an SM, and
+every thread steps element (0, 0) itself as one more lane: no flag
+crosses a warp and the step loop has no barrier.  The tool prints ns a
+visit of the whole tile on its c SMs beside the floor of its float
+operations on those SMs.
 
 The plain consume loop here (`consume_loop`, `row_values`) also serves
 probe_smem (K12) and probe_pressure (K13).
@@ -31,7 +36,8 @@ from ..utils import cuda, timing
 
 MODES = ("flat", "cond", "cond2")
 SHAPE = (64, 128)
-MAX_ROWS = 64  # 8 lanes a thread, at most 1024 threads
+MAX_ROWS = 64
+MAX_BLOCK_ROWS = 16  # rows a block: a block's lanes on one SM
 # the branches' always-true tests (k & mask) >= thresh, passed at run time
 COND_MASKS = (1023, 511)
 COND_THRESH = 0
@@ -142,6 +148,24 @@ def check_rows(rows: int, max_rows: int = MAX_ROWS):
         raise ValueError(f"rows {rows}: a multiple of 8 up to {max_rows}")
 
 
+def launch_geometry(rows: int):
+    """(c, block rows) of K10's, K12's and K16's launch on a (rows, 128)
+    tile: c = ceil(rows / MAX_BLOCK_ROWS) blocks, one an SM, of ceil(rows
+    / c) rows each (the last block masks the lanes past the tile)."""
+    check_rows(rows)
+    c = -(-rows // MAX_BLOCK_ROWS)
+    return c, -(-rows // c)
+
+
+def check_consume_inputs(device, tab, x):
+    """What K10 and K12 take: tab (128, 128) and x (rows, 128) float32,
+    contiguous, on `device`, tab 16-byte aligned (its records are read by
+    float4 and K12 stages it by bulk copies).  Raises ValueError."""
+    cuda.check_tensors(device, tab=(tab, torch.float32, (128, 128)),
+                       x=(x, torch.float32, (x.shape[0], 128)))
+    cuda.check_aligned(tab=tab)
+
+
 def cond_probe(mode: str, tab, x, steps: int):
     """K10 (csrc/probe_consume.cu) for CUDA tensors, the plain version for
     CPU tensors."""
@@ -150,30 +174,32 @@ def cond_probe(mode: str, tab, x, steps: int):
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     rows = x.shape[0]
-    check_rows(rows)
+    blocks, block_rows = launch_geometry(rows)
     dev = x.device
-    cuda.check_tensors(dev, tab=(tab, torch.float32, (128, 128)),
-                       x=(x, torch.float32, (rows, 128)))
+    check_consume_inputs(dev, tab, x)
     out = torch.empty_like(x)
     cuda.launch(cuda.library().rtrt_probe_cond, "probe_cond", dev,
                 ctypes.c_int(MODES.index(mode)), tab, x, out,
                 ctypes.c_int(rows), ctypes.c_int(steps),
                 ctypes.c_int(COND_MASKS[0]), ctypes.c_int(COND_MASKS[1]),
-                ctypes.c_int(COND_THRESH))
+                ctypes.c_int(COND_THRESH), ctypes.c_int(blocks),
+                ctypes.c_int(block_rows))
     return out
 
 
 def bound(rows: int, steps: int, lane_ops: int = LANE_OPS):
-    """(ms, "bytes" or "operations"): the least time of one launch on the
-    one SM it occupies (tab and x read once, out written once)."""
+    """(ms, "bytes" or "operations"): the least time of one launch of K10
+    or K12 on the c SMs it fills (launch_geometry; tab and x read once, out
+    written once; the function's operations, not the shadow's)."""
     lanes = rows * 128
     return timing.bound_ms(128 * 128 * 4 + 2 * lanes * 4,
-                           lane_ops * lanes * steps, share=1 / timing.SMS)
+                           lane_ops * lanes * steps,
+                           share=launch_geometry(rows)[0] / timing.SMS)
 
 
 def run(mode: str, steps: int = 400, reps: int = 10, device="cuda"):
-    """(ns per visit, floor ns per visit) of K10 in `mode` on the card (CUDA
-    events), on the JAX tool's inputs."""
+    """(ns per visit of the tile on its c SMs, floor ns per visit) of K10
+    in `mode` on the card (CUDA events), on the JAX tool's inputs."""
     tab, x = tool_inputs(SHAPE[0], device)
     sec, _ = timing.time_chained(
         lambda _: cond_probe(mode, tab, x, steps), reps)
@@ -184,7 +210,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.parse_args(argv)
     card = timing.card()
-    print(card)
+    c = launch_geometry(SHAPE[0])[0]
+    print(f"{card}; a {SHAPE[0]}x128 tile on {c} SMs, ns a visit of the "
+          f"whole tile")
     results = []
     for mode in MODES:
         ns, floor = run(mode)

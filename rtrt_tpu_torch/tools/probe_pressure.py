@@ -81,6 +81,7 @@ def pressure_probe(n_inv: int, tab, x, steps: int):
     dev = x.device
     cuda.check_tensors(dev, tab=(tab, torch.float32, (128, 128)),
                        x=(x, torch.float32, (rows, 128)))
+    cuda.check_aligned(tab=tab)  # records read by float4
     fac = factors(n_inv, dev) if n_inv else None
     out = torch.empty_like(x)
     cuda.launch(cuda.library().rtrt_probe_pressure, "probe_pressure", dev,

@@ -15,7 +15,11 @@ mode) with the values from
   smem     the table staged once into 64 KiB of dynamic shared memory,
            value c at flat index (base + 16 r + v) % 8000 — another
            function than extract, as in the TPU probe.
-One launch is one thread block on one SM (csrc/probe_consume.cu).
+K10's kernel (csrc/probe_consume.cu::free_consume_kernel) and its launch:
+the tile over probe_cond.launch_geometry(rows)'s c SMs, element (0, 0)
+stepped by every thread, no barrier in the step loop; the smem
+instantiation stages the table by bulk copies (one barrier) and reads it
+without the modulo, which never wraps (base + 16 r + v <= 1116).
 
 Usage: python -m rtrt_tpu_torch.tools.probe_smem
 """
@@ -28,8 +32,9 @@ import ctypes
 import torch
 
 from ..utils import cuda, timing
-from .probe_cond import (LANE_OPS, OFFSETS, SHAPE, bound, check_rows,
-                         consume_loop, row_values, tool_inputs)
+from .probe_cond import (LANE_OPS, OFFSETS, SHAPE, bound,
+                         check_consume_inputs, check_rows, consume_loop,
+                         launch_geometry, row_values, tool_inputs)
 
 MODES = ("extract", "smem")
 SIZES_MIB = (0.25, 0.5, 1.0, 2.0, 4.0)  # the JAX tool's scratch sizes
@@ -125,14 +130,14 @@ def smem_consume(mode: str, tab, x, steps: int):
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     rows = x.shape[0]
-    check_rows(rows)
+    blocks, block_rows = launch_geometry(rows)
     dev = x.device
-    cuda.check_tensors(dev, tab=(tab, torch.float32, (128, 128)),
-                       x=(x, torch.float32, (rows, 128)))
+    check_consume_inputs(dev, tab, x)
     out = torch.empty_like(x)
     cuda.launch(cuda.library().rtrt_probe_smem_consume,
                 "probe_smem_consume", dev, ctypes.c_int(MODES.index(mode)),
-                tab, x, out, ctypes.c_int(rows), ctypes.c_int(steps))
+                tab, x, out, ctypes.c_int(rows), ctypes.c_int(steps),
+                ctypes.c_int(blocks), ctypes.c_int(block_rows))
     return out
 
 
@@ -150,8 +155,8 @@ def run_alloc(n_floats: int, reps: int = 20, device="cuda"):
 
 
 def run(mode: str, steps: int = 400, reps: int = 10, device="cuda"):
-    """(ns per visit, floor ns per visit) of K12 in `mode` on the card (CUDA
-    events), on the JAX tool's inputs."""
+    """(ns per visit of the tile on its c SMs, floor ns per visit) of K12
+    in `mode` on the card (CUDA events), on the JAX tool's inputs."""
     tab, x = tool_inputs(SHAPE[0], device)
     sec, _ = timing.time_chained(
         lambda _: smem_consume(mode, tab, x, steps), reps)

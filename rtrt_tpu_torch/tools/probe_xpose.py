@@ -112,6 +112,7 @@ def xpose_probe(mode: str, tab, planes, steps: int):
     dev = planes.device
     cuda.check_tensors(dev, tab=(tab, torch.float32, (128, 128)),
                        planes=(planes, torch.float32, (6, rows, 128)))
+    cuda.check_aligned(tab=tab)  # records read by float4
     out = torch.empty((rows, 128), dtype=torch.float32, device=dev)
     cuda.launch(cuda.library().rtrt_probe_xpose, "probe_xpose", dev,
                 ctypes.c_int(MODES.index(mode)), tab, planes, out,

@@ -13,13 +13,16 @@ instantiation), K7 (`leaf_kernel`, csrc/probe_leaf.cu), K8 / K9
 (`cores_kernel`, csrc/probe_cores.cu; a lone-block and a cluster
 instantiation a mode), K13 (`pressure_kernel`, csrc/probe_consume.cu, one
 instantiation an n_inv; in a tree from before it had its own kernel, the
-n_inv >= 0 instantiations of `consume_kernel`), K15 (`xpose_kernel`,
-csrc/probe_record.cu, a mode each) and K16 (`chains_f32`,
-`chains_bf16`, csrc/probe_bf16.cu), finds the step loop (the backward
-branch that spans the most instructions: the other loops of these
-kernels are a few instructions long) and counts its warp instructions by
-kind.  ptxas' registers and spill stores of the same instantiation come
-from the build log.  A K6-K8 step loop is not unrolled in this checkout,
+n_inv >= 0 instantiations of `consume_kernel`), K10 / K12
+(`free_consume_kernel`, csrc/probe_consume.cu: K10's flat, cond and
+cond2 and K12's smem, K12's extract being K10's flat; in a tree from
+before it, the n_inv = -1 instantiations of `consume_kernel`), K15
+(`xpose_kernel`, csrc/probe_record.cu, a mode each) and K16
+(`chains_f32`, `chains_bf16`, csrc/probe_bf16.cu), finds the step loop
+(the backward branch that spans the most instructions: the other loops
+of these kernels are a few instructions long) and counts its warp
+instructions by kind.  ptxas' registers and spill stores of the same
+instantiation come from the build log.  A K6-K8 step loop is not unrolled in this checkout,
 so a loop body is one step; where the loop holds a branch that a run
 never takes (K7's fat and carry4: the internal visit) or one of two
 branches a step takes (K8's both and depcond: a leaf or an internal
@@ -27,15 +30,19 @@ visit), the count holds it too (K8's leafonly and intonly loops hold one
 visit each).  K16's body may hold several steps (nvcc unrolls its bf16
 loop by 4): `steps_in_body` is its min / max instructions over the 2 x 8
 chains x lanes (f32) or pairs (bf16) of one step, the lanes a thread
-being the `constexpr int L` of DIR's csrc/probe_bf16.cu.  K13's steps in
-a body are its step barriers (BAR: one a step); K15's its reciprocals
-(MUFU.RCP: 8 a lane a step, XPOSE_L lanes a thread, 4 where DIR's
+being the `constexpr int L` of DIR's csrc/probe_bf16.cu.  K13's and an
+older tree's `consume_kernel`'s steps in a body are their step barriers
+(BAR: one a step); `free_consume_kernel`'s body is one step (no
+barrier; K10's holds the never-taken reload of a flagged step and, in
+the cond modes, the never-taken branch that skips the terms); K15's its
+reciprocals (MUFU.RCP: 8 a lane a step, XPOSE_L lanes a thread, 4 where DIR's
 csrc/probe_record.cu has no XPOSE_L), which stay in the loop body where
 a warp skips them.  K13's warp 0 runs its own copy of the step loop,
 which also steps the shadow of element (0, 0): the largest loop; the
 other warps' loop is the next that holds a barrier.  `instructions_per_
 step` and `by_kind` are the other warps', `warp0_instructions_per_step`
-warp 0's, which counts once, for one warp, in the issue floor.
+warp 0's, which counts once, for one warp, in the issue floor.  Every
+warp of `free_consume_kernel` steps the shadow in its one loop.
 
 The issue-slot floor of a step: each SM issues at most 4 warp
 instructions a clock (one a sub-partition, 128 threads), so a step costs
@@ -44,11 +51,13 @@ highest SM clock (`nvidia-smi --query-gpu=clocks.max.sm`).  `--warps
 NAME=N`: the warps a launch puts on each SM (defaults: this checkout's
 geometry at each CLI's default rows: K6 16 at 64 rows on 4 SMs, K7 32
 at 32 rows, K8 16 at 32 rows on 2 SMs, K13 16 (16 rows a block at
-DIR's PRESSURE_L of 4), K15 32 (8 rows a block at DIR's XPOSE_L of 1),
+DIR's PRESSURE_L of 4), K10 / K12 16 rows a block at DIR's CONSUME_L
+(4 warps at 16 lanes), K15 32 (8 rows a block at DIR's XPOSE_L of 1),
 K16 32: 16 rows a block at 2 lanes a thread, as the one-block K16 of 64
-rows at 8 had; a tree from before K13's and K15's split ran one
-1,024-thread block: `consume_kernel` 32, and give `--warps
-xpose_kernel=32`).  Prints one line ``SASS {json}`` per instantiation.
+rows at 8 had; a tree from before the splits ran one 1,024-thread block:
+`consume_kernel` 32 (K10 / K12, and K13 before its split), and give
+`--warps xpose_kernel=32`).  Prints one line ``SASS {json}`` per
+instantiation.
 Needs the CUDA toolkit (nvcc, cuobjdump) and a card for the clock.
 """
 
@@ -65,20 +74,29 @@ import sys
 
 KERNELS = {"step_kernel": "K6", "leaf_kernel": "K7", "cores_kernel": "K8",
            "consume_kernel": "K13", "pressure_kernel": "K13",
-           "xpose_kernel": "K15", "chains_f32": "K16", "chains_bf16": "K16"}
+           "free_consume_kernel": "K10", "xpose_kernel": "K15",
+           "chains_f32": "K16", "chains_bf16": "K16"}
 K16_CHAINS = 8
 K15_RECORDS = 8  # reciprocals a lane a step
-# the K13 instantiations of consume_kernel<L, ROW, 0, n_inv> in a tree
-# from before pressure_kernel (K10 and K12 have n_inv = -1: "Lin1E")
+# consume_kernel<L, kSrc, kCond, n_inv> of an older tree: K13 (n_inv >= 0,
+# before pressure_kernel) and K10 / K12 (n_inv = -1: "Lin1E"; kSrc 0 the
+# global row, 1 the staged table), before free_consume_kernel
 _CONSUME_K13 = re.compile(r"consume_kernelILi(\d+)ELi0ELi0ELi(\d+)E")
+_CONSUME_K10 = re.compile(r"consume_kernelILi(\d+)ELi([01])ELi(\d)ELin1E")
+# free_consume_kernel<kSrc, kCond>
+_FREE_CONSUME = re.compile(r"free_consume_kernelILi([01])ELi(\d)E")
 # SASS opcodes (the part before the first '.') by kind; anything else is
-# "other" (integer and logic ops, moves, special registers, uniform ops)
+# "other" (moves, conversions, special registers, uniform ops).  Integer
+# arithmetic counts as "int add/mul/shift/logic" (IMAD.MOV, a move, too)
 KINDS = {
     "fp32 add/mul/fma": ("FADD", "FMUL", "FFMA", "FADD32I", "FMUL32I",
                          "FFMA32I"),
     "fp32 cmp/min/max/sel": ("FSETP", "FSET", "FMNMX", "FSEL", "FCHK"),
     "fp16/bf16x2": ("HADD2", "HMUL2", "HFMA2", "HMNMX2", "HSETP2", "HSET2"),
     "int cmp/sel": ("ISETP", "SEL", "IMNMX", "PLOP3"),
+    "int add/mul/shift/logic": ("IADD3", "IADD", "IMAD", "IMUL", "IABS",
+                                "LEA", "SHF", "SHL", "SHR", "LOP3", "LOP",
+                                "POPC", "FLO", "BREV", "PRMT", "BMSK"),
     "mufu": ("MUFU",),
     "load/store": ("LDG", "LDS", "LD", "STG", "STS", "ST", "LDGSTS",
                    "LDSM", "ATOMS", "ATOMG", "ATOM", "RED", "REDG"),
@@ -127,8 +145,11 @@ def functions(sass: str) -> dict:
 
 def step_loop(body, rank: int = 0):
     """The instructions of the backward branch that spans the most (rank
-    0: the step loop; rank 1 the next, and so on).  Returns (instructions,
-    all backward branches as (target, branch, length))."""
+    0: the step loop; rank 1 the next, and so on), leaving out a branch
+    whose span holds an EXIT: no step loop does, but the out-of-line retry
+    of an mbarrier wait (K12 smem's staging) jumps back to the kernel's
+    start.  Returns (instructions, all backward branches as (target,
+    branch, length))."""
     labels, instrs = {}, []
     for addr, op, text in body:
         if op is None:
@@ -148,6 +169,8 @@ def step_loop(body, rank: int = 0):
         tgt = labels.get(m.group(1)) if m.group(1) else int(m.group(2), 16)
         if tgt is not None and tgt < addr:
             j = next(j for j, x in enumerate(instrs) if x[0] == tgt)
+            if any(op.startswith("EXIT") for _, op, _ in instrs[j:i + 1]):
+                continue
             loops.append((tgt, addr, i - j + 1, j, i))
     if len(loops) <= rank:
         return [], [(hex(a), hex(b), n) for a, b, n, _, _ in loops]
@@ -214,19 +237,22 @@ def default_warps(tree: str = _ROOT) -> dict:
     """Warps an SM of each probe's launch at its CLI's default rows: K6-K8
     have 32 threads (one warp) a row of their block, K6's block_rows of
     64, K7's 32, K8's block_rows of 32; K16 has 64 threads (2 lanes a
-    thread) a row of its block_rows of 64; K13 (its tile warps) and K15
-    128 / lanes threads a row of their block_rows at 64 and 32 rows, the
-    lanes a thread DIR's (`lanes`); the one-block K13 of a tree from
-    before its split 32."""
-    from . import probe_bf16, probe_cores, probe_pressure, probe_xpose
-    from . import ubench_step
+    thread) a row of its block_rows of 64; K10 / K12, K13 (its tile warps)
+    and K15 128 / lanes threads a row of their block_rows at 64, 64 and 32
+    rows, the lanes a thread DIR's (`lanes`); the one-block K10, K12 and
+    K13 of a tree from before their split 32."""
+    from . import probe_bf16, probe_cond, probe_cores, probe_pressure
+    from . import probe_xpose, ubench_step
     k16 = probe_bf16.launch_geometry(probe_bf16.SHAPE[0])[1] * 2
+    k10 = lanes(tree, "probe_consume.cu", "CONSUME_L") or 1
     k13 = lanes(tree, "probe_consume.cu", "PRESSURE_L") or 1
     k15 = lanes(tree, "probe_record.cu", "XPOSE_L") or 4
     return {"step_kernel": ubench_step.launch_geometry(64)[1],
             "leaf_kernel": 32,
             "cores_kernel": probe_cores.launch_geometry(32)[1],
             "consume_kernel": 32,
+            "free_consume_kernel":
+                probe_cond.launch_geometry(64)[1] * 4 // k10,
             "pressure_kernel":
                 probe_pressure.launch_geometry(64)[1] * 4 // k13,
             "xpose_kernel": probe_xpose.launch_geometry(32)[1] * 4 // k15,
@@ -264,16 +290,37 @@ def steps_in_body(kern: str, lanes: int, loop) -> float:
     return mnmx / (2 * K16_CHAINS * (lanes if f32 else lanes // 2))
 
 
+def _kernel(kern: str, fn: str) -> str:
+    """The kernel number (K6 ... K16) of instantiation `fn` of `kern`:
+    K10 or K12 by the consume's source (the global row: K10, whose flat
+    mode is K12's extract; the staged table: K12)."""
+    m = _FREE_CONSUME.search(fn) or _CONSUME_K10.search(fn)
+    if m is not None and kern in ("consume_kernel", "free_consume_kernel"):
+        src = m.group(1) if kern == "free_consume_kernel" else m.group(2)
+        return "K12" if src == "1" else "K10"
+    return KERNELS[kern]
+
+
 def _mode(tree: str, kern: str, fn: str):
     """(mode label, lanes a thread or None) of instantiation `fn`, or None
-    for a kernel this tool does not count (K10 and K12's
-    consume_kernel)."""
-    from . import probe_cores, probe_leaf, probe_xpose, ubench_step
+    for an instantiation this tool does not count."""
+    from . import probe_cond, probe_cores, probe_leaf, probe_xpose
+    from . import ubench_step
     modes = {"step_kernel": ubench_step.MODES,
              "leaf_kernel": probe_leaf.MODES,
              "cores_kernel": probe_cores.MODES,
              "xpose_kernel": probe_xpose.MODES}
+    consume = lambda src, cond: "smem" if src == "1" else \
+        probe_cond.MODES[int(cond)] + (" (and K12 extract)" * (cond == "0"))
+    if kern == "free_consume_kernel":
+        m = _FREE_CONSUME.search(fn)
+        n = lanes(tree, "probe_consume.cu", "CONSUME_L")
+        return f"{consume(m.group(1), m.group(2))} lanes {n}", n
     if kern == "consume_kernel":
+        m = _CONSUME_K10.search(fn)
+        if m is not None:
+            return f"{consume(m.group(2), m.group(3))} one block", \
+                int(m.group(1))
         m = _CONSUME_K13.search(fn)
         if m is None:
             return None
@@ -304,7 +351,9 @@ def measure(tree: str, warps: dict, mhz: float) -> list:
                           capture_output=True, text=True, check=True).stdout
     rows = []
     for fn, body in sorted(functions(sass).items()):
-        kern = next((k for k in KERNELS if k in fn), None)
+        # the longest name that fn holds (consume_kernel is in
+        # free_consume_kernel)
+        kern = max((k for k in KERNELS if k in fn), key=len, default=None)
         label = _mode(tree, kern, fn) if kern else None
         if label is None:
             continue
@@ -321,7 +370,7 @@ def measure(tree: str, warps: dict, mhz: float) -> list:
         n = len(loop) / steps if steps else float("nan")
         w = warps[kern]
         row = dict(
-            tree=tree, kernel=KERNELS[kern], mode=mode, registers=regs,
+            tree=tree, kernel=_kernel(kern, fn), mode=mode, registers=regs,
             spill_stores=spill, instructions=len(loop), by_kind=counts,
             steps_in_body=steps, instructions_per_step=n,
             backward_branches=loops, warps_per_sm=w, sm_mhz=mhz)

@@ -72,10 +72,10 @@ _SIGNATURES = {
     "rtrt_probe_leaf": [_I, _P, _P, _P, _I, _I] + [_P],
     "rtrt_probe_cores": [_I] + [_P] * 5 + [_I, _I, _I] + [_P],
     "rtrt_probe_cores_grid": [_I] + [_P] * 5 + [_I] * 4 + [_P],
-    "rtrt_probe_cond": [_I, _P, _P, _P] + [_I] * 5 + [_P],
+    "rtrt_probe_cond": [_I, _P, _P, _P] + [_I] * 7 + [_P],
     "rtrt_probe_smem_alloc": [_P, _P, _I, _I] + [_P],
     "rtrt_smem_optin": [_I, ctypes.POINTER(_I)],
-    "rtrt_probe_smem_consume": [_I, _P, _P, _P, _I, _I] + [_P],
+    "rtrt_probe_smem_consume": [_I, _P, _P, _P] + [_I] * 4 + [_P],
     "rtrt_probe_pressure": [_I] + [_P] * 4 + [_I] * 4 + [_P],
     "rtrt_probe_broadcast": [_I] + [_P] * 4 + [_I, _I] + [_P],
     "rtrt_probe_xpose": [_I, _P, _P, _P] + [_I] * 4 + [_P],
@@ -179,6 +179,16 @@ def check_tensors(device, **specs):
                              f"expected {tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: not contiguous")
+
+
+def check_aligned(**tensors):
+    """Raises ValueError, before any launch, on a tensor whose first
+    element is not 16-byte aligned (a kernel that reads it by 16-byte
+    vectors or bulk copies would fault or read the wrong bytes)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: not 16-byte aligned (address "
+                             f"{t.data_ptr():#x})")
 
 
 def launch(fn, name: str, device, *args, refusal: int | None = None) -> bool:

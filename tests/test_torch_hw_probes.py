@@ -347,8 +347,8 @@ def test_probe_bf16_matches_jax(jax_tools, dtype, recipe):
 
 
 def test_hw_probe_floors_count_the_work():
-    """Each probe's floor is its operations on the SMs it fills (K10 one,
-    K13 4 at 64 rows and 1 at 8): positive, ordered as the modes add work,
+    """Each probe's floor is its operations on the SMs it fills (K10 and
+    K13 4 at 64 rows, K13 1 at 8): positive, ordered as the modes add work,
     bf16 at twice the float32 rate."""
     assert timing.bound_ms(0, 134e9, rate=timing.BF16_OPS) == \
         pytest.approx((1.0, "operations"))
@@ -357,7 +357,8 @@ def test_hw_probe_floors_count_the_work():
     p = lambda n, rows: probe_pressure.bound(rows, 400,
                                              probe_pressure.lane_ops(n))[0]
     sms = probe_pressure.launch_geometry(64)[0]
-    assert p(0, 64) == pytest.approx(c[0] / sms) and p(6, 64) == p(20, 64)
+    assert probe_cond.launch_geometry(64)[0] == sms
+    assert p(0, 64) == pytest.approx(c[0]) and p(6, 64) == p(20, 64)
     assert p(6, 64) == pytest.approx(1.25 * p(0, 64))
     assert p(6, 8) == pytest.approx(p(6, 64) / 8 * sms)
     f32, bf16 = (probe_bf16.bound(d, 64, 4000) for d in probe_bf16.DTYPES)

@@ -78,8 +78,9 @@ Tolerances:
     own inputs and on rays that hit every record.
   * K10-K16, the hardware probes (probe_cond, probe_smem, probe_pressure,
     probe_broadcast, probe_xpose, probe_bf16): bit-equal in every mode on
-    every input recipe of tests/test_torch_hw_probes.py (K16 also at
-    every row count 8-64, split over c = 1-4 SMs).  The kernels
+    every input recipe of tests/test_torch_hw_probes.py (K10, K12 and K16
+    also at every row count 8-64, split over c = 1-4 SMs; K10, K12, K13
+    and K15 refuse a table that is not 16-byte aligned).  The kernels
     round each product on its own (__fmul_rn) and each bf16 operation to
     bf16, as torch's ops do; K10's three modes agree, and so do K15's two.
     K11 is accepted at 48 KB and at the card's opt-in maximum, refused one
@@ -1062,8 +1063,13 @@ def test_probe_wrappers_check_their_inputs(cuda_device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("recipe", list(probe_cond.RECIPES))
-def test_probe_cond_kernel_matches_plain(cuda_device, recipe):
-    tab, x = probe_cond.RECIPES[recipe](64, cuda_device)
+@pytest.mark.parametrize("rows", list(range(8, 65, 8)))
+def test_probe_cond_kernel_matches_plain(cuda_device, rows, recipe):
+    """K10 over probe_cond.launch_geometry(rows)[0] = 1-4 SMs, each thread
+    stepping element (0, 0): its three modes bit-equal to the plain
+    version (so to each other), the spread and flip recipes' flagged steps
+    included."""
+    tab, x = probe_cond.RECIPES[recipe](rows, cuda_device)
     outs = [probe_cond.cond_probe(m, tab, x, 40) for m in probe_cond.MODES]
     ref = probe_cond.cond_probe_plain("flat", tab, x, 40)
     torch.cuda.synchronize()
@@ -1087,13 +1093,19 @@ def test_probe_smem_alloc_edges(cuda_device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("recipe", list(probe_cond.RECIPES))
+@pytest.mark.parametrize("rows", list(range(8, 65, 8)))
 @pytest.mark.parametrize("mode", probe_smem.MODES)
-def test_probe_smem_consume_kernel_matches_plain(cuda_device, mode, recipe):
-    tab, x = probe_cond.RECIPES[recipe](64, cuda_device)
+def test_probe_smem_consume_kernel_matches_plain(cuda_device, mode, rows,
+                                                 recipe):
+    """K12 over 1-4 SMs in both modes, bit-equal to the plain version;
+    extract also to K10 flat (the same instantiation)."""
+    tab, x = probe_cond.RECIPES[recipe](rows, cuda_device)
     got = probe_smem.smem_consume(mode, tab, x, 40)
     ref = probe_smem.smem_consume_plain(mode, tab, x, 40)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+    if mode == "extract":
+        assert torch.equal(got, probe_cond.cond_probe("flat", tab, x, 40))
 
 
 @pytest.mark.gpu
@@ -1175,6 +1187,19 @@ def test_hw_probe_wrappers_check_their_inputs(cuda_device):
         probe_pressure.pressure_probe(5, tab, x, 4)
     with pytest.raises(ValueError, match="mode"):
         probe_smem.smem_consume("dma", tab, x, 4)
+    # K10, K12, K13 and K15 read tab by float4: one float off a 16-byte
+    # boundary is refused before any launch
+    base = torch.zeros(128 * 128 + 1, device=cuda_device)
+    bad = base[1:].view(128, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        probe_cond.cond_probe("flat", bad, x, 4)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        probe_smem.smem_consume("smem", bad, x, 4)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        probe_pressure.pressure_probe(0, bad, x, 4)
+    planes = probe_xpose.tool_inputs(8, cuda_device)[1]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        probe_xpose.xpose_probe("extract", bad, planes, 4)
     with pytest.raises(ValueError, match="dtype"):
         probe_broadcast.broadcast_probe(
             "extract", tab, tab, torch.zeros((64, 128), device=cuda_device),

@@ -17,8 +17,14 @@ up to 16 rows and 2 beyond (`probe_cores.launch_geometry`), and
 over c = rows / 16 plain blocks (1 at 8 rows), each with its own shadow of
 element (0, 0), and
 K15 (csrc/probe_record.cu::xpose_kernel) over c = rows / 8 blocks of 8
-rows; their bounds take c / 132.  The kernels themselves run only on the
-card (tests/test_torch_kernels_gpu.py).
+rows; their bounds take c / 132.  K10 and K12
+(csrc/probe_consume.cu::free_consume_kernel) split over c = ceil(rows /
+16) plain blocks (`probe_cond.launch_geometry`), every thread stepping a
+shadow of element (0, 0); their bounds take c / 132, and what the design
+relies on is checked here: the shadow's premise (element (0, 0) alone
+gives the tile's acc[0, 0]), the staged read's modulo that never wraps,
+and the wrapper's refusal of a table that is not 16-byte aligned.  The
+kernels themselves run only on the card (tests/test_torch_kernels_gpu.py).
 """
 
 import importlib.util
@@ -32,8 +38,9 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from rtrt_tpu_torch.tools import (probe_bf16, probe_cores, probe_pressure,
-                                  probe_xpose, sass_loops, ubench_step)
+from rtrt_tpu_torch.tools import (probe_bf16, probe_cond, probe_cores,
+                                  probe_pressure, probe_smem, probe_xpose,
+                                  sass_loops, ubench_step)
 from rtrt_tpu_torch.utils import timing
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -327,14 +334,18 @@ def test_sass_loops_counts_k13_and_its_shadow():
         "LDG", "FMUL", "FMUL", "FMNMX", "BAR", "LDS", "ISETP", "BRA"]
     assert sass_loops.steps_in_body("pressure_kernel", n, warp0) == 1
     assert sass_loops.steps_in_body("pressure_kernel", n, tile) == 1
-    # K10 / K12's consume_kernel is not counted; a parent tree's K13
-    # instantiations of it are, with their lanes (1 at 8 rows, 8 at 64)
+    # an older tree's consume_kernel: its K10 / K12 instantiations (n_inv
+    # -1) count as K10 or K12 by their source, its K13 ones (before K13's
+    # own kernel) as K13, each with its lanes (K13: 1 at 8 rows, 8 at 64)
     sig = "EEEvPKfS2_S2_Pfiiii"
     k10 = "_ZN12_GLOBAL__N_114consume_kernelILi8ELi0ELi0ELin1" + sig
-    assert sass_loops._mode(REPO, "consume_kernel", k10) is None
+    assert sass_loops._mode(REPO, "consume_kernel", k10) == \
+        ("flat (and K12 extract) one block", 8)
+    assert sass_loops._kernel("consume_kernel", k10) == "K10"
     k13 = "_ZN12_GLOBAL__N_114consume_kernelILi8ELi0ELi0ELi20" + sig
     assert sass_loops._mode(REPO, "consume_kernel", k13) == \
         ("rows 64 n_inv 20 one block", 8)
+    assert sass_loops._kernel("consume_kernel", k13) == "K13"
 
 
 def test_sass_loops_counts_k15_by_its_reciprocals():
@@ -354,6 +365,152 @@ def test_sass_loops_counts_k15_by_its_reciprocals():
     assert warps["pressure_kernel"] == 16 * 128 // sass_loops.lanes(
         REPO, "probe_consume.cu", "PRESSURE_L") // 32
     assert warps["consume_kernel"] == 32
+
+
+K10_GEOMETRY = K16_GEOMETRY  # one launch_geometry serves both
+
+
+@pytest.mark.parametrize("rows", sorted(K10_GEOMETRY))
+def test_k10_launch_geometry(rows):
+    """K10 and K12 over c = ceil(rows / 16) blocks of ceil(rows / c) rows:
+    the blocks cover the tile, the last by less than a block, and a
+    block's threads (csrc's lanes a thread, whole warps) stay within the
+    kernel's launch bound."""
+    c, block_rows = probe_cond.launch_geometry(rows)
+    assert (c, block_rows) == K10_GEOMETRY[rows]
+    assert (c - 1) * block_rows < rows <= c * block_rows
+    assert block_rows <= probe_cond.MAX_BLOCK_ROWS
+    n = sass_loops.lanes(REPO, "probe_consume.cu", "CONSUME_L")
+    threads = -(-block_rows * 128 // (32 * n)) * 32
+    assert threads * n >= block_rows * 128
+    assert threads <= probe_cond.MAX_BLOCK_ROWS * 128 // n
+
+
+@pytest.mark.parametrize("rows", [0, 4, 12, 72, -8])
+def test_k10_launch_geometry_refuses(rows):
+    assert probe_bf16.launch_geometry is probe_cond.launch_geometry
+    with pytest.raises(ValueError, match="rows"):
+        probe_cond.launch_geometry(rows)
+
+
+@pytest.mark.parametrize("tool", [probe_cond, probe_smem])
+def test_k10_k12_bound_scales_with_its_sms(tool):
+    """K10's and K12's bound (probe_smem's is probe_cond's): the function's
+    operations at the float32 rate on c of the 132 SMs."""
+    steps = 400
+    for rows, (c, _) in K10_GEOMETRY.items():
+        ms, by = tool.bound(rows, steps)
+        ops = probe_cond.LANE_OPS * rows * 128 * steps
+        assert by == "operations"
+        assert ms == pytest.approx(ops / (timing.F32_OPS * c / timing.SMS)
+                                   * 1e3, rel=1e-12)
+    # 64 rows on 4 SMs: the time of 16 rows on one
+    assert tool.bound(64, steps)[0] == pytest.approx(
+        tool.bound(16, steps)[0], rel=1e-12)
+
+
+def _flat_values(tab):
+    return lambda base: tab.reshape(-1)[
+        (base + torch.tensor(probe_cond.OFFSETS)) % 8000]
+
+
+@pytest.mark.parametrize("source", ["row", "staged"])
+@pytest.mark.parametrize("recipe", list(probe_cond.RECIPES))
+def test_consume_shadow_premise(recipe, source):
+    """The shadow's premise: the consume loop on element (0, 0) alone gives
+    the whole tile's acc[0, 0] bit for bit, with both sources of values
+    (K10's row, K12's staged table), on every recipe at 40 steps."""
+    tab, x = probe_cond.RECIPES[recipe](64, "cpu")
+    values = (lambda b: probe_cond.row_values(tab, b)) if source == "row" \
+        else _flat_values(tab)
+    whole = probe_cond.consume_loop(x, 40, values)
+    alone = probe_cond.consume_loop(x[:1, :1], 40, values)
+    assert torch.equal(alone[0, 0], whole[0, 0])
+
+
+def test_staged_read_never_wraps():
+    """max((7 k) % 997) + max(OFFSETS) < 8000: K12's staged read drops the
+    function's % 8000, which never changes an index."""
+    bases = [(7 * k) % 997 for k in range(997)]
+    assert max(bases) == 996 and max(probe_cond.OFFSETS) == 120
+    assert max(bases) + max(probe_cond.OFFSETS) < 8000
+    tab, _ = probe_cond.tool_inputs(8, "cpu")
+    flat = tab.reshape(-1)
+    offs = torch.tensor(probe_cond.OFFSETS)
+    for b in bases:
+        assert torch.equal(flat[(b + offs) % 8000], flat[b + offs])
+
+
+def test_consume_inputs_refuse_unaligned_tab():
+    """K10 / K12 read tab by float4 and stage it by bulk copies: a table
+    one float off a 16-byte boundary is refused with a ValueError before
+    any launch (checked on the CPU), an aligned one taken."""
+    _, x = probe_cond.tool_inputs(8, "cpu")
+    base = torch.zeros(128 * 128 + 4)
+    assert base.data_ptr() % 16 == 0
+    good = base[4:].view(128, 128)
+    probe_cond.check_consume_inputs("cpu", good, x)
+    bad = base[1:128 * 128 + 1].view(128, 128)
+    assert bad.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        probe_cond.check_consume_inputs("cpu", bad, x)
+
+
+_SASS_K10 = """
+\t\tFunction : _ZN12_GLOBAL__N_119free_consume_kernelILi1ELi0EEEvPKfS2_Pfiiiii
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+.L_x_0:
+        /*0020*/                   FMUL R5, R4, R6 ;
+        /*0030*/                   FADD R5, R5, R7 ;
+        /*0040*/                   FADD R8, R9, R4 ;
+        /*0050*/                   FMNMX R4, R5, R8, PT ;
+        /*0060*/                   LDS R9, [R2+0x40] ;
+        /*0070*/                   FSETP.GT.AND P0, PT, R10, 1e+30, PT ;
+        /*0080*/               @!P0 BRA `(.L_x_1) ;
+        /*0090*/                   IMAD.HI R11, R12, 0x41bd, RZ ;
+        /*00a0*/                   LDS R9, [R11] ;
+.L_x_1:
+        /*00b0*/                   ISETP.GE.AND P1, PT, R12, c[0x0][0x214], PT ;
+        /*00c0*/              @!P1 BRA `(.L_x_0) ;
+        /*00d0*/                   EXIT ;
+        /*00e0*/                   YIELD ;
+        /*00f0*/                   SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [R0+URZ], RZ ;
+        /*0100*/              @!P0 BRA 0xe0 ;
+        /*0110*/                   BRA 0x10 ;
+"""
+
+
+def test_sass_loops_counts_k10_k12_free_kernel():
+    """free_consume_kernel's instantiations count as K10 (kSrc 0, a mode by
+    kCond) or K12 smem (kSrc 1); the step loop holds one step, the
+    flagged reload inside it, and no barrier (the staging's barrier sits
+    before the loop); the staging's mbarrier wait retries out of line and
+    jumps back to the kernel's start, a longer backward branch that holds
+    the EXIT and is no step loop.  K10 / K12's warps an SM: 16 rows a
+    block at csrc's lanes a thread."""
+    (name, body), = sass_loops.functions(_SASS_K10).items()
+    n = sass_loops.lanes(REPO, "probe_consume.cu", "CONSUME_L")
+    kern = max((k for k in sass_loops.KERNELS if k in name), key=len)
+    assert kern == "free_consume_kernel"
+    assert sass_loops._kernel(kern, name) == "K12"
+    assert sass_loops._mode(REPO, kern, name) == (f"smem lanes {n}", n)
+    cond2 = name.replace("ILi1ELi0E", "ILi0ELi2E")
+    assert sass_loops._kernel(kern, cond2) == "K10"
+    assert sass_loops._mode(REPO, kern, cond2) == (f"cond2 lanes {n}", n)
+    loop, loops = sass_loops.step_loop(body)
+    assert [n for _, _, n in loops] == [11, 3]
+    kinds = [sass_loops.kind(op) for _, op, _ in loop]
+    assert len(loop) == 11 and "barrier/sync" not in kinds
+    assert kinds.count("int add/mul/shift/logic") == 1
+    assert sass_loops.steps_in_body(kern, n, loop) == 1
+    assert sass_loops.default_warps()[kern] == 16 * 128 // n // 32
+    # an older tree's one-block K12 smem
+    old = ("_ZN12_GLOBAL__N_114consume_kernelILi8ELi1ELi0ELin1"
+           "EEEvPKfS2_S2_Pfiiii")
+    assert sass_loops._kernel("consume_kernel", old) == "K12"
+    assert sass_loops._mode(REPO, "consume_kernel", old) == \
+        ("smem one block", 8)
 
 
 def _jax_ubench():
