@@ -62,13 +62,16 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      recipe of tests/test_torch_hw_probes.py (bit-equal; K10's three modes
      and K15's two agree, K12's extract equals K10 flat; K10 and K12 at
      every row count 8-64 (c = 1-4), K13 split over c = 4 and 1 SMs at
-     its 64 and 8 rows, K15 at every row count 8-32 (c = 1-4) and K16 at
+     its 64 and 8 rows, K14 at every row count 8-64 on a cluster of c =
+     1, 2, 4 blocks (and no spill stores in ptxas' lines), K15 at every row count 8-32 (c = 1-4) and K16 at
      every row count 8-64 (c = 1-4)); K11 at the card's shared-memory
-     edge (accepted at 48 KB and at the opt-in maximum, refused one float
-     beyond and at every size of the JAX tool); then, with the launch
-     counters reset, the six tools' entry points at their default steps
-     and reps (every new kernel must read launches), and the plain
-     versions timed once at the defaults;
+     edge on its grid of rows / 8 blocks at 8 and 64 rows (accepted at 48
+     KB and at the opt-in maximum, refused one float beyond and at every
+     size of the JAX tool); then, with the launch counters reset, the six
+     tools' entry points at their default steps and reps and K11 at 48 KB
+     (every new kernel must read launches; K11 timed by CUDA events and
+     by graph replay), and the plain versions timed once at the
+     defaults;
   9. the north star's call: Engine(GlobalSettings(scene="terrain")) — the
      default settings (1920x1080, dynamic resolution on) and the default
      FeatureFlags() — with the launch counters reset just before: a warm
@@ -3255,12 +3258,13 @@ def _hw_probes(card):
                 same("K13", f"{recipe} rows {rows} n_inv {n}",
                      PP.pressure_probe(n, tab, x, PROBE_CUT),
                      PP.pressure_probe_plain(n, tab, x, PROBE_CUT))
-    for make in (PR.tool_inputs, PR.scaled_inputs):
-        args = make(dev)
-        for m in PR.MODES:
-            same("K14", f"{make.__name__} {m}",
-                 PR.broadcast_probe(m, *args, PROBE_CUT),
-                 PR.broadcast_probe_plain(m, *args, PROBE_CUT))
+    for recipe, make in PR.RECIPES.items():
+        for rows in range(8, 65, 8):  # a cluster of c = 1, 2, 4 SMs
+            args = make(dev, rows=rows)
+            for m in PR.MODES:
+                same("K14", f"{recipe} {m} rows {rows}",
+                     PR.broadcast_probe(m, *args, PROBE_CUT),
+                     PR.broadcast_probe_plain(m, *args, PROBE_CUT))
     for make in (PX.tool_inputs, PX.hit_inputs):
         for rows in range(8, 33, 8):  # c = 1, 2, 3, 4 SMs
             tab, planes = make(rows, dev)
@@ -3280,25 +3284,39 @@ def _hw_probes(card):
           f"rows, {PROBE_CUT} steps (K10 and K12 every row count 8-64 on "
           f"{[PC.launch_geometry(r)[0] for r in range(8, 65, 8)]} SMs; "
           f"K13 at 64 and 8 rows on "
-          f"{[PP.launch_geometry(r)[0] for r in PP.ROWS]} SMs; K15 every "
-          f"row count 8-32 on "
+          f"{[PP.launch_geometry(r)[0] for r in PP.ROWS]} SMs; K14 every "
+          f"row count 8-64 on clusters of "
+          f"{[PR.launch_geometry(r)[0] for r in range(8, 65, 8)]} SMs; "
+          f"K15 every row count 8-32 on "
           f"{[PX.launch_geometry(r)[0] for r in range(8, 33, 8)]} SMs; K16 "
           f"every row count 8-64 on "
           f"{[PB.launch_geometry(r)[0] for r in range(8, 65, 8)]} SMs, 8 "
           f"steps, and {PROBE_CUT} at 64 rows), every input recipe of the "
           f"tests: max abs err {err}")
 
-    # 8b. K11 at the card's shared-memory edge and the JAX tool's sizes
-    x = PC.uniform_inputs(64, dev)[1]
-    accepted = {}
-    for label, n in PS.edge_sizes(dev):
-        out = PS.smem_alloc(x, n)
-        accepted[label] = out is not None
-        if out is not None:
-            same("K11", label, out, PS.smem_alloc_plain(x, n))
-    print(f"K11 dynamic shared memory accepted: {accepted} {card}")
+    # K14's state stays in registers: no spill in any instantiation (a
+    # mode, a lone block or a cluster)
+    k14_ptxas = {f"{m} {'cluster' if c else 'block'}": _ptxas(
+        f"broadcast_kernelILi{i}ELb{c}E") for i, m in enumerate(PR.MODES)
+        for c in (0, 1)}
+    print(f"K14 registers / spill stores (ptxas): {k14_ptxas}")
+    assert all(s == 0 for _, s in k14_ptxas.values()), k14_ptxas
+
+    # 8b. K11 at the card's shared-memory edge and the JAX tool's sizes, on
+    # its grid of rows / 8 blocks, each asking for the buffer
     want = [False] * len(PS.SIZES_MIB) + [True, True, False]
-    assert list(accepted.values()) == want, f"K11 edge {accepted}"
+    for rows in (8, 64):
+        x = PC.uniform_inputs(rows, dev)[1]
+        accepted = {}
+        for label, n in PS.edge_sizes(dev):
+            out = PS.smem_alloc(x, n)
+            accepted[label] = out is not None
+            if out is not None:
+                same("K11", f"{label} rows {rows}", out,
+                     PS.smem_alloc_plain(x, n))
+        print(f"K11 dynamic shared memory accepted on "
+              f"{PS.alloc_blocks(rows)} blocks: {accepted} {card}")
+        assert list(accepted.values()) == want, f"K11 edge {accepted}"
 
     # 8c. the six tools' entry points at their default steps and reps,
     # launch counters reset just before and read just after
@@ -3309,7 +3327,7 @@ def _hw_probes(card):
     r14 = {r["mode"]: r for r in PR.main([])}
     r15 = {r["mode"]: r for r in PX.main([])}
     r16 = {r["dtype"]: r for r in PB.main([])}
-    k11_ms = PS.run_alloc(PS.SMEM_DEFAULT // 4)
+    k11_events, k11_graph = PS.run_alloc(PS.SMEM_DEFAULT // 4)
     counts = dict(cuda.launch_counts)
     print(f"launch counts of the hardware probe tools' run: {counts}")
     for k in ("probe_cond", "probe_smem_alloc", "probe_smem_consume",
@@ -3339,6 +3357,9 @@ def _hw_probes(card):
                            1, 0)
     plain["K16 f32"] = time_ms(lambda: PB.bf16_probe_plain("f32", x, 4000),
                                1, 0)
+    print(f"K11 at 48 KB on {PS.alloc_blocks(64)} blocks, ms a launch: "
+          f"graph replay {k11_graph}, CUDA events {k11_events} (the wrapper "
+          f"on the host included) {card}")
     print(f"plain versions at the defaults (ms): {plain}; phase 8 took "
           f"{time.perf_counter() - t0:.1f} s {card}")
 
@@ -3356,10 +3377,11 @@ def _hw_probes(card):
               f"400 steps)", "probe_consume.cu", "tools/probe_cond.py:76",
               "probe_cond", r10["flat"]["ns"] * 400 / 1e6,
               PC.bound(64, 400)),
-        entry("K11", "probe_smem try_alloc (dynamic shared memory of one "
-              "block; ms per launch at 48 KB)", "probe_consume.cu",
-              "tools/probe_smem.py:34", "probe_smem_alloc", k11_ms,
-              PS.alloc_bound()),
+        entry("K11", f"probe_smem try_alloc (dynamic shared memory a block, "
+              f"a grid of {PS.alloc_blocks(64)} blocks on as many SMs at 64 "
+              f"rows; ms per launch at 48 KB by graph replay)",
+              "probe_consume.cu", "tools/probe_smem.py:34",
+              "probe_smem_alloc", k11_graph, PS.alloc_bound()),
         entry("K12", f"probe_smem time_consume (the consume from a table "
               f"staged in shared memory by bulk copies, the 64x128 tile "
               f"over {PC.launch_geometry(64)[0]} SMs as K10; ms per launch "
@@ -3373,8 +3395,10 @@ def _hw_probes(card):
               "tools/probe_pressure.py:60", "probe_pressure",
               r13[(64, 20)]["ns"] * 400 / 1e6,
               PP.bound(64, 400, PP.lane_ops(20))),
-        entry("K14", "probe_broadcast (record layout, tile-wide int32 min a "
-              "step; ms per launch in mode extract, 400 steps)",
+        entry("K14", f"probe_broadcast (record layout, tile-wide int32 min a "
+              f"step overlapped by the adds, the 64x128 tile on a cluster of "
+              f"{PR.launch_geometry(64)[0]} SMs; ms per launch in mode "
+              f"extract, 400 steps)",
               "probe_record.cu", "tools/probe_broadcast.py:88",
               "probe_broadcast", r14["extract"]["ns"] * 400 / 1e6,
               PR.bound(64, 400)),

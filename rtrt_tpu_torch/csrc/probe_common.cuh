@@ -4,13 +4,13 @@
 //
 // A probe runs its (rows, 128) ray tile on ONE thread block where its
 // outputs depend on tile-wide state that the block exchanges every step (a
-// tile-wide min (K14) or max (K7), one scalar stack steering every lane),
-// on one thread-block cluster of a few blocks (K6, K8 / K9, with
-// probe_tile.cuh's reduction), or on a grid of plain blocks where no lane
-// waits for another (K15, K16) or every block can compute the one scalar
-// it waits for itself (K13).  A thread carries L lanes (a compile-time
-// count); lane j of thread t is element t + j * blockDim.x of its block's
-// part of the tile.  Where the tile shares a scalar (bound, stack pointer,
+// tile-wide max (K7)), on one thread-block cluster of a few blocks where
+// that state is a min or a stack (K6, K8 / K9, K14, with probe_tile.cuh's
+// reduction), or on a grid of plain blocks where no lane waits for another
+// block (K11, K15, K16) or every block can compute the one scalar it
+// waits for itself (K10, K12, K13).  A thread carries L lanes (a
+// compile-time count); lane j of thread t is element t + j * blockDim.x
+// of its block's part of the tile.  Where the tile shares a scalar (bound, stack pointer,
 // popped entry, step flag), every thread holds the same value, so every
 // branch on it is uniform.
 //
@@ -43,27 +43,13 @@ __device__ __forceinline__ void warp_reduce(float (&v)[N]) {
   }
 }
 
-// Tile-wide int32 min (K14): every thread returns the tile's min of v.
-// Exact at any magnitude (a float reduction would round values above
-// 2^24).  Each warp reduces with redux, warp 0 reduces the warps' partials
-// the same way, and the result goes back through shared memory: two
-// barriers.  red: RED_INTS ints of shared memory, the result after the 32
-// warp partials.
-constexpr int RED_INTS = 33;
-
-__device__ __forceinline__ int block_min_int(int v, int* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  v = __reduce_min_sync(0xffffffffu, v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    const int p = __reduce_min_sync(0xffffffffu,
-                                    lane < nw ? red[lane] : 0x7fffffff);
-    if (lane == 0) red[32] = p;
-  }
-  __syncthreads();
-  return red[32];
+// redux for int32 (K14's tile-wide min of pend): exact at any magnitude
+template <int N, bool kMax>
+__device__ __forceinline__ void warp_reduce(int (&v)[N]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+    v[n] = kMax ? __reduce_max_sync(0xffffffffu, v[n])
+                : __reduce_min_sync(0xffffffffu, v[n]);
 }
 
 // Slab test of one ray (origin o, inverse direction i) against the box

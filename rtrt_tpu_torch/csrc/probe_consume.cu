@@ -91,7 +91,14 @@
 // second wins).  A request above the card's opt-in maximum is refused by
 // the CUDA runtime (cudaErrorInvalidValue, not sticky): the entry point
 // returns that one case as RTRT_SMEM_REFUSED and every other error as it
-// is.
+// is.  What bounds it: x read and out written once (bytes), far below a
+// launch's own latency.  Design: a grid of c = rows / 8 blocks
+// (ALLOC_BLOCK_ROWS rows, 256 threads, one float4 load and one float4
+// store a thread; x 16-byte aligned), each asking for the n-float buffer:
+// the runtime grants dynamic shared memory a block, so the edge is the
+// one-block launch's, and at the opt-in maximum each block has its SM to
+// itself.  Thread 0 of each block writes buf[0] and buf[n - 1], one
+// barrier, then every thread reads both.
 #include <cstdint>
 
 #include "probe_common.cuh"
@@ -452,9 +459,12 @@ constexpr PressureLauncher kPressureLaunch[4] = {
     launch_pressure<0>, launch_pressure<6>, launch_pressure<12>,
     launch_pressure<20>};
 
-__global__ void __launch_bounds__(1024, 1)
+constexpr int ALLOC_BLOCK_ROWS = 8;
+constexpr int ALLOC_THREADS = ALLOC_BLOCK_ROWS * 128 / 4;  // a float4 each
+
+__global__ void __launch_bounds__(ALLOC_THREADS)
     alloc_kernel(const float* __restrict__ x, float* __restrict__ out,
-                 int n_elems, int n_floats) {
+                 int n_floats) {
   extern __shared__ float buf[];
   if (threadIdx.x == 0) {
     buf[0] = x[0];
@@ -462,8 +472,13 @@ __global__ void __launch_bounds__(1024, 1)
   }
   __syncthreads();
   const float s0 = buf[0], s1 = buf[n_floats - 1];
-  for (int e = threadIdx.x; e < n_elems; e += blockDim.x)
-    out[e] = (x[e] + s0) + s1;
+  const int e = blockIdx.x * ALLOC_THREADS + threadIdx.x;
+  float4 q = __ldg(reinterpret_cast<const float4*>(x) + e);
+  q.x = (q.x + s0) + s1;
+  q.y = (q.y + s0) + s1;
+  q.z = (q.z + s0) + s1;
+  q.w = (q.w + s0) + s1;
+  reinterpret_cast<float4*>(out)[e] = q;
 }
 
 }  // namespace
@@ -533,14 +548,20 @@ extern "C" int rtrt_probe_pressure(int n_inv, const float* tab,
       static_cast<cudaStream_t>(stream)));
 }
 
-// K11.  x, out: (rows, 128), 1,024 threads; n_floats >= 1.  Returns 0
-// when the kernel launched, RTRT_SMEM_REFUSED (-1) when the runtime
-// refused the n_floats * 4 bytes of dynamic shared memory
+// K11.  x, out: (rows, 128), 16-byte aligned; rows: a multiple of
+// ALLOC_BLOCK_ROWS up to 64 (rows / ALLOC_BLOCK_ROWS blocks); n_floats >=
+// 1.  Returns 0 when the kernel launched, RTRT_SMEM_REFUSED (-1) when the
+// runtime refused the n_floats * 4 bytes of dynamic shared memory a block
 // (cudaErrorInvalidValue from cudaFuncSetAttribute or the launch; the
-// error is cleared), any other cudaError as it is.
+// error is cleared), any other cudaError as it is (cudaErrorInvalidValue
+// itself for arguments it does not take).
 extern "C" int rtrt_probe_smem_alloc(const float* x, float* out, int rows,
                                      int n_floats, void* stream) {
-  if (n_floats < 1 || n_floats > (1 << 28)) return cudaErrorInvalidValue;
+  if (n_floats < 1 || n_floats > (1 << 28) || rows < ALLOC_BLOCK_ROWS ||
+      rows > 64 || rows % ALLOC_BLOCK_ROWS ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16)
+    return cudaErrorInvalidValue;
   const size_t bytes = static_cast<size_t>(n_floats) * sizeof(float);
   // up to 48 KB a block needs no opt-in (the attribute's default, which
   // only this entry point raises, and only above 48 KB)
@@ -550,8 +571,8 @@ extern "C" int rtrt_probe_smem_alloc(const float* x, float* out, int rows,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(bytes));
   if (e == cudaSuccess) {
-    alloc_kernel<<<1, 1024, bytes, static_cast<cudaStream_t>(stream)>>>(
-        x, out, rows * 128, n_floats);
+    alloc_kernel<<<rows / ALLOC_BLOCK_ROWS, ALLOC_THREADS, bytes,
+                   static_cast<cudaStream_t>(stream)>>>(x, out, n_floats);
     e = cudaGetLastError();
   }
   if (e == cudaErrorInvalidValue) {

@@ -248,21 +248,9 @@ cudaError_t launch(const float* ntab, const float* ttab, const float* planes,
     e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return e;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = cluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles * cluster);
-  cfg.blockDim = dim3(rows / cluster * 128 / L);
-  cfg.dynamicSmemBytes = SMEM;
-  cfg.stream = s;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  const cudaError_t l =
-      cudaLaunchKernelEx(&cfg, kernel, ntab, ttab, planes, out, visits, steps);
-  return l != cudaSuccess ? l : cudaGetLastError();
+  return probe::launch_cluster(kernel, tiles * cluster, cluster,
+                               rows / cluster * 128 / L, SMEM, s, ntab, ttab,
+                               planes, out, visits, steps);
 }
 
 using Launcher = cudaError_t (*)(const float*, const float*, const float*,

@@ -1,23 +1,38 @@
 // K14, K15: where a record's values come from.
 //
 // K14 replaces tools/probe_broadcast.py::make_kernel (pallas_call at
-// probe_broadcast.py:88), one thread block per (rows, 128) tile.  Each
-// step takes cand = the tile-wide int32 min of pend, reads the 13 values
-// of record i = cand & 1023, adds them on the lanes where pend == cand (13
-// carried planes) and sets those pend to 2^30; out = ((acc0 + acc1) + ...
-// + acc12) + float(pend).  The modes are the two record layouts (the
-// TPU's lane roll and lane broadcast are TPU machinery; on Hopper both are
-// uniform loads):
-//   EXTRACT  AoS: value v at tab[16 i + v], 13 values in one 64-byte span
+// probe_broadcast.py:88).  Each step takes cand = the tile-wide int32 min
+// of pend, reads the 13 values of record i = cand & 1023, adds them on the
+// lanes where pend == cand (13 carried planes) and sets those pend to
+// 2^30; out = ((acc0 + acc1) + ... + acc12) + float(pend).  The modes are
+// the two record layouts (the TPU's lane roll and lane broadcast are TPU
+// machinery; on Hopper both are uniform loads):
+//   EXTRACT  AoS: value v at tab[16 i + v], 13 values in one 64-byte span,
+//            read as three 16-byte loads and one 4-byte load
 //   BCAST16  SoA: value v at ttab[(i / 128) * 16 + v][i % 128], 13 values
 //            in 13 rows 512 bytes apart
-// The min is warp redux (__reduce_min_sync) plus one shared-memory
-// exchange (probe_common.cuh::block_min_int): two barriers a step.  What
-// bounds it on the H100: those barriers and ~29 operations per lane per
-// step (compare, 13 adds and 13 selects, the pend select, the lane's share
-// of the min) on the one SM; the 13 x 8 carried values of a thread exceed
-// the 64-register cap of a 1,024-thread block, so part of them live in
-// local memory.
+// What bounds it on the H100: ~29 operations per lane per step (compare,
+// 13 adds and 13 selects, the pend select, the lane's share of the min) on
+// the SMs that hold the tile, and the tile-wide min that each step waits
+// for.  On one SM a 64-row tile cannot keep its state in registers (8,192
+// lanes x 14 words against 65,536 registers): the one-block port spilled.
+// Design: the tile is split over a thread-block cluster of c blocks, the
+// smallest c of 1, 2, 4 with rows <= BCAST_MAX_BLOCK_ROWS c
+// (tools/probe_broadcast.py::launch_geometry, which passes c; K6's rule),
+// one block an SM, BCAST_L = 8 lanes a thread (8 warps of 139-143
+// registers a block at 16 rows, no spill; of 2, 4 and 8 lanes, and 2
+// blocks of 32 rows at 8, which spills, 8 was the fastest in both modes
+// on an NVIDIA H100 80GB HBM3 at 700 W: PERF.md, K14).  The min goes
+// through probe_tile.cuh's one-wait reduction in int32 (redux a warp,
+// then st.async into every block's slots counted on its mbarrier; a lone
+// block: a store and __syncthreads), and it overlaps the adds: once
+// cand arrives, each lane computes its hit, its new pend and the local min
+// of the new pend, posts that min (tile_post), then does the 13 adds of
+// the record (loaded first), and only then takes the next cand
+// (tile_take).  The adds do not feed the min, so the function and its bits
+// are the plain version's.  Every lane does its compare, its 13 selected
+// adds and its pend select every step, as LANE_OPS counts them: no warp
+// skips the adds where none of its lanes hits.
 //
 // K15 replaces tools/probe_xpose.py::make_kernel (probe_xpose.py:107).
 // Each step visits row (7 (k & 127)) % 120 of tab (the tool's stack[k %
@@ -42,7 +57,9 @@
 // the fastest in both modes: 32 warps an SM hide the test's dependent
 // chain best; PERF.md, K15), and each thread computes the step's row
 // itself: no shared table, no barrier.
-#include "probe_common.cuh"
+#include <cstdint>
+
+#include "probe_tile.cuh"
 
 namespace {
 
@@ -50,52 +67,104 @@ enum BMode { EXTRACT, BCAST16 };
 enum XMode { XEXTRACT, XPOSE };
 constexpr int NVAL = 13;
 constexpr int PEND_DONE = 1 << 30;
+constexpr int INT_BIG = 0x7fffffff;  // the int32 min's identity
+constexpr int BCAST_L = 8;  // lanes a thread
+constexpr int BCAST_MAX_BLOCK_ROWS = 16;
+constexpr int BCAST_THREADS = BCAST_MAX_BLOCK_ROWS * 128 / BCAST_L;
+static_assert(BCAST_THREADS / 32 * 4 <= probe::TILE_SLOTS,
+              "K14: a cluster of 4 posts more partials than the slots hold");
 
+// the NVAL values of record i
 template <int kMode>
-__global__ void __launch_bounds__(1024, 1)
+__device__ __forceinline__ void record(const float* __restrict__ tab,
+                                       const float* __restrict__ ttab, int i,
+                                       float (&val)[NVAL]) {
+  if constexpr (kMode == EXTRACT) {
+    const float* r = tab + 16 * i;  // 64-byte aligned (tab 16-byte aligned)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(r) + c);
+      val[4 * c] = q.x, val[4 * c + 1] = q.y, val[4 * c + 2] = q.z;
+      val[4 * c + 3] = q.w;
+    }
+    val[12] = __ldg(r + 12);
+  } else {
+#pragma unroll
+    for (int v = 0; v < NVAL; ++v)
+      val[v] = __ldg(ttab + ((i >> 7) * 16 + v) * 128 + (i & 127));
+  }
+}
+
+// The grid is one cluster: block b holds lanes [b n L, (b + 1) n L) of the
+// tile, lane j of thread t at e0 + j n.  kCluster: more than one block.
+template <int kMode, bool kCluster>
+__global__ void __launch_bounds__(BCAST_THREADS)
     broadcast_kernel(const float* __restrict__ tab,
                      const float* __restrict__ ttab,
                      const int* __restrict__ pend_in,
                      float* __restrict__ out, int steps) {
-  constexpr int L = 8;
-  __shared__ int red[probe::RED_INTS];
+  constexpr int L = BCAST_L;
+  __shared__ float slots[probe::TILE_RED_FLOATS];
+  __shared__ unsigned long long bars[2];
   const int n = blockDim.x;
-  int pend[L];
+  const int e0 = blockIdx.x * n * L + threadIdx.x;
+  int pend[L], m[1] = {INT_BIG};
   float acc[NVAL][L];
 #pragma unroll
   for (int j = 0; j < L; ++j) {
-    pend[j] = pend_in[threadIdx.x + j * n];
+    pend[j] = pend_in[e0 + j * n];
+    m[0] = min(m[0], pend[j]);
 #pragma unroll
     for (int v = 0; v < NVAL; ++v) acc[v][j] = 0.0f;
   }
+  probe::TileRed red{slots, bars, 0};
+  if constexpr (kCluster) probe::tile_cluster_init(red);
+  probe::tile_reduce<1, false, kCluster>(m, red);
+#pragma unroll 1
   for (int k = 0; k < steps; ++k) {
-    int m = pend[0];
-#pragma unroll
-    for (int j = 1; j < L; ++j) m = min(m, pend[j]);
-    const int cand = probe::block_min_int(m, red);
-    const int i = cand & 1023;
+    const int cand = m[0];
     float val[NVAL];
-#pragma unroll
-    for (int v = 0; v < NVAL; ++v)
-      val[v] = kMode == EXTRACT
-                   ? __ldg(tab + 16 * i + v)
-                   : __ldg(ttab + ((i >> 7) * 16 + v) * 128 + (i & 127));
+    record<kMode>(tab, ttab, cand & 1023, val);
+    bool hit[L];
+    m[0] = INT_BIG;
 #pragma unroll
     for (int j = 0; j < L; ++j) {
-      const bool hit = pend[j] == cand;
+      hit[j] = pend[j] == cand;
+      pend[j] = hit[j] ? PEND_DONE : pend[j];
+      m[0] = min(m[0], pend[j]);
+    }
+    // the next step's min goes out before this step's adds (the adds do
+    // not feed it), and is taken after them
+    const bool more = k + 1 < steps;
+    if (more) probe::tile_post<1, false, kCluster>(m, red);
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
 #pragma unroll
       for (int v = 0; v < NVAL; ++v)
-        acc[v][j] = hit ? acc[v][j] + val[v] : acc[v][j];
-      pend[j] = hit ? PEND_DONE : pend[j];
+        acc[v][j] = hit[j] ? acc[v][j] + val[v] : acc[v][j];
     }
+    if (more) probe::tile_take<1, false, kCluster>(m, red);
   }
 #pragma unroll
   for (int j = 0; j < L; ++j) {
     float s = acc[0][j];
 #pragma unroll
     for (int v = 1; v < NVAL; ++v) s = s + acc[v][j];
-    out[threadIdx.x + j * n] = s + static_cast<float>(pend[j]);
+    out[e0 + j * n] = s + static_cast<float>(pend[j]);
   }
+}
+
+// one cluster of `cluster` blocks of rows / cluster * 128 / BCAST_L
+// threads
+template <int kMode>
+cudaError_t launch_broadcast(const float* tab, const float* ttab,
+                             const int* pend, float* out, int rows,
+                             int cluster, int steps, cudaStream_t s) {
+  const auto kernel = cluster > 1 ? broadcast_kernel<kMode, true>
+                                  : broadcast_kernel<kMode, false>;
+  return probe::launch_cluster(kernel, cluster, cluster,
+                               rows / cluster * 128 / BCAST_L, 0, s, tab,
+                               ttab, pend, out, steps);
 }
 
 constexpr int XPOSE_L = 1;  // lanes a thread
@@ -187,22 +256,27 @@ int launch_xpose(const float* tab, const float* planes, float* out,
 }  // namespace
 
 // K14.  mode: index into rtrt_tpu_torch/tools/probe_broadcast.py::MODES;
-// tab, ttab: (128, 128) f32; pend: (rows, 128) int32; rows: a multiple of
-// 8 up to 64 (8 lanes a thread, rows * 16 threads)
+// tab, ttab: (128, 128) f32, tab 16-byte aligned (its records are read by
+// float4); pend: (rows, 128) int32; rows: a multiple of 8 up to 64;
+// cluster: 1, 2 or 4 blocks, each of rows / cluster rows (at most
+// BCAST_MAX_BLOCK_ROWS: tools/probe_broadcast.py::launch_geometry)
 extern "C" int rtrt_probe_broadcast(int mode, const float* tab,
                                     const float* ttab, const int* pend,
-                                    float* out, int rows, int steps,
-                                    void* stream) {
+                                    float* out, int rows, int cluster,
+                                    int steps, void* stream) {
+  if ((cluster != 1 && cluster != 2 && cluster != 4) || rows <= 0 ||
+      rows % cluster || rows / cluster > BCAST_MAX_BLOCK_ROWS ||
+      rows / cluster * 128 % (32 * BCAST_L) ||
+      reinterpret_cast<uintptr_t>(tab) % 16)
+    return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   if (mode == EXTRACT)
-    broadcast_kernel<EXTRACT><<<1, rows * 16, 0, s>>>(tab, ttab, pend, out,
-                                                      steps);
-  else if (mode == BCAST16)
-    broadcast_kernel<BCAST16><<<1, rows * 16, 0, s>>>(tab, ttab, pend, out,
-                                                      steps);
-  else
-    return cudaErrorInvalidValue;
-  return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(launch_broadcast<EXTRACT>(
+        tab, ttab, pend, out, rows, cluster, steps, s));
+  if (mode == BCAST16)
+    return static_cast<int>(launch_broadcast<BCAST16>(
+        tab, ttab, pend, out, rows, cluster, steps, s));
+  return cudaErrorInvalidValue;
 }
 
 // K15.  mode: index into rtrt_tpu_torch/tools/probe_xpose.py::MODES;

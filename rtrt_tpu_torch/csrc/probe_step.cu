@@ -231,24 +231,12 @@ template <int kMode>
 cudaError_t launch(const float* tab, const float* ox, float* out,
                    float* state, int rows, int cluster, int steps,
                    cudaStream_t s) {
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = cluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster);
-  cfg.blockDim = dim3(rows / cluster * 128 / L);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = s;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
   auto kernel = step_kernel<kMode, false>;
   if constexpr (kMode == REDUCE2 || kMode == REDUCE4)
     if (cluster > 1) kernel = step_kernel<kMode, true>;
-  const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, kernel, tab, ox, out, state, steps);
-  return e != cudaSuccess ? e : cudaGetLastError();
+  return probe::launch_cluster(kernel, cluster, cluster,
+                               rows / cluster * 128 / L, 0, s, tab, ox, out,
+                               state, steps);
 }
 
 using Launcher = cudaError_t (*)(const float*, const float*, float*, float*,

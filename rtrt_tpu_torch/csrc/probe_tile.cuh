@@ -1,14 +1,18 @@
-// The one-barrier tile reduction of K6 (probe_step.cu), K7 (probe_leaf.cu)
-// and K8 / K9 (probe_cores.cu).  Of K10-K16, only K14 reduces over its
-// tile (an int32 min: probe_common.cuh::block_min_int).
+// The one-wait tile reduction of K6 (probe_step.cu), K7 (probe_leaf.cu),
+// K8 / K9 (probe_cores.cu) and K14 (probe_record.cu).  K6-K9 reduce
+// float32 values; K14 takes the int32 min of its pend, with redux
+// (__reduce_min_sync) as the warp step: an int32 min stays exact at every
+// magnitude and orders negative values right, which a float reduction of
+// the same bits would not.
 //
 // A tile-wide min or max of N values a thread: each warp reduces its lanes
-// with shuffles; lane r * N + n of each warp stores the warp's n-th partial
-// into slot n of block r's shared memory; every block waits once; then
-// every warp reads all the partials, one or two a lane, and reduces them
-// with shuffles again, so that every thread holds the tile's result and
-// every branch on it is uniform.  A min or max does not depend on the order
-// of its operands, so the result is the two-barrier reduction's.
+// with shuffles (float) or redux (int32); lane r * N + n of each warp
+// stores the warp's n-th partial into slot n of block r's shared memory;
+// every block waits once; then every warp reads all the partials, one or
+// two a lane, and reduces them the same way again, so that every thread
+// holds the tile's result and every branch on it is uniform.  A min or max
+// does not depend on the order of its operands, so the result is the
+// two-barrier reduction's.
 //
 // A lone block stores into its own slots and waits at __syncthreads.  A
 // thread-block cluster sends each partial to block r with st.async, which
@@ -37,12 +41,13 @@
 namespace probe {
 
 constexpr int TILE_MAX_N = 4;
-// partials a value: up to 16 warps x 4 blocks (K6), or 32 warps x 1 (K7,
-// K8)
+// partials a value: up to 16 warps x 4 blocks (K6, K14), or 32 warps x 1
+// (K7, K8)
 constexpr int TILE_SLOTS = 64;
+// 32-bit words (float or int32 partials)
 constexpr int TILE_RED_FLOATS = 2 * TILE_MAX_N * TILE_SLOTS;
 
-// the reduction's shared slots (TILE_RED_FLOATS floats), the two
+// the reduction's shared slots (TILE_RED_FLOATS words), the two
 // mbarriers of the cluster form, and the calls made so far
 struct TileRed {
   float* slots;
@@ -52,6 +57,41 @@ struct TileRed {
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The element type's pieces: the min or max of two values, its identity,
+// and its 32 bits for st.async
+template <bool kMax>
+__device__ __forceinline__ float combine(float a, float b) {
+  return kMax ? fmaxf(a, b) : fminf(a, b);
+}
+template <bool kMax>
+__device__ __forceinline__ int combine(int a, int b) {
+  return kMax ? max(a, b) : min(a, b);
+}
+template <typename T, bool kMax>
+__device__ __forceinline__ T identity();
+template <>
+__device__ __forceinline__ float identity<float, false>() {
+  return CUDART_INF_F;
+}
+template <>
+__device__ __forceinline__ float identity<float, true>() {
+  return -CUDART_INF_F;
+}
+template <>
+__device__ __forceinline__ int identity<int, false>() {
+  return 0x7fffffff;
+}
+template <>
+__device__ __forceinline__ int identity<int, true>() {
+  return static_cast<int>(0x80000000u);
+}
+__device__ __forceinline__ unsigned bits(float x) {
+  return __float_as_uint(x);
+}
+__device__ __forceinline__ unsigned bits(int x) {
+  return static_cast<unsigned>(x);
 }
 
 // Before the first call of the cluster form: every thread of every block
@@ -68,9 +108,9 @@ __device__ __forceinline__ void tile_cluster_init(const TileRed& r) {
   cooperative_groups::this_cluster().sync();
 }
 
-template <int N>
-__device__ __forceinline__ float pick(const float (&v)[N], int n) {
-  float x = v[0];  // a select chain: a dynamic index would go to memory
+template <int N, typename T>
+__device__ __forceinline__ T pick(const T (&v)[N], int n) {
+  T x = v[0];  // a select chain: a dynamic index would go to memory
 #pragma unroll
   for (int i = 1; i < N; ++i) x = n == i ? v[i] : x;
   return x;
@@ -78,12 +118,13 @@ __device__ __forceinline__ float pick(const float (&v)[N], int n) {
 
 // First half: the warp's partials go out -- work that does not need the
 // result may follow before tile_take
-template <int N, bool kMax, bool kCluster>
-__device__ __forceinline__ void tile_post(float (&v)[N], const TileRed& r) {
+template <int N, bool kMax, bool kCluster, typename T>
+__device__ __forceinline__ void tile_post(T (&v)[N], const TileRed& r) {
   static_assert(N <= TILE_MAX_N, "tile_post: at most TILE_MAX_N values");
   warp_reduce<N, kMax>(v);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* buf = r.slots + (r.calls & 1) * (TILE_MAX_N * TILE_SLOTS);
+  T* buf = reinterpret_cast<T*>(r.slots) +
+           (r.calls & 1) * (TILE_MAX_N * TILE_SLOTS);
   if constexpr (kCluster) {
     namespace cg = cooperative_groups;
     const cg::cluster_group cl = cg::this_cluster();
@@ -111,7 +152,7 @@ __device__ __forceinline__ void tile_post(float (&v)[N], const TileRed& r) {
       asm volatile(
           "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], "
           "%1, [%2];\n" ::"r"(dst),
-          "r"(__float_as_uint(pick(v, lane % N))), "r"(dbar)
+          "r"(bits(pick(v, lane % N))), "r"(dbar)
           : "memory");
     }
   } else {
@@ -120,9 +161,9 @@ __device__ __forceinline__ void tile_post(float (&v)[N], const TileRed& r) {
 }
 
 // Second half: the wait, then every warp reduces the partials
-template <int N, bool kMax, bool kCluster>
-__device__ __forceinline__ void tile_take(float (&v)[N], TileRed& r) {
-  const float id = kMax ? -CUDART_INF_F : CUDART_INF_F;
+template <int N, bool kMax, bool kCluster, typename T>
+__device__ __forceinline__ void tile_take(T (&v)[N], TileRed& r) {
+  const T id = identity<T, kMax>();
   const int lane = threadIdx.x & 31;
   int parts = blockDim.x >> 5;
   if constexpr (kCluster) {
@@ -137,13 +178,14 @@ __device__ __forceinline__ void tile_take(float (&v)[N], TileRed& r) {
   } else {
     __syncthreads();
   }
-  const float* buf = r.slots + (r.calls & 1) * (TILE_MAX_N * TILE_SLOTS);
+  const T* buf = reinterpret_cast<const T*>(r.slots) +
+                 (r.calls & 1) * (TILE_MAX_N * TILE_SLOTS);
 #pragma unroll
   for (int n = 0; n < N; ++n) {
-    float x = lane < parts ? buf[n * TILE_SLOTS + lane] : id;
+    T x = lane < parts ? buf[n * TILE_SLOTS + lane] : id;
     if constexpr (kCluster) {  // more than 32 partials only on a cluster
-      const float y = lane + 32 < parts ? buf[n * TILE_SLOTS + lane + 32] : id;
-      x = kMax ? fmaxf(x, y) : fminf(x, y);
+      const T y = lane + 32 < parts ? buf[n * TILE_SLOTS + lane + 32] : id;
+      x = combine<kMax>(x, y);
     }
     v[n] = x;
   }
@@ -151,10 +193,33 @@ __device__ __forceinline__ void tile_take(float (&v)[N], TileRed& r) {
   ++r.calls;
 }
 
-template <int N, bool kMax, bool kCluster>
-__device__ __forceinline__ void tile_reduce(float (&v)[N], TileRed& r) {
+template <int N, bool kMax, bool kCluster, typename T>
+__device__ __forceinline__ void tile_reduce(T (&v)[N], TileRed& r) {
   tile_post<N, kMax, kCluster>(v, r);
   tile_take<N, kMax, kCluster>(v, r);
+}
+
+// Host side: `blocks` blocks of `threads` threads in clusters of
+// `cluster` (K6, K8 / K9, K14), `smem` bytes of dynamic shared memory a
+// block; the launch's error, else cudaGetLastError()
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), int blocks,
+                           int cluster, int threads, size_t smem,
+                           cudaStream_t s, Args... args) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 }  // namespace probe

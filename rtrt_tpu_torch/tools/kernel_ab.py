@@ -44,12 +44,16 @@ the big tables, mode both, 200 steps), K10 (`tools/probe_cond.py::run`)
 in its three modes and K12 (`tools/probe_smem.py::run`) in both, at 64
 rows, 400 steps, 10 reps, the tool's inputs, K13 (`tools/
 probe_pressure.py::run`, 400 steps, 10 reps) at 64 rows with each n_inv
-and at 8 rows with 20 planes, K15 (`tools/probe_xpose.py::run`) in both
-modes at 32 rows, 300 steps, 10 reps, and K16 (`tools/probe_bf16.py::
+and at 8 rows with 20 planes, K14 (`tools/probe_broadcast.py::run`) in
+both modes at 64 rows, 400 steps, 10 reps, K11 (`tools/probe_smem.py::
+smem_alloc` at 48 KB on the tool's x, 64 rows: ms a launch by CUDA events
+around 50 chained calls and by replays of a graph of 20 calls, both by
+this checkout's `utils/timing.py`), K15 (`tools/probe_xpose.py::run`) in
+both modes at 32 rows, 300 steps, 10 reps, and K16 (`tools/probe_bf16.py::
 run`) in both modes at 64 rows, 4000 steps, 30 reps, each tree through
-its own wrappers (ns a step, CUDA events); beside K8-K10, K12, K13, K15
-and K16 the tree's own floor of a step ("... floor": its bound over the
-SMs the launch fills, which a split over SMs changes).  ``--only
+its own wrappers (ns a step, CUDA events); beside K8-K16 the tree's own
+floor of a step ("... floor": its bound over the SMs the launch fills,
+which a split over SMs changes; K11's a launch, in ms).  ``--only
 K10,K12`` times only the probes named (by the key's first word).
 ptxas' lines are those of the probes' kernels.
 """
@@ -72,7 +76,8 @@ PASSES = (("7x7", 3, 1, True, 0), ("s3", 2, 3, False, 0),
 FRAME_KERNELS = ("megakernel", "traverse_kernel", "denoise_wide",
                  "post_tail", "reproject")
 PROBE_KERNELS = ("step_kernel", "leaf_kernel", "cores_kernel",
-                 "consume_kernel", "pressure_kernel", "xpose_kernel",
+                 "consume_kernel", "pressure_kernel", "alloc_kernel",
+                 "broadcast_kernel", "xpose_kernel",
                  "chains_")  # consume_kernel: free_consume_kernel too
 
 
@@ -199,14 +204,15 @@ def child(tree: str, reps2: int, reps4: int) -> dict:
 
 
 def probe_child(tree: str, only=()) -> dict:
-    """Time K6-K10, K12, K13, K15 and K16 of the package in `tree` (this
-    process only); `only`: the probes to time (K numbers), all if
-    empty."""
+    """Time K6-K16 of the package in `tree` (this process only); `only`:
+    the probes to time (K numbers), all if empty."""
+    own = _own_timing()
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     import rtrt_tpu_torch
-    from rtrt_tpu_torch.tools import (probe_bf16, probe_cond, probe_cores,
-                                      probe_leaf, probe_pressure, probe_smem,
+    from rtrt_tpu_torch.tools import (probe_bf16, probe_broadcast,
+                                      probe_cond, probe_cores, probe_leaf,
+                                      probe_pressure, probe_smem,
                                       probe_xpose, ubench_step)
     from rtrt_tpu_torch.utils import cuda
 
@@ -244,6 +250,16 @@ def probe_child(tree: str, only=()) -> dict:
                 + [(8, 20)]:
             key = f"K13 {rows} rows n_inv {n_inv}"
             res[key], res[f"{key} floor"] = probe_pressure.run(n_inv, rows)
+    if want("K14"):
+        for m in probe_broadcast.MODES:
+            res[f"K14 {m}"], res[f"K14 {m} floor"] = probe_broadcast.run(
+                m, 400, 10)
+    if want("K11"):
+        x = torch.ones((64, 128), device="cuda")
+        k11 = lambda: probe_smem.smem_alloc(x, probe_smem.SMEM_DEFAULT // 4)
+        res["K11 events ms"] = own.time_ms(k11, 50)
+        res["K11 graph ms"] = own.time_graph_ms(k11, 20, 50)
+        res["K11 floor ms"] = probe_smem.alloc_bound()[0]
     if want("K15"):
         for m in probe_xpose.MODES:
             res[f"K15 {m}"], res[f"K15 {m} floor"], _ = probe_xpose.run(
@@ -262,8 +278,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps2", type=int, default=10)
     ap.add_argument("--reps4", type=int, default=50)
     ap.add_argument("--probes", action="store_true",
-                    help="time K6-K10, K12, K13, K15 and K16 instead of "
-                    "K1-K5")
+                    help="time K6-K16 instead of K1-K5")
     ap.add_argument("--only", default="",
                     help="with --probes: the probes to time, e.g. K10,K12")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)

@@ -7,7 +7,12 @@ asked how large an SMEM scratch Mosaic accepts (0.25-4 MiB); on the H100
 the question is the dynamic shared memory one block may request: 48 KB
 without an opt-in, the card's opt-in maximum with one.  A refusal is a
 result, and comes only from the CUDA runtime's own refusal
-(cudaErrorInvalidValue); every other error raises.
+(cudaErrorInvalidValue); every other error raises.  One launch is a grid
+of rows / 8 blocks (`alloc_blocks`: 8 at 64 rows), each asking for the
+buffer (the runtime grants it a block, so the edge is a block's), 256
+threads a block, a float4 a thread; x must be 16-byte aligned.  Its time
+is the launch's own: `run_alloc` gives CUDA events around chained calls
+(the wrapper's host work included) and graph replay (the kernel alone).
 
 K12 (`smem_consume`): probe_cond's 72-value consume loop (K10's flat
 mode) with the values from
@@ -40,6 +45,7 @@ MODES = ("extract", "smem")
 SIZES_MIB = (0.25, 0.5, 1.0, 2.0, 4.0)  # the JAX tool's scratch sizes
 SMEM_DEFAULT = 48 * 1024  # bytes a block gets without the opt-in
 REFUSED = -1  # csrc/probe_consume.cu: RTRT_SMEM_REFUSED
+ALLOC_BLOCK_ROWS = 8  # csrc/probe_consume.cu: rows a K11 block
 
 
 def smem_alloc_plain(x, n_floats: int):
@@ -52,18 +58,27 @@ def smem_alloc_plain(x, n_floats: int):
     return x + s[0] + s[n_floats - 1]
 
 
+def alloc_blocks(rows: int) -> int:
+    """Blocks of K11's launch on a (rows, 128) x: rows / ALLOC_BLOCK_ROWS
+    (rows a multiple of 8 up to 64, else ValueError)."""
+    check_rows(rows)
+    return rows // ALLOC_BLOCK_ROWS
+
+
 def smem_alloc(x, n_floats: int):
     """K11 for a CUDA tensor: the output, or None when the runtime refused
-    n_floats * 4 bytes of dynamic shared memory for one block.  The plain
-    version for a CPU tensor."""
+    n_floats * 4 bytes of dynamic shared memory for a block.  x must be
+    16-byte aligned (it is read by float4).  The plain version for a CPU
+    tensor."""
     if x.device.type == "cpu":
         return smem_alloc_plain(x, n_floats)
     if n_floats < 1:
         raise ValueError(f"n_floats {n_floats}: at least 1")
     rows = x.shape[0]
-    check_rows(rows)
+    alloc_blocks(rows)
     dev = x.device
     cuda.check_tensors(dev, x=(x, torch.float32, (rows, 128)))
+    cuda.check_aligned(x=x)
     out = torch.empty_like(x)
     ok = cuda.launch(cuda.library().rtrt_probe_smem_alloc,
                      "probe_smem_alloc", dev, x, out, ctypes.c_int(rows),
@@ -93,11 +108,11 @@ def edge_sizes(device="cuda"):
                ("opt-in maximum + 1 float", top + 1)])
 
 
-def try_alloc(n_floats: int, device="cuda") -> bool:
+def try_alloc(n_floats: int, device="cuda", rows: int = SHAPE[0]) -> bool:
     """Whether a block may hold n_floats of dynamic shared memory: K11 on
-    x = 1 (the JAX tool's input).  An accepted launch must give its plain
-    version's output, or this raises."""
-    x = torch.ones(SHAPE, device=device)
+    x = 1 of (rows, 128) (the JAX tool's input at 64 rows).  An accepted
+    launch must give its plain version's output, or this raises."""
+    x = torch.ones((rows, SHAPE[1]), device=device)
     out = smem_alloc(x, n_floats)
     if out is None:
         return False
@@ -142,16 +157,23 @@ def smem_consume(mode: str, tab, x, steps: int):
 
 
 def alloc_bound(rows: int = SHAPE[0]):
-    """(ms, "bytes" or "operations") of one K11 launch on its one SM: x read
-    and out written once, two adds a lane."""
+    """(ms, "bytes" or "operations") of one K11 launch on its
+    alloc_blocks(rows) SMs: x read and out written once, two adds a
+    lane."""
     lanes = rows * 128
-    return timing.bound_ms(2 * lanes * 4, 2 * lanes, share=1 / timing.SMS)
+    return timing.bound_ms(2 * lanes * 4, 2 * lanes,
+                           share=alloc_blocks(rows) / timing.SMS)
 
 
 def run_alloc(n_floats: int, reps: int = 20, device="cuda"):
-    """ms per K11 launch at n_floats (CUDA events), on the tool's x."""
+    """(events ms, graph ms) per K11 launch at n_floats on the tool's x:
+    CUDA events around `reps` chained calls (each call's wrapper on the
+    host included), and replays of a CUDA graph of 20 calls (the kernel
+    alone; at or below 48 KB no attribute call falls inside the
+    capture)."""
     x = torch.ones(SHAPE, device=device)
-    return timing.time_ms(lambda: smem_alloc(x, n_floats), reps)
+    fn = lambda: smem_alloc(x, n_floats)
+    return timing.time_ms(fn, reps), timing.time_graph_ms(fn, 20, reps)
 
 
 def run(mode: str, steps: int = 400, reps: int = 10, device="cuda"):

@@ -16,7 +16,9 @@ instantiation an n_inv; in a tree from before it had its own kernel, the
 n_inv >= 0 instantiations of `consume_kernel`), K10 / K12
 (`free_consume_kernel`, csrc/probe_consume.cu: K10's flat, cond and
 cond2 and K12's smem, K12's extract being K10's flat; in a tree from
-before it, the n_inv = -1 instantiations of `consume_kernel`), K15
+before it, the n_inv = -1 instantiations of `consume_kernel`), K14
+(`broadcast_kernel`, csrc/probe_record.cu, a mode each, and a lone-block
+and a cluster instantiation a mode where it runs on a cluster), K15
 (`xpose_kernel`, csrc/probe_record.cu, a mode each) and K16
 (`chains_f32`, `chains_bf16`, csrc/probe_bf16.cu), finds the step loop
 (the backward branch that spans the most instructions: the other loops
@@ -37,8 +39,11 @@ barrier; K10's holds the never-taken reload of a flagged step and, in
 the cond modes, the never-taken branch that skips the terms); K15's its
 reciprocals (MUFU.RCP: 8 a lane a step, XPOSE_L lanes a thread, 4 where DIR's
 csrc/probe_record.cu has no XPOSE_L), which stay in the loop body where
-a warp skips them.  K13's warp 0 runs its own copy of the step loop,
-which also steps the shadow of element (0, 0): the largest loop; the
+a warp skips them; K14's its REDUX over 2 (one warp step of the
+tile-wide min where the tile's min goes out and one where it is taken,
+in the cluster design; the warp's and warp 0's reductions in the
+one-block design of a tree from before it).  K13's warp 0 runs its own
+copy of the step loop, which also steps the shadow of element (0, 0): the largest loop; the
 other warps' loop is the next that holds a barrier.  `instructions_per_
 step` and `by_kind` are the other warps', `warp0_instructions_per_step`
 warp 0's, which counts once, for one warp, in the issue floor.  Every
@@ -54,7 +59,10 @@ at 32 rows, K8 16 at 32 rows on 2 SMs, K13 16 (16 rows a block at
 DIR's PRESSURE_L of 4), K10 / K12 16 rows a block at DIR's CONSUME_L
 (4 warps at 16 lanes), K15 32 (8 rows a block at DIR's XPOSE_L of 1),
 K16 32: 16 rows a block at 2 lanes a thread, as the one-block K16 of 64
-rows at 8 had; a tree from before the splits ran one 1,024-thread block:
+rows at 8 had; K14 at 64 rows DIR's BCAST_MAX_BLOCK_ROWS rows a block at
+its BCAST_L lanes a thread (16 warps at 16 and 4), 32 where DIR's
+csrc/probe_record.cu has neither (one 1,024-thread block); a tree from
+before the splits ran one 1,024-thread block:
 `consume_kernel` 32 (K10 / K12, and K13 before its split), and give
 `--warps xpose_kernel=32`).  Prints one line ``SASS {json}`` per
 instantiation.
@@ -74,7 +82,8 @@ import sys
 
 KERNELS = {"step_kernel": "K6", "leaf_kernel": "K7", "cores_kernel": "K8",
            "consume_kernel": "K13", "pressure_kernel": "K13",
-           "free_consume_kernel": "K10", "xpose_kernel": "K15",
+           "free_consume_kernel": "K10", "broadcast_kernel": "K14",
+           "xpose_kernel": "K15",
            "chains_f32": "K16", "chains_bf16": "K16"}
 K16_CHAINS = 8
 K15_RECORDS = 8  # reciprocals a lane a step
@@ -239,14 +248,17 @@ def default_warps(tree: str = _ROOT) -> dict:
     64, K7's 32, K8's block_rows of 32; K16 has 64 threads (2 lanes a
     thread) a row of its block_rows of 64; K10 / K12, K13 (its tile warps)
     and K15 128 / lanes threads a row of their block_rows at 64, 64 and 32
-    rows, the lanes a thread DIR's (`lanes`); the one-block K10, K12 and
-    K13 of a tree from before their split 32."""
+    rows, K14 at 64 rows of DIR's largest block, the lanes a thread DIR's
+    (`lanes`); the one-block K10, K12, K13 and K14 of a tree from before
+    their split 32."""
     from . import probe_bf16, probe_cond, probe_cores, probe_pressure
     from . import probe_xpose, ubench_step
     k16 = probe_bf16.launch_geometry(probe_bf16.SHAPE[0])[1] * 2
     k10 = lanes(tree, "probe_consume.cu", "CONSUME_L") or 1
     k13 = lanes(tree, "probe_consume.cu", "PRESSURE_L") or 1
     k15 = lanes(tree, "probe_record.cu", "XPOSE_L") or 4
+    k14 = lanes(tree, "probe_record.cu", "BCAST_L")
+    k14_rows = lanes(tree, "probe_record.cu", "BCAST_MAX_BLOCK_ROWS")
     return {"step_kernel": ubench_step.launch_geometry(64)[1],
             "leaf_kernel": 32,
             "cores_kernel": probe_cores.launch_geometry(32)[1],
@@ -256,6 +268,8 @@ def default_warps(tree: str = _ROOT) -> dict:
             "pressure_kernel":
                 probe_pressure.launch_geometry(64)[1] * 4 // k13,
             "xpose_kernel": probe_xpose.launch_geometry(32)[1] * 4 // k15,
+            "broadcast_kernel":
+                min(64, k14_rows) * 4 // k14 if k14 and k14_rows else 32,
             "chains_f32": k16, "chains_bf16": k16}
 
 
@@ -276,10 +290,13 @@ def k16_lanes(tree: str) -> int:
 def steps_in_body(kern: str, lanes: int, loop) -> float:
     """The steps one pass of the loop body runs.  K16: its FMNMX or HMNMX2
     instructions over one step's; K13: its barriers (one a step); K15: its
-    MUFU.RCP (8 a lane a step) over one step's; 1 for the other probes."""
+    MUFU.RCP (8 a lane a step) over one step's; K14: its REDUX (2 a
+    step); 1 for the other probes."""
     ops = [op.split(".")[0] for _, op, _ in loop]
     if kern in ("consume_kernel", "pressure_kernel"):
         return ops.count("BAR")
+    if kern == "broadcast_kernel":
+        return ops.count("REDUX") / 2
     if kern == "xpose_kernel":
         rcp = sum(op.startswith("MUFU.RCP") for _, op, _ in loop)
         return rcp / (K15_RECORDS * lanes)
@@ -304,11 +321,12 @@ def _kernel(kern: str, fn: str) -> str:
 def _mode(tree: str, kern: str, fn: str):
     """(mode label, lanes a thread or None) of instantiation `fn`, or None
     for an instantiation this tool does not count."""
-    from . import probe_cond, probe_cores, probe_leaf, probe_xpose
-    from . import ubench_step
+    from . import (probe_broadcast, probe_cond, probe_cores, probe_leaf,
+                   probe_xpose, ubench_step)
     modes = {"step_kernel": ubench_step.MODES,
              "leaf_kernel": probe_leaf.MODES,
              "cores_kernel": probe_cores.MODES,
+             "broadcast_kernel": probe_broadcast.MODES,
              "xpose_kernel": probe_xpose.MODES}
     consume = lambda src, cond: "smem" if src == "1" else \
         probe_cond.MODES[int(cond)] + (" (and K12 extract)" * (cond == "0"))
@@ -339,6 +357,9 @@ def _mode(tree: str, kern: str, fn: str):
         mode += " cluster"
     if kern == "xpose_kernel":
         n = lanes(tree, "probe_record.cu", "XPOSE_L") or 4
+        return f"{mode} lanes {n}", n
+    if kern == "broadcast_kernel":
+        n = lanes(tree, "probe_record.cu", "BCAST_L") or 8
         return f"{mode} lanes {n}", n
     return mode, None
 

@@ -77,7 +77,7 @@ _SIGNATURES = {
     "rtrt_smem_optin": [_I, ctypes.POINTER(_I)],
     "rtrt_probe_smem_consume": [_I, _P, _P, _P] + [_I] * 4 + [_P],
     "rtrt_probe_pressure": [_I] + [_P] * 4 + [_I] * 4 + [_P],
-    "rtrt_probe_broadcast": [_I] + [_P] * 4 + [_I, _I] + [_P],
+    "rtrt_probe_broadcast": [_I] + [_P] * 4 + [_I, _I, _I] + [_P],
     "rtrt_probe_xpose": [_I, _P, _P, _P] + [_I] * 4 + [_P],
     "rtrt_probe_bf16": [_I, _P, _P, _F] + [_I] * 4 + [_P],
 }

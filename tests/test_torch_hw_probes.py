@@ -259,13 +259,16 @@ def test_flip_recipe_turns_the_step_flag(n_inv):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("recipe", ["tool", "scaled"])
+@pytest.mark.parametrize("recipe", list(probe_broadcast.RECIPES))
 @pytest.mark.parametrize("mode", probe_broadcast.MODES)
 def test_probe_broadcast_matches_jax(jax_tools, mode, recipe):
+    """The plain K14 against the JAX tool's kernel (interpret mode), 64
+    steps, bit-equal, on the tool's inputs, the scaled tables, and the
+    saturating recipe (the scaled tables with pend % 32: every lane has
+    retired by step 32, after which cand stays 2^30 and every lane adds
+    record 0 each step)."""
     steps = 64
-    make = probe_broadcast.scaled_inputs if recipe == "scaled" else \
-        probe_broadcast.tool_inputs
-    tab, ttab, pend = make("cpu")
+    tab, ttab, pend = probe_broadcast.RECIPES[recipe]("cpu")
     kern = jax_tools["probe_broadcast"].make_kernel(mode, steps)
     ref = np.asarray(_call(kern, 64, 3)(tab.numpy(), ttab.numpy(),
                                         pend.numpy()))
@@ -273,13 +276,21 @@ def test_probe_broadcast_matches_jax(jax_tools, mode, recipe):
     np.testing.assert_array_equal(got.numpy(), ref)
     done = pend < steps  # the lanes the loop retired
     assert torch.all(got[~done] == pend[~done].float())
-    if recipe == "scaled":  # the record sums show, exact, above 2^30
-        p = pend[done].long()[:, None]
-        v = torch.arange(probe_broadcast.NVAL)
-        rec = tab.reshape(-1)[16 * p + v] if mode == "extract" \
-            else ttab[(p // 128) * 16 + v, p % 128]
-        assert torch.equal(got[done] - 2.0 ** 30, rec.sum(1))
-        assert rec.sum(1).min() > 0
+    if recipe == "tool":
+        return
+    # the record sums show, exact, above 2^30
+    v = torch.arange(probe_broadcast.NVAL)
+    rec = lambda p: tab.reshape(-1)[16 * p + v] if mode == "extract" \
+        else ttab[(p // 128) * 16 + v, p % 128]
+    own = rec(pend[done].long()[:, None]).sum(1)
+    assert own.min() > 0
+    if recipe == "scaled":
+        assert torch.equal(got[done] - 2.0 ** 30, own)
+    else:  # steps 32-63 add record 0 to every lane
+        assert done.all()
+        extra = (steps - 32) * rec(torch.tensor(0)).sum()
+        assert extra > 0
+        assert torch.equal(got[done] - 2.0 ** 30, own + extra)
 
 
 # ---------------------------------------------------------------------------

@@ -78,13 +78,14 @@ Tolerances:
     own inputs and on rays that hit every record.
   * K10-K16, the hardware probes (probe_cond, probe_smem, probe_pressure,
     probe_broadcast, probe_xpose, probe_bf16): bit-equal in every mode on
-    every input recipe of tests/test_torch_hw_probes.py (K10, K12 and K16
-    also at every row count 8-64, split over c = 1-4 SMs; K10, K12, K13
-    and K15 refuse a table that is not 16-byte aligned).  The kernels
+    every input recipe of tests/test_torch_hw_probes.py (K10, K12, K14 and
+    K16 also at every row count 8-64, split over c = 1-4 SMs; K10, K12-K15
+    refuse a table and K11 an x that is not 16-byte aligned).  The kernels
     round each product on its own (__fmul_rn) and each bf16 operation to
     bf16, as torch's ops do; K10's three modes agree, and so do K15's two.
-    K11 is accepted at 48 KB and at the card's opt-in maximum, refused one
-    float beyond it and at every size of the JAX tool (0.25-4 MiB).
+    K11, on its grid of rows / 8 blocks at 8, 32 and 64 rows, is accepted
+    at 48 KB and at the card's opt-in maximum, refused one float beyond it
+    and at every size of the JAX tool (0.25-4 MiB).
   * K1 and K2 on the refitted tables of the animated 1080p terrain
     (Engine(..., animation="wave") after three frames): as K1 and K2 above,
     on every 8th primary ray (K1) and every 4th row and column of the
@@ -1078,15 +1079,19 @@ def test_probe_cond_kernel_matches_plain(cuda_device, rows, recipe):
 
 
 @pytest.mark.gpu
-def test_probe_smem_alloc_edges(cuda_device):
+@pytest.mark.parametrize("rows", [8, 32, 64])
+def test_probe_smem_alloc_edges(cuda_device, rows):
+    """K11 on its grid of rows / 8 blocks, each asking for the buffer:
+    accepted at 48 KB and at the opt-in maximum, refused one float beyond
+    and at every size of the JAX tool; bit-equal where it launches."""
     edges = probe_smem.edge_sizes(cuda_device)
-    accepted = {label: probe_smem.try_alloc(n, cuda_device)
+    accepted = {label: probe_smem.try_alloc(n, cuda_device, rows)
                 for label, n in edges}
     torch.cuda.synchronize()
     want = [False] * len(probe_smem.SIZES_MIB) + [True, True, False]
     assert list(accepted.values()) == want, accepted
-    x = probe_cond.uniform_inputs(64, cuda_device)[1]
-    for n in (1, 2, 1024):
+    x = probe_cond.uniform_inputs(rows, cuda_device)[1]
+    for n in (1, 2, 1024, probe_smem.optin_bytes(cuda_device) // 4):
         assert torch.equal(probe_smem.smem_alloc(x, n),
                            probe_smem.smem_alloc_plain(x, n))
 
@@ -1124,15 +1129,25 @@ def test_probe_pressure_kernel_matches_plain(cuda_device, n_inv, rows):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rows", list(range(8, 65, 8)))
 @pytest.mark.parametrize("mode", probe_broadcast.MODES)
-def test_probe_broadcast_kernel_matches_plain(cuda_device, mode):
-    for make in (probe_broadcast.tool_inputs, probe_broadcast.scaled_inputs):
-        tab, ttab, pend = make(cuda_device)
+def test_probe_broadcast_kernel_matches_plain(cuda_device, mode, rows):
+    """K14 on a cluster of launch_geometry(rows)[0] = 1, 2 or 4 blocks,
+    every input recipe (the saturating one past step 32, where every lane
+    adds record 0 each step), and the tool's pend shifted to negative
+    values and above 2^30 (the int32 min orders both as the plain
+    version's does): bit-equal to the plain version."""
+    cases = {name: make(cuda_device, rows=rows)
+             for name, make in probe_broadcast.RECIPES.items()}
+    tab, ttab, pend = cases["scaled"]
+    cases["negative"] = tab, ttab, pend - 512
+    cases["above 2^30"] = tab, ttab, pend + (2 ** 30 + 1)
+    for name, (tab, ttab, pend) in cases.items():
         got = probe_broadcast.broadcast_probe(mode, tab, ttab, pend, 300)
         ref = probe_broadcast.broadcast_probe_plain(mode, tab, ttab, pend,
                                                     300)
         torch.cuda.synchronize()
-        assert torch.equal(got, ref)
+        assert torch.equal(got, ref), name
 
 
 @pytest.mark.gpu
@@ -1204,6 +1219,16 @@ def test_hw_probe_wrappers_check_their_inputs(cuda_device):
         probe_broadcast.broadcast_probe(
             "extract", tab, tab, torch.zeros((64, 128), device=cuda_device),
             4)
+    # K14 reads its records by float4 and K11 its x: one float off a
+    # 16-byte boundary is refused before any launch
+    pend = probe_broadcast.tool_inputs(cuda_device)[2]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        probe_broadcast.broadcast_probe("extract", bad, tab, pend, 4)
+    xs = torch.zeros(64 * 128 + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        probe_smem.smem_alloc(xs[1:].view(64, 128), 1024)
+    with pytest.raises(ValueError, match="rows"):
+        probe_smem.smem_alloc(x[:12].contiguous(), 1024)
 
 
 @pytest.fixture(scope="module")

@@ -1,6 +1,6 @@
-"""K6's, K8's, K13's, K15's and K16's launch geometries and bounds, the
-SASS counter of the probe tools, and one JAX parity case of the plain K6
-at a cluster-split row count, on the CPU.
+"""K6's, K8's, K10's, K11's, K13's-K16's launch geometries and bounds,
+the SASS counter of the probe tools, and one JAX parity case of the plain
+K6 at a cluster-split row count, on the CPU.
 
 K6 (rtrt_tpu_torch/csrc/probe_step.cu) splits a (rows, 128) tile over a
 thread-block cluster of c blocks, c the smallest of 1, 2, 4 with rows <=
@@ -23,8 +23,12 @@ rows; their bounds take c / 132.  K10 and K12
 shadow of element (0, 0); their bounds take c / 132, and what the design
 relies on is checked here: the shadow's premise (element (0, 0) alone
 gives the tile's acc[0, 0]), the staged read's modulo that never wraps,
-and the wrapper's refusal of a table that is not 16-byte aligned.  The
-kernels themselves run only on the card (tests/test_torch_kernels_gpu.py).
+and the wrapper's refusal of a table that is not 16-byte aligned.  K14
+(csrc/probe_record.cu::broadcast_kernel) runs on a thread-block cluster
+by K6's rule (`probe_broadcast.launch_geometry`) and K11
+(csrc/probe_consume.cu::alloc_kernel) on a grid of rows / 8 blocks
+(`probe_smem.alloc_blocks`); their bounds take c / 132.  The kernels
+themselves run only on the card (tests/test_torch_kernels_gpu.py).
 """
 
 import importlib.util
@@ -38,9 +42,9 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from rtrt_tpu_torch.tools import (probe_bf16, probe_cond, probe_cores,
-                                  probe_pressure, probe_smem, probe_xpose,
-                                  sass_loops, ubench_step)
+from rtrt_tpu_torch.tools import (probe_bf16, probe_broadcast, probe_cond,
+                                  probe_cores, probe_pressure, probe_smem,
+                                  probe_xpose, sass_loops, ubench_step)
 from rtrt_tpu_torch.utils import timing
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -511,6 +515,124 @@ def test_sass_loops_counts_k10_k12_free_kernel():
     assert sass_loops._kernel("consume_kernel", old) == "K12"
     assert sass_loops._mode(REPO, "consume_kernel", old) == \
         ("smem one block", 8)
+
+
+@pytest.mark.parametrize("rows", sorted(GEOMETRY))
+def test_k14_launch_geometry(rows):
+    """K14 on a cluster of c blocks by K6's rule (c = 1, 2, 4 for rows up
+    to 16, 32, 64: K6's own launch_geometry, whose block rows csrc's K14
+    takes), its block's threads at csrc's lanes a thread whole warps
+    within the kernel's launch bound."""
+    assert probe_broadcast.launch_geometry is ubench_step.launch_geometry
+    c, block_rows = probe_broadcast.launch_geometry(rows)
+    assert (c, block_rows) == GEOMETRY[rows]
+    n = sass_loops.lanes(REPO, "probe_record.cu", "BCAST_L")
+    top = sass_loops.lanes(REPO, "probe_record.cu", "BCAST_MAX_BLOCK_ROWS")
+    assert top == ubench_step.MAX_BLOCK_ROWS and block_rows <= top
+    assert block_rows * 128 % (32 * n) == 0
+    assert block_rows * 128 // n <= top * 128 // n <= 1024
+
+
+@pytest.mark.parametrize("rows", [0, 4, 12, 72, -8])
+def test_k14_launch_geometry_refuses(rows):
+    """A tile K14 cannot launch has no bound either."""
+    with pytest.raises(ValueError, match="rows"):
+        probe_broadcast.launch_geometry(rows)
+    with pytest.raises(ValueError, match="rows"):
+        probe_broadcast.bound(rows, 400)
+
+
+def test_k14_bound_scales_with_its_sms():
+    steps = 400
+    for rows, (c, _) in GEOMETRY.items():
+        ms, by = probe_broadcast.bound(rows, steps)
+        ops = probe_broadcast.LANE_OPS * rows * 128 * steps
+        assert by == "operations"
+        assert ms == pytest.approx(ops / (timing.F32_OPS * c / timing.SMS)
+                                   * 1e3, rel=1e-12)
+    # 64 rows on 4 SMs: the time of 16 rows on one
+    assert probe_broadcast.bound(64, steps)[0] == pytest.approx(
+        probe_broadcast.bound(16, steps)[0], rel=1e-12)
+
+
+def test_k11_bound_scales_with_its_sms():
+    """K11 over rows / 8 blocks: its bytes at the memory rate on that
+    share of the card, the same time at every row count; other rows are
+    refused."""
+    for rows in range(8, 65, 8):
+        c = probe_smem.alloc_blocks(rows)
+        assert c == rows // 8
+        ms, by = probe_smem.alloc_bound(rows)
+        assert by == "bytes"
+        assert ms == pytest.approx(2 * rows * 128 * 4
+                                   / (timing.HBM_BPS * c / timing.SMS)
+                                   * 1e3, rel=1e-12)
+        assert ms == pytest.approx(probe_smem.alloc_bound(8)[0], rel=1e-12)
+    for rows in (0, 4, 12, 72):
+        with pytest.raises(ValueError, match="rows"):
+            probe_smem.alloc_blocks(rows)
+
+
+_SASS_K14 = """
+\t\tFunction : _ZN12_GLOBAL__N_116broadcast_kernelILi1ELb1EEEvPKfS2_PKiPfi
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   REDUX.MIN.S32 UR4, R3 ;
+        /*0020*/                   SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [R0+URZ], RZ ;
+.L_x_0:
+        /*0030*/                   LDG.E.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0040*/                   ISETP.NE.AND P1, PT, R5, R6, PT ;
+        /*0050*/                   SEL R5, R5, 0x40000000, P1 ;
+        /*0060*/                   IMNMX R7, R5, 0x40000000, PT ;
+        /*0070*/                   REDUX.MIN.S32 UR5, R7 ;
+        /*0080*/                   ST.E.STRONG.GPU [R8], R7 ;
+        /*0090*/                   FADD R9, R9, R4 ;
+        /*00a0*/                   FSEL R9, R9, R10, !P1 ;
+        /*00b0*/                   SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [R0+URZ], RZ ;
+        /*00c0*/                   LDS R11, [R12] ;
+        /*00d0*/                   IMNMX R11, R11, R13, PT ;
+        /*00e0*/                   REDUX.MIN.S32 UR6, R11 ;
+        /*00f0*/                   ISETP.GE.AND P2, PT, R14, c[0x0][0x220], PT ;
+        /*0100*/              @!P2 BRA `(.L_x_0) ;
+        /*0110*/                   EXIT ;
+"""
+
+
+def test_sass_loops_counts_k14_step_loop(tmp_path):
+    """broadcast_kernel's instantiations count as K14, a mode each (the
+    cluster one marked), with csrc's lanes a thread; its step loop is
+    read by its REDUX, 2 a step (the min posted and taken), in this tree
+    and in a tree from before the split (two in the one block's
+    reduction); K14's warps an SM at 64 rows: 16-row blocks at csrc's
+    lanes a thread (a tree without BCAST_L: 32, its one 1,024-thread
+    block)."""
+    (name, body), = sass_loops.functions(_SASS_K14).items()
+    kern = max((k for k in sass_loops.KERNELS if k in name), key=len)
+    assert kern == "broadcast_kernel"
+    assert sass_loops._kernel(kern, name) == "K14"
+    n = sass_loops.lanes(REPO, "probe_record.cu", "BCAST_L")
+    assert sass_loops._mode(REPO, kern, name) == \
+        (f"bcast16 cluster lanes {n}", n)
+    lone = name.replace("ILi1ELb1EE", "ILi0ELb0EE")
+    assert sass_loops._mode(REPO, kern, lone) == (f"extract lanes {n}", n)
+    loop, loops = sass_loops.step_loop(body)
+    assert [k for _, _, k in loops] == [14]
+    kinds = [sass_loops.kind(op) for _, op, _ in loop]
+    assert kinds.count("shuffle/vote") == 2
+    assert "local (spill)" not in kinds and "barrier/sync" not in kinds
+    assert sass_loops.steps_in_body(kern, n, loop) == 1
+    assert sass_loops.steps_in_body(kern, 8, loop * 2) == 2
+    warps = sass_loops.default_warps()
+    assert warps[kern] == ubench_step.MAX_BLOCK_ROWS * 128 // n // 32
+    # a tree whose csrc/probe_record.cu has neither constant
+    csrc = tmp_path / "rtrt_tpu_torch" / "csrc"
+    csrc.mkdir(parents=True)
+    for src in ("probe_consume.cu", "probe_bf16.cu"):
+        (csrc / src).write_text(open(os.path.join(
+            REPO, "rtrt_tpu_torch", "csrc", src)).read())
+    (csrc / "probe_record.cu").write_text("constexpr int XPOSE_L = 1;\n")
+    assert sass_loops.default_warps(str(tmp_path))[kern] == 32
+    assert sass_loops._mode(str(tmp_path), kern, lone) == ("extract lanes 8",
+                                                           8)
 
 
 def _jax_ubench():
