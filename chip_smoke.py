@@ -2150,8 +2150,9 @@ def _interlace(card, settings, scene, cam0, full_ms):
 
 def _busy(step, frames):
     """torch.profiler over `frames` calls of step(k) after one warm call:
-    (device busy ms per frame, kernel launches per frame, the device-side
-    events)."""
+    (device busy ms per frame, kernels run per frame, the device-side
+    events).  Kernels are counted on the device: a frame that replays a
+    CUDA graph launches them with no cudaLaunchKernel of its own."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2168,8 +2169,8 @@ def _busy(step, frames):
     # rows carry the same device time again
     kern = [e for e in avg if e.device_type == DeviceType.CUDA]
     busy = sum(_dev_t(e) for e in kern) / frames / 1e3
-    launches = sum(e.count for e in avg
-                   if "LaunchKernel" in e.key) / frames
+    launches = sum(e.count for e in kern if not e.key.startswith(
+        ("Memcpy", "Memset"))) / frames
     return busy, launches, avg, kern
 
 

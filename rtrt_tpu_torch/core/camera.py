@@ -11,6 +11,7 @@ import dataclasses
 
 import torch
 
+from ..utils.consts import device_const
 from .vecmath import cross, dotk, normalize, vec3
 
 
@@ -48,8 +49,7 @@ def camera_basis(cam: Camera) -> CameraBasis:
     cp, sp = torch.cos(cam.pitch), torch.sin(cam.pitch)
     cy, sy = torch.cos(cam.yaw), torch.sin(cam.yaw)
     forward = vec3(cp * sy, sp, cp * cy).to(cam.pos.device)
-    world_up = torch.tensor([0.0, 1.0, 0.0]).to(cam.pos.device,
-                                                 non_blocking=True)
+    world_up = device_const((0.0, 1.0, 0.0), cam.pos.device)
     right = normalize(cross(forward, world_up))
     up = cross(right, forward)
     return CameraBasis(cam.pos, forward, right, up,

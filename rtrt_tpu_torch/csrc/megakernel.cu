@@ -116,7 +116,7 @@ struct MegaParams {
   const float* light_rows;
   int n_lights;
   float cos_max, sin2_max, disk_omega, disk_pdf;
-  uint32_t frame;
+  const uint32_t* frame;  // the frame index, read on the device
   const float* org;
   const float* dir;
   const float* cone;
@@ -422,14 +422,15 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
   __shared__ float4 table[rtrt::SAMPLER_SLOTS];
   __shared__ float cold_planes[COLD][BLOCK];
   const Cold cold{&cold_planes[0][threadIdx.x]};
+  const uint32_t frame = *p.frame;
   if (p.use_bn && threadIdx.x < rtrt::SAMPLER_SLOTS)
     table[threadIdx.x] = rtrt::sampler_entry(
-        p.frame, rtrt::sampler_dim(threadIdx.x / rtrt::SAMPLER_SEGS,
+        frame, rtrt::sampler_dim(threadIdx.x / rtrt::SAMPLER_SEGS,
                                    threadIdx.x % rtrt::SAMPLER_SEGS));
   __syncthreads();
 
   rtrt::Sampler rng;
-  rng.frame = p.frame;
+  rng.frame = frame;
   rng.use_bn = p.use_bn != 0;
   rng.table = table;
 
@@ -531,7 +532,9 @@ int launch_tree(const MegaParams& p, int tree, int stack, cudaStream_t s) {
 
 }  // namespace
 
-// work: (1,) int32 scratch (zeroed here, on the stream); depth: (1,) int32
+// frame: the (1,) frame index (uint32) on the device, so that a replayed
+// CUDA graph reads each frame's; work: (1,) int32 scratch (zeroed here, on
+// the stream); depth: (1,) int32
 // counter of the deepest traversal stack, or nullptr; width: the pixels'
 // row length (n for a flat batch); ftex: the Fourier fit's (2, FTEX_ROW)
 // coefficient table on the device (render/ftex.py::pack_ftex), copied to
@@ -547,7 +550,7 @@ extern "C" int rtrt_megakernel(
     const float* nodes, const float* tris, const float* nrm, const float* ng,
     const int* mat, const float* mat_rows, int n_mat, const float* light_rows,
     int n_lights, const float* sun_vec, float cos_max, float sin2_max,
-    float disk_omega, float disk_pdf, unsigned frame, const float* org,
+    float disk_omega, float disk_pdf, const unsigned* frame, const float* org,
     const float* dir, const float* cone, const int* pix, const float* bn,
     int use_bn, int use_proctex, int n, float* out, int* overflow,
     int* depth, int* work, int width, const float* ftex, int* steps,

@@ -73,11 +73,14 @@ def init_history(h: int, w: int, half: bool = True,
 def denoise(color, albedo, normal, depth, mat_id, motion,
             history: DenoiseHistory, p: DenoiseParams, flags: FeatureFlags,
             frame_parity: int = 0, reproject_mode: str = "gather",
-            band=None):
+            band=None, out: DenoiseHistory | None = None):
     """Run the chain on demodulated radiance.  Returns
     (final colour with albedo, new history).  band: the rank's RowMesh
     when the planes and the history are its band's rows (module
-    docstring)."""
+    docstring).  out: a DenoiseHistory whose planes receive the new
+    history's, in their own dtypes, after the chain's last read of
+    `history` (they may be its own planes); the new history then holds
+    them."""
     if reproject_mode not in REPROJECT_MODES:
         raise ValueError(f"reproject_mode={reproject_mode!r}: expected one "
                          f"of {REPROJECT_MODES}")
@@ -169,9 +172,11 @@ def denoise(color, albedo, normal, depth, mat_id, motion,
         c, _ = temporal_filter(ext(whole(c), 1), normal, depth, mat_id,
                                motion, history.valid, p, rep2, **kw, **t_at)
 
-    store = (lambda x: x.to(torch.bfloat16)) if flags.half_history \
-        else (lambda x: x)
-    new_history = DenoiseHistory(
-        color=store(hist_color), color2=store(c), depth=store(depth),
-        mat_id=mat_id, valid=True, count=store(new_count))
-    return c, new_history
+    planes = dict(color=hist_color, color2=c, depth=depth, mat_id=mat_id,
+                  count=new_count)
+    if out is not None:
+        planes = {k: getattr(out, k).copy_(x) for k, x in planes.items()}
+    elif flags.half_history:
+        planes.update({k: planes[k].to(torch.bfloat16)
+                       for k in ("color", "color2", "depth", "count")})
+    return c, DenoiseHistory(valid=True, **planes)

@@ -24,6 +24,7 @@ from ..ops.resize import box_pool
 from ..ops.stencil import (bicubic_catmull_rom_sample, crop_rows,
                            neighborhood, shifted)
 from ..utils.config import DenoiseParams
+from ..utils.consts import device_const
 
 _SHIFTS = (-1, 0, 1)
 
@@ -195,6 +196,5 @@ def noise_level_visualize(img, noise, threshold, tile: int = 8):
                      max=noise.shape[1] - 1)
     up = noise.index_select(0, ys).index_select(1, xs)
     mask = (up > threshold)[..., None]
-    tint = torch.tensor([1.0, 0.5, 0.1], dtype=torch.float32,
-                        device=img.device)
+    tint = device_const((1.0, 0.5, 0.1), img.device)
     return torch.where(mask, img * 0.5 + tint * 0.5, img)

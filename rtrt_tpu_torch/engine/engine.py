@@ -59,6 +59,31 @@ no animation.  The wavefront routes shade textured materials with the
 procedural soil, or with procedural_textures off with the soil texture set
 of ``settings.texture_size`` (built at init), never with a Fourier fit
 (fourier_textures fits only for the megakernel).
+
+On a CUDA device `render_frame_device` replays the frame as a CUDA graph,
+one a (resolution bucket, frame parity): the parity picks the interlaced
+field and the denoiser's alternating half kernel.  A key's first frame
+runs the frame once eagerly (its results dropped: K2's occupancy query,
+the allocator's sizes, the constants of utils/consts.py), captures it into
+a graph of a pool shared by the graphs, and replays it; later frames of
+the key only replay it.  What changes from frame to frame goes to the
+device first: the frame index, clock products, dt and both cameras in
+FrameUniforms (engine/frame.py), written by one copy from a ring of
+pinned slots; the Engine's state in the bucket's graph inputs, the
+exposure state and history planes that every graph of the bucket reads
+and writes its new ones into (copied there on the device where the state
+holds other tensors: after the eager first frame, load_state or a state
+set from outside).  So `state`, `last_gbuffer` and the image are the
+graphs' tensors, which their next replays overwrite.  The parameters, the
+sky, the rest pose and the module switches read at each call
+(RTRT_SEGMENTS, RTRT_HISTORY_FILTER) are baked into the graphs: a change
+of them captures anew, into a new pool.  The first frame of a history
+(not valid yet), the CPU, the wavefront routes (their samples hash the
+frame index per ray), ocean or stars (their clock is a host float),
+RTRT_DEBUG's NaN guards (host reads) and a cut frame run eagerly; a
+capture that raises leaves its key eager, the reason in
+`graph_failures`.  `graph_counts` counts the frames replayed, the graphs
+captured and the frames run eagerly by reason.
 """
 
 from __future__ import annotations
@@ -68,6 +93,7 @@ import json
 import math
 import os
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -77,18 +103,23 @@ from ..bvh.packet import (overflow_counter, pack_tables, pack_tables_binary,
 from ..bvh.refit import DeviceRefit, plan_refit4
 from ..bvh.sah import build_scene_tables_sah, bvh4_nodes
 from ..core.camera import Camera
+from ..denoise import reproject
 from ..denoise.pipeline import DenoiseHistory, init_history
 from ..post.exposure import init_exposure_state
+from ..render import integrator
 from ..render.ftex import fit_soil_fourier, upload_ftex
-from ..render.integrator import SceneData
+from ..render.integrator import GBuffer, SceneData
 from ..render.sky import (SKY_MODELS, bake_sky_maps, finalize_sky_maps,
                           make_sky_params, sun_direction_from_time)
 from ..render.texture import make_soil_textures
+from ..utils import cuda, debug
 from ..utils.config import (FeatureFlags, GlobalSettings, RenderParams,
                             default_params)
 from ..utils.timer import FpsLog, Timer
-from .frame import (FrameState, FrameStatic, MeshPose, RestPose,
-                    build_scene_tables, make_frame_consts, render_frame)
+from .frame import (U_CAMERA, U_PREV_CAMERA, U_WORDS, FrameState,
+                    FrameStatic, FrameUniforms, MeshPose, RestPose,
+                    advance_clock, build_scene_tables, make_frame_consts,
+                    render_frame, uniform_words)
 from .scene import (HostScene, build_demo_scene, build_mesh_scene,
                     build_terrain_scene, padded_arrays)
 
@@ -99,6 +130,12 @@ TRACE_ROUTES = {"megakernel": (True, True), "packets": (False, True),
                 "loop": (False, False)}
 
 _BUCKET_HEIGHTS = (270, 360, 540, 720, 1080, 1440, 2160)
+# pinned slots of the per-frame uniforms: a slot is written again only
+# after the copy that last read it has run, so the host runs at most this
+# many frames ahead of the card
+UNIFORM_SLOTS = 4
+# the history planes that a replayed frame reads and writes back
+_HISTORY_PLANES = tuple(f for f in DenoiseHistory._fields if f != "valid")
 
 
 def _bucket_for(height: int):
@@ -121,6 +158,16 @@ def _res_for_height(h: int):
     """16:9, width snapped to a multiple of 16 (reference: kernel.cu:96-98)."""
     w = (h * 16 // 9) // 16 * 16
     return w, h
+
+
+class _FrameGraph(NamedTuple):
+    """A captured frame, the outputs its replays write and the kernel
+    launches each replay makes (utils/cuda.py::launch_counts keys)."""
+
+    graph: torch.cuda.CUDAGraph
+    image: torch.Tensor
+    gbuffer: GBuffer
+    launches: dict
 
 
 def _unsupported(what: str):
@@ -258,6 +305,17 @@ class Engine:
         self.timer = Timer()
         self.fps_log = FpsLog()
         self._input = dict(keys=set(), last_cursor=None)
+        # the frame as CUDA graphs (module docstring): graph_counts holds
+        # the frames replayed, the graphs captured and the frames run
+        # eagerly by reason; graph_failures, (bucket, parity) -> why that
+        # key's capture failed
+        self.graph_counts = dict(replayed=0, captured=0, eager={})
+        self.graph_failures = {}
+        self._graphs = {}       # (bucket, parity) -> _FrameGraph
+        self._graph_env = None  # what the graphs baked in (_replay)
+        self._graph_io = {}     # bucket -> FrameState the graphs read
+        self._graph_pool = None
+        self._uniforms = None   # FrameUniforms, its ring of pinned slots
 
     def _sah4_tables(self, pad, animation):
         """The SAH/BVH4 tables, built on the host, and the tree they
@@ -386,23 +444,192 @@ class Engine:
         on the device (enqueued, not synchronised).  dt: the frame time in
         seconds; None takes the interval since the last call
         (`Timer.update`), which is also what the dynamic-resolution
-        controller then sees."""
+        controller then sees.  A replayed frame's image is its graph's
+        output, which the next replay of that graph (two frames on)
+        overwrites."""
         if dt is None:
             dt = self.timer.update()
         self._update_camera_from_input(dt)
         self._maybe_regen_sky()
-        image, self.state, self.last_gbuffer = render_frame(
-            self.static, self.scene_data, self.state, self.camera,
-            self.prev_camera, self.params, max(dt, 1e-4), self.consts,
-            self.overflow, self.stack_depth, self.rest)
+        why = self._eager_reason()
+        image = None
+        if why is None:
+            image = self._replay(max(dt, 1e-4))
+            why = None if image is not None else "capture_failed"
+        if why is not None:
+            eager = self.graph_counts["eager"]
+            eager[why] = eager.get(why, 0) + 1
+            image, self.state, self.last_gbuffer = render_frame(
+                self.static, self.scene_data, self.state, self.camera,
+                self.prev_camera, self.params, max(dt, 1e-4), self.consts,
+                self.overflow, self.stack_depth, self.rest)
         self.prev_camera = self.camera
         self._dynamic_resolution_step(dt)
-        self.fps_log.maybe_log(self.timer.fps, self.render_w, self.render_h)
+        self.fps_log.maybe_log(self.timer.fps, self.render_w, self.render_h,
+                               self.graph_counts)
         return image
 
     def render_frame(self, dt: float | None = None):
         """Render one frame; returns the (H, W, 3) uint8 image as numpy."""
         return self.render_frame_device(dt).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # the frame as CUDA graphs
+    # ------------------------------------------------------------------
+
+    def _eager_reason(self) -> str | None:
+        """Why this frame runs eagerly (its graph_counts["eager"] key), or
+        None where it replays a graph."""
+        if self.device.type != "cuda":
+            return "cpu"
+        if not self.static.use_megakernel:
+            return "wavefront"  # its samples hash the frame index per ray
+        if self.flags.ocean or self.flags.stars:
+            return "environment_clock"  # a host float in the environment
+        if debug.DEBUG:
+            return "debug"  # the NaN guards read counts to the host
+        if self.static.stop_after != "full":
+            return "cut"
+        history = self.state.history
+        if history is not None and not history.valid:
+            return "first_frame"
+        return None
+
+    def _replay(self, dt: float):
+        """This frame by its (bucket, parity)'s graph, captured here at
+        the key's first frame; returns the image, or None where the capture
+        failed (the frame then runs eagerly)."""
+        # what the graphs bake in: the parameters, the module switches
+        # that the frame reads at each call (RTRT_SEGMENTS,
+        # RTRT_HISTORY_FILTER), and the sky and rest pose, by identity
+        env = (dataclasses.astuple(self.params), integrator.SEGMENTS,
+               reproject.HISTORY_FILTER, self.scene_data.sky, self.rest)
+        old = self._graph_env
+        if old is None or env[:3] != old[:3] or \
+                any(a is not b for a, b in zip(env[3:], old[3:])):
+            # another of them: the new graphs go into a new pool (a pool
+            # whose graphs are all gone takes no new capture while their
+            # outputs live on)
+            self._graphs.clear()
+            self.graph_failures.clear()
+            self._graph_pool = None
+            self._graph_env = env
+        st = self.state
+        key = (self._cur_bucket, st.frame_idx & 1)
+        if key in self.graph_failures:
+            return None
+        self._write_uniforms(st, dt)
+        io = self._graph_inputs(st)
+        entry = self._graphs.get(key)
+        if entry is None:
+            entry = self._capture(key, st, io, dt)
+            if entry is None:
+                return None
+        entry.graph.replay()
+        self.graph_counts["replayed"] += 1
+        for name, n in entry.launches.items():
+            cuda.launch_counts[name] += n
+        self.state = FrameState(exposure=io.exposure, history=io.history,
+                                frame_idx=(st.frame_idx + 1) & 0xFFFFFFFF,
+                                time=advance_clock(st.time, dt))
+        self.last_gbuffer = entry.gbuffer
+        return entry.image
+
+    def _capture(self, key, st: FrameState, io: FrameState, dt: float):
+        """Warm the frame up eagerly (its results dropped), then capture it
+        into a graph of the shared pool that reads `io` and the uniforms and
+        writes the new history and exposure back into `io`.  None where the
+        capture raised: the key's frames then run eagerly, the reason in
+        graph_failures."""
+        u = self._uniforms
+        state = dataclasses.replace(st, exposure=io.exposure,
+                                    history=io.history)
+
+        def frame(history_out):
+            return render_frame(
+                self.static, self.scene_data, state, u.camera,
+                u.prev_camera, self.params, dt, self.consts, self.overflow,
+                self.stack_depth, self.rest, uniforms=u,
+                history_out=history_out)
+
+        # launch_counts count the frames delivered: not the warm-up, whose
+        # results are dropped, nor the capture, which runs nothing (each
+        # replay adds its graph's launches)
+        counts = dict(cuda.launch_counts)
+        frame(None)
+        cuda.launch_counts.update(counts)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            # thread_local: another thread's CUDA calls (a viewer's) do not
+            # break the capture
+            with torch.cuda.graph(graph, pool=self._graph_pool,
+                                  capture_error_mode="thread_local"):
+                image, new_state, gbuffer = frame(io.history)
+                io.exposure.copy_(new_state.exposure)
+        except Exception as e:  # any capture fault: the key runs eagerly
+            self.graph_failures[key] = f"{type(e).__name__}: {e}"
+            return None
+        finally:
+            launches = {k: n - counts[k]
+                        for k, n in cuda.launch_counts.items()
+                        if n != counts[k]}
+            cuda.launch_counts.update(counts)
+        entry = self._graphs[key] = _FrameGraph(graph, image, gbuffer,
+                                                launches)
+        self.graph_counts["captured"] += 1
+        return entry
+
+    def _graph_inputs(self, st: FrameState) -> FrameState:
+        """The bucket's graph inputs: the exposure state and history planes
+        its graphs read and write back, holding st's values (copied on the
+        device from st's own tensors where those are others: the eager
+        first frame's, or load_state's)."""
+        io = self._graph_io.get(self._cur_bucket)
+        hist = st.history
+        if io is None:
+            io = self._graph_io[self._cur_bucket] = FrameState(
+                exposure=st.exposure.clone(),
+                history=None if hist is None else hist._replace(
+                    valid=True, **{f: getattr(hist, f).clone()
+                                   for f in _HISTORY_PLANES}))
+            return io
+        pairs = [(io.exposure, st.exposure)]
+        if hist is not None:
+            pairs += [(getattr(io.history, f), getattr(hist, f))
+                      for f in _HISTORY_PLANES]
+        for dst, src in pairs:
+            if dst is not src:
+                dst.copy_(src)
+        return io
+
+    def _write_uniforms(self, st: FrameState, dt: float):
+        """This frame's FrameUniforms, in one copy from a pinned slot; a
+        camera known only on the device is copied there."""
+        if self._uniforms is None:
+            self._uniforms = FrameUniforms(torch.zeros(
+                U_WORDS, dtype=torch.int32, device=self.device))
+            self._slots = [
+                (torch.zeros(U_WORDS, dtype=torch.int32).pin_memory(),
+                 torch.cuda.Event()) for _ in range(UNIFORM_SLOTS)]
+            self._slot = 0
+        host, copied = self._slots[self._slot]
+        self._slot = (self._slot + 1) % UNIFORM_SLOTS
+        copied.synchronize()  # the copy that last read the slot has run
+        host.numpy()[:] = uniform_words(st.frame_idx, self._cam_host,
+                                        self._prev_cam_host, st.time, dt)
+        words = self._uniforms.words
+        words.copy_(host, non_blocking=True)
+        copied.record()
+        f = words.view(torch.float32)
+        for k, cam, known in ((U_CAMERA, self.camera, self._cam_host),
+                              (U_PREV_CAMERA, self.prev_camera,
+                               self._prev_cam_host)):
+            if known is None:
+                f[k:k + 8].copy_(torch.cat([cam.pos.reshape(3)] + [
+                    x.reshape(1) for x in (cam.yaw, cam.pitch, cam.fov_y,
+                                           cam.aperture, cam.focal_dist)]))
 
     # ------------------------------------------------------------------
     # camera: the device tensors the frame reads, and a host copy of
@@ -419,6 +646,17 @@ class Engine:
         when input or persistence next needs it."""
         self._camera = cam
         self._cam_host = None
+
+    @property
+    def prev_camera(self) -> Camera:
+        """The camera of the last frame (the motion vectors' previous
+        view)."""
+        return self._prev_camera
+
+    @prev_camera.setter
+    def prev_camera(self, cam: Camera):
+        self._prev_camera = cam
+        self._prev_cam_host = self._cam_host if cam is self._camera else None
 
     def _set_camera(self, pos, yaw, pitch, fov_y, aperture, focal_dist):
         """Camera from host values, in one copy to the device that does not

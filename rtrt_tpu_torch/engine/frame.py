@@ -45,9 +45,12 @@ animation clock, FrameState.time, which accumulates in float32 as the JAX
 frame's does (`advance_clock`).  With a Fourier fit in FrameStatic.ftex,
 K2 shades textured materials from it (render/ftex.py).
 
-The port runs eagerly: each frame is a sequence of torch ops and kernel
-launches (K2, K5, four K4, K3 with the default flags), with every tensor
-on the scene's device and no host sync.
+Each frame is a sequence of torch ops and kernel launches (K2, K5, four
+K4, K3 with the default flags), with every tensor on the scene's device
+and no host sync.  Given FrameUniforms (render_frame's `uniforms`), it
+reads the values that change from frame to frame from the device, and
+copies nothing from the host, so the Engine can capture it as a CUDA
+graph and replay it (engine/engine.py).
 
 A band (render_frame's `band`, a RowMesh of parallel/frame_spmd.py: the
 port's counterpart of the JAX frame's row_sharding / trace_mesh) renders
@@ -101,7 +104,7 @@ from ..render.integrator import GBuffer, SceneData, path_trace
 from ..render.megakernel import (check_segments, path_trace_mega,
                                  trace_scene_mega)
 from ..render.raygen import generate_rays_padded
-from ..render.sampling import blue_offsets_flat, rand2, rand2_bn
+from ..render.sampling import blue_offsets_flat, bn_point, rand2, rand2_bn
 from ..utils.config import FeatureFlags, RenderParams
 from ..utils.debug import nan_guard
 
@@ -164,6 +167,56 @@ class FrameConsts:
     fields: tuple = None
 
 
+# the words of FrameUniforms (int32; a float as its float32 bits)
+U_FRAME = 0        # the frame index (uint32)
+U_CAMERA = 1       # 8: pos x, y, z, yaw, pitch, fov_y, aperture, focal_dist
+U_PREV_CAMERA = 9  # 8: the previous frame's camera
+U_WAVE = 17        # 2: wave_phases(time)
+U_DT = 19          # the frame time (s)
+U_BN = 20          # 4: bn_point(frame, 0), bn_point(frame, 256)
+U_WORDS = 24
+BN_DIMS = (0, 256)  # the dimension pairs of the primary rays' jitter, lens
+
+
+class FrameUniforms:
+    """The values that change from frame to frame, in one (U_WORDS,) int32
+    device buffer, `words`, for a frame captured as a CUDA graph, which
+    reads them at each replay (engine/engine.py writes them before it).
+    render_frame given one reads them there in place of the frame index,
+    clock, dt and cameras it is given; the attributes are views of
+    `words`: frame (1,) int32, camera / prev_camera, wave (2,), dt 0-d, bn
+    (2, 2) (the rows of BN_DIMS)."""
+
+    def __init__(self, words: torch.Tensor):
+        self.words = words
+        f = words.view(torch.float32)
+        cam = lambda k: Camera(f[k:k + 3], *f[k + 3:k + 8])
+        self.frame = words[U_FRAME:U_FRAME + 1]
+        self.camera = cam(U_CAMERA)
+        self.prev_camera = cam(U_PREV_CAMERA)
+        self.wave = f[U_WAVE:U_WAVE + 2]
+        self.dt = f[U_DT]
+        self.bn = f[U_BN:U_BN + 4].view(2, 2)
+
+
+def uniform_words(frame: int, camera, prev_camera, time: float,
+                  dt: float) -> np.ndarray:
+    """FrameUniforms' words on the host for frame index `frame`, the clock
+    `time` and the frame time dt.  camera / prev_camera: 8 float32 values
+    each (U_CAMERA's order), or None to leave them 0 (a camera known only
+    on the device, copied there)."""
+    w = np.zeros(U_WORDS, np.int32)
+    f = w.view(np.float32)
+    w[U_FRAME] = np.array(frame & 0xFFFFFFFF, np.uint32).view(np.int32)
+    for k, cam in ((U_CAMERA, camera), (U_PREV_CAMERA, prev_camera)):
+        if cam is not None:
+            f[k:k + 8] = cam
+    f[U_WAVE:U_WAVE + 2] = wave_phases(time)
+    f[U_DT] = dt
+    f[U_BN:U_BN + 4] = [x for d in BN_DIMS for x in bn_point(frame, d)]
+    return w
+
+
 @dataclasses.dataclass
 class RestPose:
     """The animated scene's rest pose and refit schedule (on the device):
@@ -174,7 +227,7 @@ class RestPose:
     nrm_t: torch.Tensor
     refit: DeviceRefit
 
-    def animate(self, tables, time: float):
+    def animate(self, tables, time):
         animate_tables(tables, self, time)
 
 
@@ -194,7 +247,7 @@ class MeshPose:
     valid: torch.Tensor
     normals: torch.Tensor | None = None
 
-    def animate(self, tables, time: float):
+    def animate(self, tables, time):
         rebuild_tables(tables, self, time)
 
 
@@ -217,24 +270,36 @@ def _f32(x):
     return float(np.float32(x))
 
 
-def _wave_dy(x, z, time: float):
+def wave_phases(time):
+    """The wave's clock products (WAVE_SPEED t, 1.1 t), each formed and
+    rounded in float32 as the JAX frame forms them: Python floats for the
+    clock `time` (a float), or the two 0-d elements of a (2,) float32
+    tensor that holds them already (a replayed frame's uniforms, filled
+    from the host's floats).  The wave's functions take either as
+    `time`."""
+    if torch.is_tensor(time):
+        return time[0], time[1]
+    t = np.float32(time)
+    return _f32(t * np.float32(WAVE_SPEED)), _f32(t * np.float32(1.1))
+
+
+def _wave_dy(x, z, time):
     """The wave's displacement along y at (x, z), in the JAX function's
     order of operations."""
-    t = np.float32(time)
-    return WAVE_AMP * torch.sin(x * WAVE_FREQ
-                                + _f32(t * np.float32(WAVE_SPEED))) \
-        * torch.cos(z * (WAVE_FREQ * 0.8) + _f32(t * np.float32(1.1)))
+    pa, pb = wave_phases(time)
+    return WAVE_AMP * torch.sin(x * WAVE_FREQ + pa) \
+        * torch.cos(z * (WAVE_FREQ * 0.8) + pb)
 
 
-def displace_wave(vertices, time: float):
+def displace_wave(vertices, time):
     """Travelling wave along y applied to (V, 3) vertices (the rebuild
-    branch's form)."""
+    branch's form); time as wave_phases takes it."""
     out = vertices.clone()
     out[:, 1] += _wave_dy(vertices[:, 0], vertices[:, 2], time)
     return out
 
 
-def displace_wave_rows(tris_t, time: float):
+def displace_wave_rows(tris_t, time):
     """Travelling wave along y applied to the sorted (9, P) triangle rows
     (rows 0-2/3-5/6-8 = v0/v1/v2): a function of (x, z) only, so no gather.
     The three vertices go through each op as one (3, P) stack."""
@@ -244,15 +309,15 @@ def displace_wave_rows(tris_t, time: float):
     return out.reshape(tris_t.shape)
 
 
-def wave_normal_rows(nrm_t, tris_t, time: float):
+def wave_normal_rows(nrm_t, tris_t, time):
     """Exact shading-normal transform under p' = p + d(x, z) y: n'_x = n_x -
     dd/dx n_y, n'_z = n_z - dd/dz n_y, normalised.  nrm_t / tris_t: (9, P)
     sorted rows at the rest pose."""
     v = tris_t.reshape(3, 3, -1)
     n = nrm_t.reshape(3, 3, -1)
-    t = np.float32(time)
-    pa = v[:, 0] * WAVE_FREQ + _f32(t * np.float32(WAVE_SPEED))
-    pb = v[:, 2] * (WAVE_FREQ * 0.8) + _f32(t * np.float32(1.1))
+    wa, wb = wave_phases(time)
+    pa = v[:, 0] * WAVE_FREQ + wa
+    pb = v[:, 2] * (WAVE_FREQ * 0.8) + wb
     ddx = WAVE_AMP * WAVE_FREQ * torch.cos(pa) * torch.cos(pb)
     ddz = -WAVE_AMP * WAVE_FREQ * 0.8 * torch.sin(pa) * torch.sin(pb)
     ny = n[:, 1]
@@ -263,7 +328,7 @@ def wave_normal_rows(nrm_t, tris_t, time: float):
         nrm_t.shape)
 
 
-def animate_tables(tables, rest: RestPose, time: float):
+def animate_tables(tables, rest: RestPose, time):
     """The refit stage of an animated frame: displace the rest pose at
     `time`, transform its normals, refit the BVH4 records and write the
     frame's nodes, triangles, normals and geometric normals into `tables`
@@ -310,7 +375,7 @@ def build_scene_tables(num_batches: int, indices, tri_mat, valid, verts,
     return bvh, tri_nrm_t, perm[..., 3].reshape(-1).to(torch.int32)
 
 
-def rebuild_tables(tables, mesh: MeshPose, time: float):
+def rebuild_tables(tables, mesh: MeshPose, time):
     """The rebuild stage of a frame: displace the rest mesh at `time` and
     recompute its smooth normals (a static pose, which holds its normals:
     neither), rebuild the two-level LBVH and write the frame's binary
@@ -401,7 +466,8 @@ def _fill_band(gbuf: GBuffer, parity: int, band) -> GBuffer:
 def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
                  camera: Camera, prev_camera: Camera, params: RenderParams,
                  dt: float, consts: FrameConsts = None, overflow=None,
-                 stack_depth=None, rest: RestPose = None, band=None):
+                 stack_depth=None, rest: RestPose = None, band=None,
+                 uniforms: FrameUniforms = None, history_out=None):
     """One full frame.  Returns (u8 image (screen_h, screen_w, 3),
     new FrameState, GBuffer).  The G-buffer is the traced one: with
     interlace, the field's (h/2, w) planes.  overflow: optional (1,) int32
@@ -416,21 +482,37 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
     history and the G-buffer are then its band's rows, and consts, if
     given, the band's (make_frame_consts(..., band)).  static.stop_after
     other than "full" ends the frame at that cut and returns (outputs,
-    state) (module docstring)."""
+    state) (module docstring).
+
+    uniforms: the frame's FrameUniforms, whose device values the frame
+    reads in place of state.frame_idx, state.time, dt, camera and
+    prev_camera (a frame captured as a CUDA graph); the returned state is
+    still worked out from the host's.  history_out: a DenoiseHistory whose
+    planes receive the new history (they may be state.history's own)."""
     w, h = static.render_w, static.render_h
     dev = scene.tables.nodes.device
     stop = static.stop_after
+    flags = static.flags
     if stop != "full" and band is not None:
         raise ValueError(f"stop_after={stop!r} with a band: the cut points "
                          "time the whole frame")
+    if uniforms is not None and (flags.ocean or flags.stars):
+        raise ValueError("FrameUniforms do not hold the ocean's and the "
+                         "stars' clock: such a frame takes the host's")
+    clock, frame_dt = state.time, dt
+    if uniforms is not None:
+        camera, prev_camera = uniforms.camera, uniforms.prev_camera
+        clock, frame_dt = uniforms.wave, uniforms.dt
     if rest is not None:
-        rest.animate(scene.tables, state.time)
+        rest.animate(scene.tables, clock)
     if stop == "bvh":
         return (scene.tables,), state
     if consts is None:
         consts = make_frame_consts(static, dev, band)
     frame = state.frame_idx
     parity = frame & 1
+    # the frame index that K2, the samples and the dither read
+    dframe = frame if uniforms is None else uniforms.frame
     if interlaced(static):
         pixel_ids, bn = consts.fields[parity]
     else:
@@ -442,17 +524,16 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
     basis = camera_basis(cam)
     prev_basis = camera_basis(prev_camera)
     if bn is not None:
-        jitter = rand2_bn(bn, frame, 0)
-        lens = rand2_bn(bn, frame, 256)
+        point = (None, None) if uniforms is None else uniforms.bn
+        jitter, lens = (rand2_bn(bn, frame, d, point=pt)
+                        for d, pt in zip(BN_DIMS, point))
     else:
-        jitter = rand2(pixel_ids, frame, 0)
-        lens = rand2(pixel_ids, frame, 256)
+        jitter, lens = (rand2(pixel_ids, dframe, d) for d in BN_DIMS)
     rays = generate_rays_padded(basis, w, h, pixel_ids, jitter, lens)
 
     # sky + ocean + stars for escaped rays, from the primary rays' origins
     # (render/environment.py)
     env_fn = None
-    flags = static.flags
     if flags.ocean or flags.stars:
         env_fn = lambda o, d: env_radiance_scene(
             scene.sky, o, d, state.time, ocean=flags.ocean,
@@ -463,13 +544,13 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
         segs = integrator.SEGMENTS
         steps = torch.empty((segs + 1, rays.cone_width.numel()),
                             dtype=torch.int32, device=rays.org.device)
-        trace_scene_mega(scene, rays, pixel_ids, frame,
+        trace_scene_mega(scene, rays, pixel_ids, dframe,
                          static.flags.procedural_textures, bn, overflow,
                          stack_depth, steps=steps)
         return (steps.reshape((segs + 1,) + lead),), state
     if static.use_megakernel:
         gbuf: GBuffer = path_trace_mega(
-            scene, rays, pixel_ids, frame, prev_basis, w / h,
+            scene, rays, pixel_ids, dframe, prev_basis, w / h,
             use_proctex=static.flags.procedural_textures, bn=bn,
             overflow=overflow, stack_depth=stack_depth, env_fn=env_fn,
             ftex=static.ftex)
@@ -480,7 +561,7 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
             scene, dataclasses.replace(rays, **{
                 f.name: flat(getattr(rays, f.name)).contiguous()
                 for f in dataclasses.fields(rays)}),
-            flat(pixel_ids), frame, prev_basis, w / h,
+            flat(pixel_ids), dframe, prev_basis, w / h,
             use_packets=static.use_packets,
             use_proctex=static.flags.procedural_textures,
             bn=None if bn is None else flat(bn), env_fn=env_fn,
@@ -516,7 +597,7 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
         final, new_history = denoise(
             full.color, full.albedo, full.normal, full.depth, full.mat_id,
             full.motion, state.history, params.denoise, static.flags,
-            frame_parity=parity, band=band)
+            frame_parity=parity, band=band, out=history_out)
     else:
         final = full.color * full.albedo
         new_history = state.history
@@ -546,8 +627,9 @@ def render_frame(static: FrameStatic, scene: SceneData, state: FrameState,
     sw, sh = static.screen_w, static.screen_h
     if static.flags.postprocess:
         image, new_exposure = postprocess(
-            final, state.exposure, dt, sun_uv, sun_visible, params.post,
-            static.flags, sh, sw, frame, mask=consts.mask, band=band)
+            final, state.exposure, frame_dt, sun_uv, sun_visible,
+            params.post, static.flags, sh, sw, dframe, mask=consts.mask,
+            band=band)
     else:
         ldr = torch.clamp(final, 0.0, 1.0) ** (1.0 / 2.2)
         if (sh, sw) != (h, w) and band is None:

@@ -8,6 +8,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.consts import device_const
+
 
 def _edge_pad(img, py: int, px: int):
     """img padded by py rows and px columns on each side, edges repeated
@@ -133,7 +135,7 @@ def gaussian_weights_np(radius: int, sigma: float | None = None):
 
 
 def gaussian_weights(radius: int, device, sigma: float | None = None):
-    """gaussian_weights_np as a float32 tensor on `device` (copied without
-    a stream sync)."""
-    return torch.from_numpy(gaussian_weights_np(radius, sigma)).to(
-        device, non_blocking=True)
+    """gaussian_weights_np as a float32 tensor on `device` (copied there
+    once)."""
+    return device_const(tuple(gaussian_weights_np(radius, sigma).tolist()),
+                        device)

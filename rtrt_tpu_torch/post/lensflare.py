@@ -8,6 +8,8 @@ import math
 
 import torch
 
+from ..utils.consts import device_const
+
 
 def _smooth_circle(d2, radius, soft):
     return torch.clamp(
@@ -43,10 +45,9 @@ def lens_flare(h: int, w: int, sun_uv, sun_visible, strength,
                     (-1.3, 0.03, (0.4, 1.0, 0.6), 0.22),
                     (0.5, 0.10, (1.0, 0.6, 0.4), 0.10),
                     (1.6, 0.14, (0.5, 0.6, 1.0), 0.12)]
-    # the layer's colours in one host-to-device copy, without a stream sync
-    cols = torch.tensor([(1.0, 0.85, 0.6), (1.0, 0.9, 0.75)]
-                        + [g[2] for g in ghost_params],
-                        dtype=torch.float32).to(dev, non_blocking=True)
+    # the layer's colours, copied to the device once
+    cols = device_const(((1.0, 0.85, 0.6), (1.0, 0.9, 0.75))
+                        + tuple(g[2] for g in ghost_params), dev)
 
     acc = torch.zeros((ys.shape[0], w, 3), dtype=torch.float32, device=dev)
 

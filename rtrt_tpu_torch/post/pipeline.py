@@ -58,9 +58,12 @@ def upscale_band(ldr, band, out_h: int, out_w: int, margin: int = 0):
 
 def postprocess(color, exposure_state, dt, sun_uv, sun_visible,
                 p: PostParams, flags: FeatureFlags, out_h: int, out_w: int,
-                frame_idx: int, mask=None, band=None):
+                frame_idx, mask=None, band=None):
     """color: (H,W,3) linear radiance at render size; sun_uv (2,) the sun's
     screen position and sun_visible a 0-d 0/1 tensor (lens flare only).
+    frame_idx: an int, or an integer tensor of one element holding the
+    uint32 frame index, whose dither shift is then hashed on the device;
+    dt: a float or a 0-d float32 tensor.
     Returns (u8 image (out_h, out_w, 3), new exposure state).  band: the
     rank's RowMesh when color is its band's render rows; the image is then
     the band's screen rows (module docstring)."""
@@ -82,8 +85,8 @@ def postprocess(color, exposure_state, dt, sun_uv, sun_visible,
         ev = exposure_state[0]
         bright = exposure_state[2]
     else:
-        ev = torch.tensor(p.manual_exposure, dtype=torch.float32,
-                          device=color.device)
+        ev = torch.full((), p.manual_exposure, dtype=torch.float32,
+                        device=color.device)
         bright = 2.0 / torch.clamp(ev, min=1e-6)
 
     if flags.bloom:
@@ -94,7 +97,9 @@ def postprocess(color, exposure_state, dt, sun_uv, sun_visible,
                                    p.flare_strength, row0, n) \
             / torch.clamp(ev, min=1e-6)
 
-    fshift = float(_to_unit_float(hash_pcg(u32(frame_idx))))
+    if torch.is_tensor(frame_idx):
+        frame_idx = frame_idx.reshape(())
+    fshift = _to_unit_float(hash_pcg(u32(frame_idx)))
     if mask is None:
         mask = dither_mask(color.device)
     params = tail_params(ev, p.tone_map, p.gamma, p.sharpen_amount, fshift,

@@ -20,17 +20,22 @@ import ctypes
 import torch
 
 from ..utils import cuda
+from ..utils.consts import device_const
 from .sharpen import sharpen
 from .tonemap import tonemap
 
 
 def tail_params(ev, tone_map, gamma, sharpen_amount, fshift, device):
     """(5,) float32 device vector [ev, tone map index, gamma, sharpen
-    amount, dither shift]; ev may be a device scalar (no host sync)."""
-    rest = torch.tensor([tone_map, gamma, sharpen_amount, fshift],
-                        dtype=torch.float32).to(device, non_blocking=True)
+    amount, dither shift]; ev and fshift may be device scalars (no host
+    sync; a replayed frame's shift is hashed on the device), and nothing
+    is copied from the host."""
     ev = torch.as_tensor(ev, dtype=torch.float32, device=device).reshape(1)
-    return torch.cat([ev, rest])
+    shift = (fshift.to(torch.float32).reshape(1) if torch.is_tensor(fshift)
+             else torch.full((1,), fshift, dtype=torch.float32,
+                             device=device))
+    return torch.cat([ev, device_const((tone_map, gamma, sharpen_amount),
+                                       device), shift])
 
 
 def post_tail_plain(color, params, mask, *, do_sharpen: bool,

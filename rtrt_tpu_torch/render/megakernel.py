@@ -417,7 +417,10 @@ def megakernel_trace(tables, mat_rows, light_rows, sun_vec, frame_idx, org,
     A count is per path: the JAX kernel's (debug_steps) is uniform over a
     32x128 ray tile, whose lanes share one traversal stack.  segments: the
     scene intersects a path (the last one ends it), 1 to SAMPLER_SEGS
-    (None: integrator.SEGMENTS); another count raises ValueError."""
+    (None: integrator.SEGMENTS); another count raises ValueError.
+    frame_idx: an int, or a (1,) int32 tensor on the rays' device holding
+    the uint32 frame index (K2 reads it there: an int is filled into one
+    first)."""
     segments = check_segments(integrator.SEGMENTS if segments is None
                               else segments)
     if steps is not None and ftex is not None:
@@ -455,6 +458,11 @@ def megakernel_trace(tables, mat_rows, light_rows, sun_vec, frame_idx, org,
     specs["out"] = (out, torch.float32, (18, n))
     if steps is not None:
         specs["steps"] = (steps, torch.int32, (segments + 1, n))
+    if not torch.is_tensor(frame_idx):  # its uint32 bits as an int32
+        f = int(frame_idx) & 0xFFFFFFFF
+        frame_idx = torch.full((1,), f - (f >> 31 << 32), dtype=torch.int32,
+                               device=dev)
+    specs["frame_idx"] = (frame_idx, torch.int32, (1,))
     cuda.check_tensors(dev, **specs)
     _check_tables(tables, dev)
     work = torch.empty(1, dtype=torch.int32, device=dev)  # zeroed by K2
@@ -468,7 +476,7 @@ def megakernel_trace(tables, mat_rows, light_rows, sun_vec, frame_idx, org,
         ctypes.c_int(n_lights), sun_vec,
         ctypes.c_float(SUN_COS_THETA_MAX), ctypes.c_float(SUN_SIN2_MAX),
         ctypes.c_float(SUN_DISK_OMEGA), ctypes.c_float(SUN_DISK_PDF),
-        ctypes.c_uint(int(frame_idx) & 0xFFFFFFFF), org, dir, cone,
+        frame_idx, org, dir, cone,
         pixel_ids, bn if bn is not None else ctypes.c_void_p(0),
         ctypes.c_int(int(bn is not None)), ctypes.c_int(int(use_proctex)),
         ctypes.c_int(n), out, overflow,

@@ -11,6 +11,7 @@ import torch
 
 from ..core.camera import CameraBasis, pixel_to_dir
 from ..core.vecmath import normalize
+from ..utils.consts import device_const
 from .sampling import concentric_disk
 
 
@@ -41,8 +42,7 @@ def generate_rays(basis: CameraBasis, width: int, height: int,
     height."""
     aspect = width / height
     centers, _ = pixel_grid(width, height, jitter2.device)
-    size = torch.tensor([width, height], dtype=torch.float32,
-                        device=jitter2.device)
+    size = device_const((float(width), float(height)), jitter2.device)
     uv = (centers + jitter2) / size
     d = pixel_to_dir(basis, uv, aspect)
     disk = concentric_disk(lens2) * basis.aperture
@@ -63,8 +63,7 @@ def generate_rays_padded(basis: CameraBasis, width: int, height: int,
     px = (pixel_ids % width).to(torch.float32) + 0.5
     py = torch.div(pixel_ids, width, rounding_mode="floor").to(
         torch.float32) + 0.5
-    size = torch.tensor([width, height], dtype=torch.float32).to(
-        jitter2.device, non_blocking=True)
+    size = device_const((float(width), float(height)), jitter2.device)
     uv = (torch.stack([px, py], dim=-1) + jitter2 - 0.5) / size
     d = pixel_to_dir(basis, uv, aspect)
     disk = concentric_disk(lens2) * basis.aperture

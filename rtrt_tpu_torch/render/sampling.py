@@ -9,7 +9,9 @@ so no intermediate exceeds 2^49 (the CUDA kernels use native uint32_t).
 Every hash accepts Python ints as well as int64 tensors: values shared by
 all pixels (the frame index, the blue-noise sequence, per-dimension shifts)
 are computed on the host and enter the tensor math as scalars, so no
-device round trip is needed for them.
+device round trip is needed for them.  A frame replayed as a CUDA graph
+reads them from the device instead: the frame index as a 0-d tensor, the
+blue-noise sequence's point (`bn_point`) as the host computed it.
 """
 
 from __future__ import annotations
@@ -136,7 +138,8 @@ def sobol_owen_2d(index, seed):
 
 
 def rand2(pixel_id, frame, dim_pair):
-    """(..., 2) LD floats for integer pixel ids, frame and dim pair."""
+    """(..., 2) LD floats for integer pixel ids, frame and dim pair (the
+    frame an int or a 0-d integer tensor)."""
     u, v = sobol_owen_pair(u32(frame), pixel_seed(u32(pixel_id),
                                                   u32(dim_pair)))
     return torch.stack([u, v], dim=-1)
@@ -184,10 +187,21 @@ def _dim_shift(dim_pair):
             _to_unit_float(hash_pcg(d ^ 0x63D83595)))
 
 
-def rand2_bn(bn2, frame, dim_pair):
+def bn_point(frame, dim_pair):
+    """rand2_bn's pixel-independent part: the shared Owen-Sobol point (u, v)
+    of (frame, dim_pair).  Python floats for an int frame; 0-d float32
+    tensors for a 0-d integer tensor frame (a uint32 held on the device),
+    at the cost of some 400 scalar ops."""
+    return sobol_owen_pair(u32(frame), pixel_seed(0, u32(dim_pair)))
+
+
+def rand2_bn(bn2, frame, dim_pair, point=None):
     """Blue-noise-dithered LD pair: one shared Owen-Sobol sequence plus a
-    per-pixel CP rotation by the mask offsets bn2 (..., 2)."""
-    bu, bv = sobol_owen_pair(u32(frame), pixel_seed(0, u32(dim_pair)))
+    per-pixel CP rotation by the mask offsets bn2 (..., 2).  frame: an int
+    or a 0-d integer tensor; point: bn_point(frame, dim_pair) given as a
+    (2,) float32 tensor, read in place of frame (a replayed frame's
+    uniforms hold it, filled from the host's floats)."""
+    bu, bv = bn_point(frame, dim_pair) if point is None else point.unbind(0)
     sx, sy = _dim_shift(dim_pair)
     ox = bn2[..., 0] + sx
     oy = bn2[..., 1] + sy

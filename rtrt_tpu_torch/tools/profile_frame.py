@@ -20,7 +20,9 @@ A cut frame returns the state it was given, so its frames repeat frame 0;
 the "full" frames advance the state.  Cuts: bvh, trace, steps, denoise,
 full (engine/frame.py); a delta is taken against the stage before in the
 frame (bvh < trace < denoise < full; steps, which traces in place of
-trace, against bvh).
+trace, against bvh).  A last row, "engine", times the Engine's own frames
+(render_frame_device: on the card each a replay of its CUDA graph, after
+the first frame and the two captures) and prints its graph_counts.
 
 The Engine is the repo's at `--width x --height` (its resolution bucket
 renders, upscaled to the screen size; dynamic resolution off, texture 256):
@@ -148,6 +150,26 @@ def measure(eng, stages=STAGES, frames=5):
     return out
 
 
+def measure_engine(eng, frames=5, warmup=3):
+    """The Engine's own frames: `warmup` of them (on the card the first,
+    eager frame and the captures of the two parities' graphs), then
+    `frames` timed as the cuts are.  Returns dict(ms=host ms/frame,
+    busy=device busy ms/frame or None on the CPU, counts=a copy of the
+    Engine's graph_counts after)."""
+    step = lambda: eng.render_frame_device(1 / 60)
+    for _ in range(warmup):
+        step()
+    _sync(eng.device)
+    t0 = time.perf_counter()
+    for _ in range(frames):
+        step()
+    _sync(eng.device)
+    ms = (time.perf_counter() - t0) / frames * 1e3
+    busy = device_busy(step, frames) if eng.device.type == "cuda" else None
+    counts = dict(eng.graph_counts, eager=dict(eng.graph_counts["eager"]))
+    return dict(ms=ms, busy=busy, counts=counts)
+
+
 def step_stats(steps):
     """[(name, sum, mean, p50, p90, max)] of the (SEGMENTS + 1, h, w) step
     planes over pixels: TOTAL, then seg0, seg1, ..."""
@@ -221,6 +243,11 @@ def main(argv=None):
              else f"{'not measured':>16}{'':>15}")
         print(f"{stop:<10}{ms:>14.2f}{ms - p_ms:>16.2f}{b}  "
               f"{r['launches'][stop]}")
+    e = r["replayed"] = measure_engine(eng, args.frames)
+    b = (f"{e['busy']:>16.3f}" if e["busy"] is not None
+         else f"{'not measured':>16}")
+    print(f"{'engine':<10}{e['ms']:>14.2f}{'':>16}{b}{'':>15}  "
+          f"graph_counts={e['counts']}")
     r["engine"] = eng
     return r
 

@@ -10,8 +10,11 @@ launches on the given stream and returns ``cudaGetLastError()``; `launch`
 raises if it is not 0.
 
 `launch_counts` holds one plain integer per kernel wrapper, incremented
-where the wrapper launches its kernel and nowhere else — the proof that a
-run went through the kernels (chip_smoke.py resets and reads it).
+where the wrapper launches its kernel and, for the launches it holds, by
+each replay of a frame the Engine captured as a CUDA graph — the proof
+that a run went through the kernels (chip_smoke.py resets and reads it).
+The Engine's captures leave it as it was: a capture runs nothing, and the
+eager warm-up before it delivers no frame.
 """
 
 from __future__ import annotations
@@ -53,7 +56,6 @@ launch_counts = {"packet_intersect": 0, "megakernel_trace": 0,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_U = ctypes.c_uint
 # C signatures (the last argument of each is the cudaStream_t, but for
 # the queries rtrt_smem_optin, a device attribute, and rtrt_traverse_stack,
 # the traversal stack depths that have an instantiation)
@@ -61,8 +63,8 @@ _SIGNATURES = {
     "rtrt_traverse": [_P] * 8 + [_I, _I] + [_P] * 7 + [_I, _P, _P]
     + [_I] * 4 + [_P],
     "rtrt_traverse_stack": [ctypes.POINTER(_I), _I, _I, _I],
-    "rtrt_megakernel": [_P] * 6 + [_I, _P, _I, _P] + [_F] * 4 + [_U]
-    + [_P] * 5 + [_I, _I, _I] + [_P] * 4 + [_I, _P, _P] + [_I] * 5
+    "rtrt_megakernel": [_P] * 6 + [_I, _P, _I, _P] + [_F] * 4
+    + [_P] * 6 + [_I, _I, _I] + [_P] * 4 + [_I, _P, _P] + [_I] * 5
     + [_P],
     "rtrt_post_tail": [_P, _I, _I, _P, _P, _I, _I, _I, _P] + [_P],
     "rtrt_denoise_wide": [_P] * 4 + [_I, _I, _P] + [_I] * 4 + [_F] * 3

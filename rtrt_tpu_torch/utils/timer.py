@@ -58,17 +58,20 @@ class ScopeTimer:
 
 
 class FpsLog:
-    """Once-per-second FPS + resolution log line."""
+    """Once-per-second FPS + resolution + graph counts log line."""
 
     def __init__(self, interval: float = 1.0):
         self.interval = interval
         self._last = time.perf_counter()
 
-    def maybe_log(self, fps: float, width: int, height: int):
+    def maybe_log(self, fps: float, width: int, height: int,
+                  graph_counts: dict):
+        """graph_counts: the Engine's (frames replayed, graphs captured,
+        frames run eagerly by reason), printed after the resolution."""
         # fps == 0.0: the Timer has not accumulated a second of frames yet
         if fps <= 0.0:
             return
         now = time.perf_counter()
         if now - self._last >= self.interval:
             self._last = now
-            print(f"[fps] {fps:6.1f} @ {width}x{height}")
+            print(f"[fps] {fps:6.1f} @ {width}x{height} graphs {graph_counts}")
